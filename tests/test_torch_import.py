@@ -1,0 +1,36 @@
+"""The PyTorch port imports torch and never jax, nor the JAX package."""
+
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT = ROOT / "troy_tpu_torch"
+MODULES = sorted(
+    ".".join(p.relative_to(ROOT).with_suffix("").parts)
+    for p in PORT.rglob("*.py") if p.name != "__init__.py")
+
+
+def test_import_leaves_jax_out():
+    code = (
+        "import sys, importlib\n"
+        "import troy_tpu_torch\n"
+        f"for m in {MODULES!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'troy_tpu' or m.startswith('troy_tpu.'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_sources_import_no_jax():
+    """Neither the port nor chip_smoke.py (which runs where jax is absent)
+    imports jax or the JAX package, even lazily inside a function."""
+    for path in sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+        for line in path.read_text().splitlines():
+            s = line.strip()
+            assert not (s.startswith(("import jax", "from jax", "import troy_tpu.",
+                                      "from troy_tpu.", "from troy_tpu "))
+                        or s == "import troy_tpu"), f"{path}: {s}"

@@ -1,0 +1,76 @@
+"""Key generation (counterpart of troy_tpu/core/keygen.py).
+
+Ternary secret key (NTT form, key level) and relinearization keys with the
+single-special-prime layout: key i of the (decomp, 2, L_key, n) switching
+key is Enc_s(0) + (q_special mod q_i) * target in RNS limb i only.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .context import HeContext, ContextData
+from .keys import SecretKey, RelinKeys
+from ..ops import ntt as NTT, poly as P, u32 as U
+from ..utils.random import sample_uniform, sample_ternary, sample_cbd
+
+
+class KeyGenerator:
+    def __init__(self, context: HeContext, generator: torch.Generator,
+                 sk: SecretKey | None = None):
+        self.context = context
+        self.generator = generator
+        cd = context.key_context_data()
+        if sk is None:
+            qtab = cd.qtab()
+            s = sample_ternary((cd.parms.poly_modulus_degree,), qtab, generator)
+            sk = SecretKey(NTT.ntt_forward(s, qtab), cd.parms_id)
+        self._sk = sk
+        self._sk_powers: dict[int, torch.Tensor] = {1: sk.data}
+
+    @property
+    def secret_key(self) -> SecretKey:
+        return self._sk
+
+    def secret_key_power(self, k: int) -> torch.Tensor:
+        """s^k in NTT form at key level (cached)."""
+        if k not in self._sk_powers:
+            qtab = self.context.key_context_data().qtab()
+            self._sk_powers[k] = P.dyadic_product(
+                self.secret_key_power(k - 1), self._sk.data, qtab)
+        return self._sk_powers[k]
+
+    def _generate_one_kswitch_key(self, target_ntt: torch.Tensor) -> torch.Tensor:
+        cd = self.context.key_context_data()
+        if not self.context.using_keyswitching:
+            raise ValueError("[KeyGenerator] context has no special prime")
+        qtab = cd.qtab()
+        n = cd.parms.poly_modulus_degree
+        decomp = cd.coeff_modulus_size - 1
+        a = sample_uniform((decomp, cd.coeff_modulus_size, n), qtab, self.generator)
+        e = sample_cbd((decomp, n), qtab, self.generator)
+        return self._kswitch_combine(cd, target_ntt, a, e, self._sk.data)
+
+    @staticmethod
+    def _kswitch_combine(cd: ContextData, target_ntt, a, e, s) -> torch.Tensor:
+        """Switching-key assembly from given a (NTT form) and e (coefficient
+        form): (decomp, 2, L_key, n)."""
+        qtab = cd.qtab()
+        L_key = cd.coeff_modulus_size
+        decomp = L_key - 1
+        q_sp = cd.parms.coeff_modulus[-1].value
+        c0 = P.negate(P.add(P.dyadic_product(a, s[None], qtab),
+                            NTT.ntt_forward(e, qtab), qtab), qtab)
+        # add (q_sp mod q_i) * target at limb i of key i only
+        factor = torch.tensor([q_sp % m.value for m in cd.parms.coeff_modulus],
+                              dtype=torch.int64, device=cd.device).view(-1, 1)
+        term = U.mul_mod(target_ntt, factor, qtab.q.view(-1, 1))
+        mask = torch.eye(decomp, L_key, dtype=torch.bool, device=cd.device)[:, :, None]
+        c0 = torch.where(mask, P.add(c0, term[None], qtab), c0)
+        return torch.stack([c0, a], dim=1)
+
+    def create_relin_keys(self, max_power: int = 2) -> RelinKeys:
+        """Switching keys for s^2 .. s^max_power."""
+        keys = {p - 2: self._generate_one_kswitch_key(self.secret_key_power(p))
+                for p in range(2, max_power + 1)}
+        return RelinKeys(keys, self.context.key_parms_id)

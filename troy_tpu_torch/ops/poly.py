@@ -1,0 +1,41 @@
+"""Elementwise RNS-polynomial operations on int64 residue tensors.
+
+Counterpart of troy_tpu/ops/poly.py: polynomials are (..., L, n) tensors,
+moduli come from a table object with a (L,) int64 `q` (ops/ntt.NTTTables or
+rns/rns_base.RNSBase), broadcast as an (L, 1) column.  Outputs are fully
+reduced in [0, q).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import u32 as U
+
+
+def _bq(t) -> torch.Tensor:
+    """The (L,) moduli of t as a column against (..., L, n) data."""
+    return t.q.view(-1, 1)
+
+
+def add(x, y, t):
+    return U.add_mod(x, y, _bq(t))
+
+
+def sub(x, y, t):
+    return U.sub_mod(x, y, _bq(t))
+
+
+def negate(x, t):
+    return U.neg_mod(x, _bq(t))
+
+
+def multiply_scalar(x, scalar: int, t):
+    """x * scalar mod q for a host integer scalar."""
+    q = _bq(t)
+    return U.mul_mod(x, scalar % q, q)
+
+
+def dyadic_product(x, y, t):
+    """Pointwise x * y mod q (NTT-domain products)."""
+    return U.mul_mod(x, y, _bq(t))
