@@ -66,9 +66,14 @@ def test_rns_tool_bases_match(n, bits, log_t):
     assert tt.base_Bsk.values == jt.base_Bsk.values
     assert tt.m_sk.value == jt.m_sk.value
     assert tt.gamma.value == jt.gamma.value
-    np.testing.assert_array_equal(tt.ff_mat_qinv.numpy(), np.asarray(jt.ff_mat_qinv))
-    np.testing.assert_array_equal(tt.conv_q_to_Bsk._mat.numpy(),
-                                  np.asarray(jt.conv_q_to_Bsk._mat))
+    assert tt.base_Bsk_m_tilde.values == jt.base_Bsk_m_tilde.values
+    np.testing.assert_array_equal(tt.ff_tables.mat.numpy(), np.asarray(jt.ff_mat_qinv))
+    np.testing.assert_array_equal(tt.ff_tables.ip.numpy(),
+                                  np.asarray(jt.ff_inv_punc_t)[:, 0])
+    for conv in ("conv_q_to_Bsk", "conv_q_to_Bsk_m_tilde", "conv_B_to_q",
+                 "conv_B_to_m_sk", "conv_q_to_t_gamma"):
+        np.testing.assert_array_equal(getattr(tt, conv).tables.mat.numpy(),
+                                      np.asarray(getattr(jt, conv)._mat), err_msg=conv)
     np.testing.assert_array_equal(tt.hps_inv_q_f32.numpy(),
                                   np.asarray(jt.hps_inv_q_f32)[:, 0])
     np.testing.assert_array_equal(tt.bsk_ntt.psi_br.numpy(), jt.bsk_ntt.host["psi_br"])

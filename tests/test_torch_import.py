@@ -11,6 +11,12 @@ MODULES = sorted(
     for p in PORT.rglob("*.py") if p.name != "__init__.py")
 
 
+def test_module_list_covers_the_kernel_wrappers():
+    for m in ("ops._cuda_build", "ops.ntt_cuda", "ops.bconv", "ops.bconv_cuda",
+              "ops.fused_mul", "ops.fused_mul_cuda"):
+        assert "troy_tpu_torch." + m in MODULES
+
+
 def test_import_leaves_jax_out():
     code = (
         "import sys, importlib\n"

@@ -1,7 +1,8 @@
 """Port RNS layer (troy_tpu_torch/rns) against the JAX package, bit for bit:
-base conversion, the HPS lift with its float32 alpha, the t-folded fast
-floor with the Shenoy-Kumaresan conversion, BFV decrypt rounding, and the
-encrypt-side scale_up."""
+base conversion, the HPS lift with its float32 alpha, the BEHZ m~ / sm_mrq
+lift, the t-folded fast floor with the Shenoy-Kumaresan conversion (also
+against the JAX package's unfused floor), BFV decrypt rounding, the
+encrypt-side scale_up, and the host CRT compose."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -9,6 +10,8 @@ import pytest
 import torch
 
 from troy_tpu.core.modulus import Modulus as JModulus
+from troy_tpu.ops import poly as JP
+from troy_tpu.rns import rns_base as JRB
 from troy_tpu.rns.rns_base import RNSBase as JBase
 from troy_tpu.rns.rns_tool import RNSTool as JTool
 from troy_tpu.rns.scaling import BFVScaler as JScaler
@@ -83,6 +86,54 @@ def test_fast_floor_scale_fast_b_conv_sk(log_n, L):
     d_b = residues((2, 3), tt.base_Bsk.values, n)
     same(jt.fast_floor_scale_fast_b_conv_sk(jnp.asarray(d_q), jnp.asarray(d_b)),
          tt.fast_floor_scale_fast_b_conv_sk(tensor(d_q), tensor(d_b)))
+
+
+@pytest.mark.parametrize("log_n,L", [(10, 3), (9, 6)])
+def test_behz_lift(log_n, L):
+    """fast_b_conv_m_tilde_sm_mrq under both JAX base-conversion backends:
+    the VPU dot and the Pallas kernel K3 (interpret mode), whose tables come
+    from a non-prime modulus m~ = 2^16."""
+    jt, tt = tools(log_n, L)
+    x = residues((2, 2), tt.base_q.values, 1 << log_n)
+    got = tt.fast_b_conv_m_tilde_sm_mrq(tensor(x))
+    prev = JRB.get_bconv_backend()
+    try:
+        for backend in ("vpu", "pallas"):
+            JRB.set_bconv_backend(backend)
+            same(jt.fast_b_conv_m_tilde_sm_mrq(jnp.asarray(x)), got)
+    finally:
+        JRB.set_bconv_backend(prev)
+
+
+@pytest.mark.parametrize("log_n,L", [(10, 3)])
+def test_folded_floor_matches_unfused(log_n, L):
+    """The port has only the t-folded floor; it equals the JAX package's
+    unfused floor, a separate x t pass and conv_q_to_Bsk, as the JAX
+    evaluator composes them off the VPU backend (evaluator.py:374-376)."""
+    jt, tt = tools(log_n, L)
+    n = 1 << log_n
+    d_q = residues((2, 3), tt.base_q.values, n)
+    d_b = residues((2, 3), tt.base_Bsk.values, n)
+    t = tt.t.value
+    w_q = JP.multiply_scalar(jnp.asarray(d_q), t, jt.base_q.pack())
+    w_b = JP.multiply_scalar(jnp.asarray(d_b), t, jt.base_Bsk.pack())
+    got = tt.fast_floor_scale_fast_b_conv_sk(tensor(d_q), tensor(d_b))
+    prev = JRB.get_bconv_backend()
+    try:
+        for backend in ("vpu", "pallas"):
+            JRB.set_bconv_backend(backend)
+            same(jt.fast_floor_fast_b_conv_sk(w_q, w_b), got)
+    finally:
+        JRB.set_bconv_backend(prev)
+
+
+def test_compose_array_host():
+    jt, tt = tools(10, 3)
+    for base, jbase in ((tt.base_q, jt.base_q), (tt.base_Bsk, jt.base_Bsk)):
+        x = residues((), base.values, 64)
+        got = base.compose_array_host(x)
+        assert got == jbase.compose_array_host(x)
+        assert all(isinstance(v, int) and 0 <= v < base.prod for v in got)
 
 
 @pytest.mark.parametrize("log_n,L", [(10, 3)])

@@ -1,9 +1,10 @@
 """BFV decryption (counterpart of troy_tpu/core/decryptor.py): the phase
 c0 + c1 s + c2 s^2 + ... via NTT-form secret-key powers, then the exact
-{t, gamma} rounding of the RNS tool."""
+{t, gamma} rounding of the RNS tool; and the invariant noise budget."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .context import HeContext, ContextData
@@ -42,3 +43,20 @@ class Decryptor:
         cd = self.context.get_context_data(ct.parms_id)
         m = cd.rns_tool.decrypt_scale_and_round(self.phase(cd, ct.data))
         return Plaintext(m[None, :], parms_id=ct.parms_id)
+
+    def invariant_noise_budget(self, ct: Ciphertext) -> int:
+        """log2(Q / 2 ||t * phase mod Q||) in bits, from a host-side CRT
+        compose of the phase: a check for tests and users, not a device op."""
+        if ct.is_ntt_form:
+            raise ValueError("[Decryptor] BFV ciphertexts are coefficient form")
+        cd = self.context.get_context_data(ct.parms_id)
+        t = cd.parms.plain_modulus.value
+        if not t:
+            raise ValueError("[Decryptor] noise budget needs a plain modulus")
+        Q = cd.base_q.prod
+        ph = self.phase(cd, ct.data).cpu().numpy()
+        w = np.array(cd.base_q.compose_array_host(ph), dtype=object) * t % Q
+        norm = int(np.where(w > Q // 2, Q - w, w).max())
+        if norm == 0:
+            return Q.bit_length() - 1
+        return max(0, Q.bit_length() - norm.bit_length() - 1)

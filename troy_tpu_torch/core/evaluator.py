@@ -1,10 +1,12 @@
 """BFV evaluator: add, multiply, relinearize (counterpart of
 troy_tpu/core/evaluator.py, BFV at the u32 fast width).
 
-multiply is the BEHZ tensor product with the HPS lift of base q to Bsk and
-the t-folded fast floor; relinearize switches c2 with the key for s^2 over
-single-special-prime keys.  Per-level tables are built on first use and
-cached on the ContextData.
+multiply is the BEHZ tensor product with a lift of base q to Bsk and the
+t-folded fast floor.  The lift is chosen per evaluator: "hps" (the default,
+the JAX package's default) or "behz", the reference-exact m~ / sm_mrq lift
+that the JAX package selects with TROY_BFV_BCONV=behz.  relinearize switches
+c2 with the key for s^2 over single-special-prime keys.  Per-level tables are
+built on first use and cached on the ContextData.
 """
 
 from __future__ import annotations
@@ -19,11 +21,17 @@ from ..ops import ntt as NTT, poly as P, u32 as U, dyadic as D
 from ..utils import numth
 
 
+LIFTS = ("hps", "behz")
+
+
 class Evaluator:
-    def __init__(self, context: HeContext):
+    def __init__(self, context: HeContext, lift: str = "hps"):
         if context.scheme != SchemeType.BFV:
             raise ValueError("[Evaluator] the port supports BFV only")
+        if lift not in LIFTS:
+            raise ValueError(f"[Evaluator] lift={lift!r}: expected 'hps' or 'behz'")
         self.context = context
+        self.lift = lift
 
     def _cd(self, ct: Ciphertext) -> ContextData:
         return self.context.get_context_data(ct.parms_id)
@@ -57,11 +65,11 @@ class Evaluator:
         tool = cd.rns_tool
         qtab = cd.qtab()
         btab = tool.bsk_ntt
+        lift = (tool.fast_b_conv_hps if self.lift == "hps"
+                else tool.fast_b_conv_m_tilde_sm_mrq)
 
         def prep(x):
-            x_q = NTT.ntt_forward(x, qtab)
-            x_b = NTT.ntt_forward(tool.fast_b_conv_hps(x), btab)
-            return x_q, x_b
+            return NTT.ntt_forward(x, qtab), NTT.ntt_forward(lift(x), btab)
 
         a_q, a_b = prep(x1)
         if x2 is None:

@@ -17,6 +17,8 @@
 // below 4q < 2^32 (q < 2^30), so nothing leaves 32 bits between stages.
 // Twiddles are the radix-2 tables psi^brv(i) with Shoup companions, read
 // from global memory (they stay in L1/L2: one (L, n) table serves every row).
+// The stages live in ntt_common.cuh, shared with the fused tensor-product
+// kernel (fused_mul.cu).
 //
 // Bound: at these sizes the kernel is bound by device-memory traffic (one
 // 8-byte load and store per coefficient; residues travel as int64, the
@@ -34,13 +36,9 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-namespace {
+#include "ntt_common.cuh"
 
-// x * w mod q in [0, 2q) for any x < 2^32, w < q, ws = floor(w * 2^32 / q).
-__device__ __forceinline__ uint32_t shoup_lazy(uint32_t x, uint32_t w,
-                                               uint32_t ws, uint32_t q) {
-  return x * w - __umulhi(x, ws) * q;
-}
+namespace {
 
 __global__ void ntt_forward_kernel(const int64_t* __restrict__ in,
                                    int64_t* __restrict__ out,
@@ -49,43 +47,18 @@ __global__ void ntt_forward_kernel(const int64_t* __restrict__ in,
                                    int L, int log_n) {
   extern __shared__ uint32_t s[];
   const int n = 1 << log_n;
-  const int half = n >> 1;
   const int limb = blockIdx.x % L;
   const size_t base = static_cast<size_t>(blockIdx.x) * n;
   const uint32_t q = scalars[limb];
-  const uint32_t two_q = q << 1;
   const uint32_t* psi = rows + static_cast<size_t>(limb) * n;
   const uint32_t* psi_sh = rows + static_cast<size_t>(L + limb) * n;
 
   for (int i = threadIdx.x; i < n; i += blockDim.x)
     s[i] = static_cast<uint32_t>(in[base + i]);
   __syncthreads();
-
-  // Stage with m = 2^log_m groups of t = n / 2m butterflies: pairs
-  // (a, a + t) with a = 2 g t + k, twiddle psi_br[m + g].
-  for (int log_m = 0; log_m < log_n; ++log_m) {
-    const int log_t = log_n - 1 - log_m;
-    const int t_mask = (1 << log_t) - 1;
-    for (int j = threadIdx.x; j < half; j += blockDim.x) {
-      const int g = j >> log_t;
-      const int a = ((g << 1) << log_t) + (j & t_mask);
-      const int b = a + (1 << log_t);
-      const int w = (1 << log_m) + g;
-      uint32_t u = s[a];                                  // [0, 4q)
-      u = u >= two_q ? u - two_q : u;                     // [0, 2q)
-      const uint32_t v = shoup_lazy(s[b], psi[w], psi_sh[w], q);  // [0, 2q)
-      s[a] = u + v;                                       // [0, 4q)
-      s[b] = u + two_q - v;                               // [0, 4q)
-    }
-    __syncthreads();
-  }
-
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    uint32_t v = s[i];
-    v = v >= two_q ? v - two_q : v;
-    v = v >= q ? v - q : v;
-    out[base + i] = static_cast<int64_t>(v);
-  }
+  troy::forward_stages<1>(s, log_n, psi, psi_sh, q);
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    out[base + i] = static_cast<int64_t>(troy::reduce_from_4q(s[i], q));
 }
 
 __global__ void ntt_inverse_kernel(const int64_t* __restrict__ in,
@@ -95,11 +68,9 @@ __global__ void ntt_inverse_kernel(const int64_t* __restrict__ in,
                                    int L, int log_n) {
   extern __shared__ uint32_t s[];
   const int n = 1 << log_n;
-  const int half = n >> 1;
   const int limb = blockIdx.x % L;
   const size_t base = static_cast<size_t>(blockIdx.x) * n;
   const uint32_t q = scalars[limb];
-  const uint32_t two_q = q << 1;
   const uint32_t n_inv = scalars[L + limb];
   const uint32_t n_inv_sh = scalars[2 * L + limb];
   const uint32_t* ipsi = rows + static_cast<size_t>(2 * L + limb) * n;
@@ -108,31 +79,10 @@ __global__ void ntt_inverse_kernel(const int64_t* __restrict__ in,
   for (int i = threadIdx.x; i < n; i += blockDim.x)
     s[i] = static_cast<uint32_t>(in[base + i]);
   __syncthreads();
-
-  // Gentleman-Sande stages, m = n/2 down to 1; values stay in [0, 2q).
-  for (int log_m = log_n - 1; log_m >= 0; --log_m) {
-    const int log_t = log_n - 1 - log_m;
-    const int t_mask = (1 << log_t) - 1;
-    for (int j = threadIdx.x; j < half; j += blockDim.x) {
-      const int g = j >> log_t;
-      const int a = ((g << 1) << log_t) + (j & t_mask);
-      const int b = a + (1 << log_t);
-      const int w = (1 << log_m) + g;
-      const uint32_t u = s[a];
-      const uint32_t v = s[b];
-      uint32_t x0 = u + v;
-      x0 = x0 >= two_q ? x0 - two_q : x0;
-      s[a] = x0;
-      s[b] = shoup_lazy(u + two_q - v, ipsi[w], ipsi_sh[w], q);
-    }
-    __syncthreads();
-  }
-
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    uint32_t v = shoup_lazy(s[i], n_inv, n_inv_sh, q);
-    v = v >= q ? v - q : v;
-    out[base + i] = static_cast<int64_t>(v);
-  }
+  troy::inverse_stages<1>(s, log_n, ipsi, ipsi_sh, q);
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    out[base + i] = static_cast<int64_t>(
+        troy::scale_n_inv(s[i], n_inv, n_inv_sh, q));
 }
 
 constexpr size_t kDefaultSmem = 48 * 1024;

@@ -4,11 +4,9 @@ Counterpart of troy_tpu/ops/ntt_pallas.py (K1 and K2: the VPU and MXU
 Pallas NTT kernels, which compute the same transform).  The plain PyTorch
 version is ops/ntt.py:ntt_forward_plain / ntt_inverse_plain.
 
-The kernels are compiled at first use by nvcc, from the package's own
-source, into troy_tpu_torch/build/ (a shared library with a plain C
-interface, loaded with ctypes), for sm_90a.  The library name carries a hash
-of the source, so an edited kernel is never served by a stale build.  A
-failed build or launch raises: nothing falls back to the plain version.
+The kernels are compiled at first use with the port's other kernels
+(ops/_cuda_build.py).  A failed build or launch raises: nothing falls back
+to the plain version.
 
 LAUNCHES counts the launches of each kernel; a run reads it to show that its
 main path went through the kernels.
@@ -17,67 +15,19 @@ main path went through the kernels.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
+from . import _cuda_build
 from .ntt import NTTTables
 
 LAUNCHES = {"ntt_forward": 0, "ntt_inverse": 0}
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "ntt.cu"
-BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
 MAX_LOG_N = 15      # one polynomial of n <= 32768 u32 values in shared memory
 MODULUS_BOUND = 1 << 30  # lazy stage values below 4q must fit 32 bits
-
-_lib = None
-
-
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("[ntt_cuda] nvcc not found: the CUDA toolkit is "
-                           "needed to build csrc/ntt.cu")
-    return path
-
-
-def build() -> Path:
-    """Compile csrc/ntt.cu (if not yet built) and return the library path."""
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    lib = BUILD_DIR / f"troy_ntt_{digest}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"[ntt_cuda] nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib
-
-
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                    ctypes.c_int, ctypes.c_void_p]
-        for name in ("troy_ntt_forward", "troy_ntt_inverse"):
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+             ctypes.c_int, ctypes.c_void_p]
 
 
 def _check(x: torch.Tensor, t: NTTTables):
@@ -103,12 +53,12 @@ def _check(x: torch.Tensor, t: NTTTables):
 
 def _launch(name: str, x: torch.Tensor, t: NTTTables) -> torch.Tensor:
     _check(x, t)
-    lib = _load()
+    fn = _cuda_build.function("troy_" + name, _ARGTYPES)
     out = torch.empty_like(x)
     rows = x.numel() // t.n
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = getattr(lib, "troy_" + name)(
+        err = fn(
             x.data_ptr(), out.data_ptr(), t.kernel_rows.data_ptr(),
             t.kernel_scalars.data_ptr(), rows, t.size, t.log_n, stream)
     if err != 0:

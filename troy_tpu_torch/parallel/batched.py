@@ -16,7 +16,7 @@ from ..ops import poly as P
 
 class BatchedEvaluator:
     """Operates on raw stacked ciphertext tensors (B, size, L, n) at one
-    chain level."""
+    chain level, with the evaluator's lift."""
 
     def __init__(self, evaluator: Evaluator, cd: ContextData):
         self.ev = evaluator

@@ -5,17 +5,19 @@ constants; the device holds (L,) int64 tensors.  The base-change
 
     y_j = sum_i [x_i * (Q/q_i)^-1]_{q_i} * [(Q/q_i)]_{p_j}  mod p_j
 
-runs as an exact int64 dot (ops/u32.dot_mod), the counterpart of the JAX
-package's VPU dot path.
+runs through ops/bconv.base_convert: the Hopper kernel (csrc/bconv.cu, the
+counterpart of the JAX package's Pallas K3) on a CUDA tensor, an exact int64
+dot on a CPU tensor.  Both give the JAX package's residues bit for bit.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core.modulus import Modulus
 from ..utils import numth
-from ..ops import u32 as U
+from ..ops import bconv as BC
 
 
 class RNSBase:
@@ -42,8 +44,15 @@ class RNSBase:
             numth.invert_mod(p % v, v) for p, v in zip(self.punctured, vals)
         ]
         self.q = torch.tensor(vals, dtype=torch.int64, device=self.device)
-        self.inv_punctured_t = torch.tensor(self.inv_punctured, dtype=torch.int64,
-                                            device=self.device)
+
+    def compose_array_host(self, arr: np.ndarray) -> list[int]:
+        """(L, n) residues -> list of Python ints in [0, Q), by the CRT over
+        object-dtype numpy rows."""
+        acc = np.zeros(arr.shape[1], dtype=object)
+        for i in range(self.size):
+            row = np.asarray(arr[i]).astype(object)
+            acc += (row * self.inv_punctured[i] % self.values[i]) * self.punctured[i]
+        return list(acc % self.prod)
 
 
 class BaseConverter:
@@ -53,14 +62,12 @@ class BaseConverter:
     def __init__(self, ibase: RNSBase, obase: RNSBase):
         self.ibase = ibase
         self.obase = obase
-        # mat[j, i] = (Q/q_i) mod p_j
-        mat = [[punc % p for punc in ibase.punctured] for p in obase.values]
-        self._mat = torch.tensor(mat, dtype=torch.int64, device=obase.device)
+        # tables.mat[j, i] = (Q/q_i) mod p_j
+        self.tables = BC.BConvTables(
+            ibase.values, ibase.inv_punctured, obase.values,
+            [[punc % p for punc in ibase.punctured] for p in obase.values],
+            obase.device)
 
     def convert(self, x: torch.Tensor) -> torch.Tensor:
         """x: (..., L_in, n) residues in ibase -> (..., L_out, n) in obase."""
-        ib = self.ibase
-        tmp = U.mul_mod(x, ib.inv_punctured_t.view(-1, 1), ib.q.view(-1, 1))
-        pairs = [(tmp[..., i:i + 1, :], self._mat[:, i:i + 1])
-                 for i in range(ib.size)]
-        return U.dot_mod(pairs, self.obase.q.view(-1, 1))
+        return BC.base_convert(x, self.tables)

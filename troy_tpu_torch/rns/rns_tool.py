@@ -3,10 +3,17 @@
 Counterpart of troy_tpu/rns/rns_tool.py, for the BFV multiply and decrypt:
 
   * fast_b_conv_hps: the HPS lift of base q to the auxiliary base Bsk, with
-    the q-overflow count alpha estimated in float32;
+    the q-overflow count alpha estimated in float32 (the default lift);
+  * fast_b_conv_m_tilde_sm_mrq: the reference-exact BEHZ lift, a fast
+    conversion to Bsk u {m~} of m~ x, then Montgomery's small reduction by m~;
   * fast_floor_scale_fast_b_conv_sk: floor(t * d / Q) with the x t scale
     folded into the tables, then the Shenoy-Kumaresan conversion back to q;
   * decrypt_scale_and_round: the exact {t, gamma} rounding of t * phase / Q.
+
+Every base conversion goes through ops/bconv.base_convert (the Hopper kernel
+on a CUDA tensor).  The JAX package's unfused floor, fast_floor_fast_b_conv_sk
+(a separate x t pass, then conv_q_to_Bsk), is not ported: the folded floor
+computes the same integer (t D - X) / Q and equals it bit for bit.
 
 The auxiliary primes (B, m_sk, gamma) are chosen by the same search as the
 JAX package, so both packages hold the same bases.
@@ -18,9 +25,13 @@ import torch
 
 from ..core.modulus import Modulus
 from ..utils import numth
-from ..ops import u32 as U
+from ..ops import bconv as BC, u32 as U
 from ..ops.ntt import NTTTables
 from .rns_base import RNSBase, BaseConverter
+
+# m~ of the BEHZ lift (the reference uses 2^32 with 64-bit lanes); the BEHZ
+# bound needs only m~ > 2 |base q|, as in the JAX package.
+M_TILDE = 1 << 16
 
 
 def _aux_primes(n: int, exclude: set[int], count: int, need_ntt: bool = True) -> list[int]:
@@ -73,6 +84,10 @@ class RNSTool:
         self.base_B = RNSBase([Modulus(p) for p in b_primes], dev)
         self.base_Bsk = RNSBase([Modulus(p) for p in b_primes + [m_sk]], dev)
         self.m_sk = Modulus(m_sk)
+        self.m_tilde = Modulus(M_TILDE)
+        self.base_Bsk_m_tilde = RNSBase(
+            [Modulus(p) for p in b_primes + [m_sk, M_TILDE]], dev)
+        self.conv_q_to_Bsk_m_tilde = BaseConverter(base_q, self.base_Bsk_m_tilde)
         self.conv_q_to_Bsk = BaseConverter(base_q, self.base_Bsk)
         self.conv_B_to_q = BaseConverter(self.base_B, base_q)
         self.conv_B_to_m_sk = BaseConverter(self.base_B, RNSBase([self.m_sk], dev))
@@ -87,22 +102,32 @@ class RNSTool:
         self.prod_B_mod_q = col([B_prod % q for q in q_values])
         self.prod_B_m_sk_mod_q = col([(B_prod * m_sk) % q for q in q_values])
 
+        # ---- BEHZ sm_mrq: -Q^-1 mod m~, Q and Q m~ mod Bsk, m~^-1 mod Bsk ---
+        self.neg_inv_prod_q_mod_m_tilde = (
+            -numth.invert_mod(Q % M_TILDE, M_TILDE)) % M_TILDE
+        self.prod_q_mod_Bsk = col([Q % b for b in bsk_vals])
+        self.prod_q_m_tilde_mod_Bsk = col([(Q * M_TILDE) % b for b in bsk_vals])
+        self.inv_m_tilde_mod_Bsk = col([numth.invert_mod(M_TILDE % b, b)
+                                        for b in bsk_vals])
+
         # ---- HPS lift: -Q mod b_j as the alpha-correction dot term; 1/q_i
         # in float32 for the alpha estimate -----------------------------------
         self.hps_neg_q_mod_Bsk = col([(b - Q % b) % b for b in bsk_vals])
         self.hps_inv_q_f32 = torch.tensor([1.0 / q for q in q_values],
                                           dtype=torch.float32, device=dev)
 
-        # ---- t-folded fast_floor constants ----------------------------------
+        # ---- t-folded fast_floor: x_div = sum_i [d_i t q^_i^-1]_{q_i}
+        # ((Q/q_i) Q^-1 mod b_j), a base conversion with folded tables -------
         tv = t.value
-        self.ff_inv_punc_t = col([(tv * ip) % q for ip, q in
-                                  zip(base_q.inv_punctured, q_values)])
-        self.ff_t_qinv_mod_Bsk = col([(tv * numth.invert_mod(Q % b, b)) % b
-                                      for b in bsk_vals])
-        self.ff_mat_qinv = torch.tensor(
+        self.ff_tables = BC.BConvTables(
+            q_values,
+            [(tv * ip) % q for ip, q in zip(base_q.inv_punctured, q_values)],
+            bsk_vals,
             [[(punc % bv) * numth.invert_mod(Q % bv, bv) % bv
               for punc in base_q.punctured] for bv in bsk_vals],
-            dtype=torch.int64, device=dev)
+            dev)
+        self.ff_t_qinv_mod_Bsk = col([(tv * numth.invert_mod(Q % b, b)) % b
+                                      for b in bsk_vals])
 
         # ---- {t, gamma} decrypt ---------------------------------------------
         gamma = _aux_primes(n, used, 1, need_ntt=False)[0]
@@ -126,17 +151,35 @@ class RNSTool:
         {-1, 0, +1}.  The float32 sum is an explicit left fold over limbs in
         separate elementwise ops, so it rounds the same way on every device
         (and as the JAX package's sum does)."""
-        bq = self.base_q
-        tmp = U.mul_mod(x, bq.inv_punctured_t.view(-1, 1), bq.q.view(-1, 1))
+        tabs = self.conv_q_to_Bsk.tables
+        tmp = U.mul_mod(x, tabs.ip.view(-1, 1), tabs.q_in.view(-1, 1))
         inv_q = self.hps_inv_q_f32
         est = tmp[..., 0:1, :].to(torch.float32) * inv_q[0]
-        for i in range(1, bq.size):
+        for i in range(1, tabs.L_in):
             est = est + tmp[..., i:i + 1, :].to(torch.float32) * inv_q[i]
         alpha = torch.round(est).to(torch.int64)
-        mat = self.conv_q_to_Bsk._mat
-        pairs = [(tmp[..., i:i + 1, :], mat[:, i:i + 1]) for i in range(bq.size)]
+        pairs = [(tmp[..., i:i + 1, :], tabs.mat[:, i:i + 1]) for i in range(tabs.L_in)]
         pairs.append((alpha, self.hps_neg_q_mod_Bsk))
         return U.dot_mod(pairs, self.base_Bsk.q.view(-1, 1))
+
+    # ------------------------------------------------------------------
+    # BFV multiply, reference-exact BEHZ lift (steps 1-2)
+    # ------------------------------------------------------------------
+    def fast_b_conv_m_tilde_sm_mrq(self, x: torch.Tensor) -> torch.Tensor:
+        """x: (..., L, n) in base q -> (..., |Bsk|, n): the residues of a
+        value congruent to x with bounded overflow.  Step 1 converts m~ x to
+        Bsk u {m~}; step 2 (sm_mrq) adds Q r with r = [-x Q^-1]_{m~}, centred,
+        and divides by m~."""
+        q = self.base_q.q.view(-1, 1)
+        conv = self.conv_q_to_Bsk_m_tilde.convert(U.mul_mod(x, M_TILDE, q))
+        x_bsk = conv[..., :-1, :]
+        r = conv[..., -1:, :] * self.neg_inv_prod_q_mod_m_tilde & (M_TILDE - 1)
+        b = self.base_Bsk.q.view(-1, 1)
+        y = U.add_mod(x_bsk, U.mul_mod(self.prod_q_mod_Bsk, r, b), b)
+        # centring: r >= m~/2 means the true correction is r - m~
+        y = torch.where(r >= M_TILDE // 2,
+                        U.sub_mod(y, self.prod_q_m_tilde_mod_Bsk, b), y)
+        return U.mul_mod(y, self.inv_m_tilde_mod_Bsk, b)
 
     # ------------------------------------------------------------------
     # BFV multiply: floor(t * d / Q) and Shenoy-Kumaresan back to q
@@ -146,16 +189,13 @@ class RNSTool:
         """Inputs are the raw tensor-product residues d = c1*c2 (coefficient
         domain) in base q and Bsk; returns floor(t*d/Q) in base q."""
         b = self.base_Bsk.q.view(-1, 1)
-        y = U.mul_mod(d_q, self.ff_inv_punc_t, self.base_q.q.view(-1, 1))
-        pairs = [(y[..., i:i + 1, :], self.ff_mat_qinv[:, i:i + 1])
-                 for i in range(self.base_q.size)]
-        x_div = U.dot_mod(pairs, b)
+        x_div = BC.base_convert(d_q, self.ff_tables)
         w = U.mul_mod(d_bsk, self.ff_t_qinv_mod_Bsk, b)
         return self._b_conv_sk(U.sub_mod(w, x_div, b))
 
     def _b_conv_sk(self, y: torch.Tensor) -> torch.Tensor:
         """Shenoy-Kumaresan exact conversion Bsk -> q."""
-        y_B = y[..., :-1, :]
+        y_B = y[..., :-1, :].contiguous()
         y_msk = y[..., -1:, :]
         u = self.conv_B_to_q.convert(y_B)
         c_msk = self.conv_B_to_m_sk.convert(y_B)
