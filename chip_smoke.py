@@ -3,11 +3,13 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, the batched BFV multiply + relinearize step,
-at n = 8192 on a 7 x 30-bit chain (the last prime special), plain modulus
-PlainModulus.batching(8192, 20), batch 16, under both lifts of base q to the
-auxiliary base Bsk: the default HPS lift and the reference-exact BEHZ lift
-(Evaluator(ctx, lift="behz")).  In phases:
+Drives the port's server paths at n = 8192 on a 7 x 30-bit chain (the last
+prime special, so data level L = 6), plain modulus
+PlainModulus.batching(8192, 20), batch 16: the batched BFV multiply +
+relinearize step under both lifts of base q to the auxiliary base Bsk (the
+default HPS lift and the reference-exact BEHZ lift, Evaluator(ctx,
+lift="behz")), the batched Galois rotations and the mod switch; and the
+client flow of examples/99_quickstart.py.  In phases:
 
   1. device   the card's name and power limit (fails without CUDA);
   2. build    nvcc builds every csrc/*.cu into one library under
@@ -28,9 +30,27 @@ auxiliary base Bsk: the default HPS lift and the reference-exact BEHZ lift
               K4 is driven at its own entry point, the tensor-product stage
               of the same multiply: it must launch, equal the evaluator's
               unfused stage, and give the step's product through the floor;
-  5. times    CUDA-event times of the chained steps against their all-plain
-              versions, and of each kernel against its plain version (K4
-              also against the unfused kernel path).
+  5. rotate   Galois keys for steps 1, 4, -1 and the conjugation element, a
+              public key, 16 distinct messages encrypted under it; the
+              batched rotate_rows(1) (one keyswitch round), rotate_rows(3)
+              (NAF -1 + 4: two rounds) and rotate_columns.  Each must launch
+              the NTT kernels, equal its all-plain run, and decrypt to the
+              rotated slots; row 0 of rotate_rows(3) must equal
+              Evaluator.rotate_rows on ciphertext 0;
+  6. modswitch the batched mod switch from L = 6 to L = 5, then
+              rotate_rows(1) at L = 5: equal to the all-plain run, decrypting
+              right, with K3 launched by decrypt at (5, 8192);
+  7. client   examples/99_quickstart.py's flow (public key,
+              encrypt_asymmetric, add, decrypt, decode), multiply_plain in
+              coefficient and NTT form, add_plain, and one special-prime
+              encryption, each decrypting right;
+  8. times    CUDA-event times of the chained steps against their all-plain
+              versions (multiply + relinearize, the three rotations, the mod
+              switch), the profiler's launches, device time and busy share
+              of one rotate_rows(1) and one rotate_columns step, one Galois
+              round split into its stages (gather, keyswitch, add), and each
+              kernel against its plain version (K4 also against the unfused
+              kernel path).
 
 Prints one JSON line of kernel results, then the nvidia-smi line, then
 {"ok": true, "device": {...}} as the last line.  Any failure raises, so the
@@ -50,6 +70,7 @@ import torch
 
 N = 8192
 Q_BITS = [30] * 7
+L_DATA = len(Q_BITS) - 1   # the special prime is dropped at the data levels
 LOG_T = 20
 BATCH = 16
 KEY_SEED = 0xBEEF
@@ -57,6 +78,9 @@ MSG_SEED = 7
 REPS = 20
 KERNEL_REPS = 50
 PLAIN_REPS = 5
+PROFILE_STEPS = 5
+ROT_KEY_STEPS = [1, 4, -1]
+QUICKSTART_BITS = [30] * 4
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "ntt_forward": ("troy_tpu_torch/csrc/ntt.cu", "troy_tpu/ops/ntt_pallas.py:206"),
     "ntt_inverse": ("troy_tpu_torch/csrc/ntt.cu", "troy_tpu/ops/ntt_pallas.py:228"),
@@ -269,28 +293,244 @@ def phase_refusals(dev, t, bconv_tabs, big):
                         "n above 32768": (ab, ValueError)})
 
 
-def run_step(label: str, step, d1, d2, keys) -> tuple[torch.Tensor, dict]:
-    """One step with counted launches; it must launch the NTT kernels and K3
-    and equal the all-plain step bit for bit."""
+def run_step(phase: str, label: str, fn, required) -> tuple[torch.Tensor, dict]:
+    """fn() once with the launch counts set to 0 just before and read just
+    after; it must launch every kernel named in required and equal the same
+    call with every kernel dispatch patched to its plain version."""
     reset_launch_counts()
-    out = step(d1, d2, keys)
+    out = fn()
     torch.cuda.synchronize()
     launches = launch_counts()
-    log(f"[main] {label} step {tuple(d1.shape)} x {tuple(d2.shape)} -> "
-        f"{tuple(out.shape)}; kernel launches {launches}")
-    for name in ("ntt_forward", "ntt_inverse", "base_convert"):
+    log(f"[{phase}] {label} -> {tuple(out.shape)}; kernel launches {launches}")
+    for name in required:
         if launches[name] == 0:
-            raise AssertionError(f"[main] the {label} step did not launch {name}")
+            raise AssertionError(f"[{phase}] {label} did not launch {name}")
     with all_plain():
-        ref = step(d1, d2, keys)
+        ref = fn()
     torch.cuda.synchronize()
     if launch_counts() != launches:
-        raise AssertionError(f"[main] the plain {label} run launched a kernel")
+        raise AssertionError(f"[{phase}] the plain run of {label} launched a kernel")
     if not torch.equal(out, ref):
         bad = int((out != ref).sum())
-        raise AssertionError(f"[main] {label} kernel step != plain step at {bad} residues")
-    log(f"[main] {label} step equals the all-plain step bit for bit")
+        raise AssertionError(f"[{phase}] {label}: kernel run != plain run at {bad} residues")
+    log(f"[{phase}] {label} equals the all-plain run bit for bit")
     return out, launches
+
+
+def check_decrypts(phase: str, label: str, out: torch.Tensor, parms_id, expected,
+                   encoder, decryptor, k3_shape=None) -> int:
+    """Every ciphertext of the batch out decrypts to its row of expected;
+    returns how often decrypt launched K3, which must be at least once per
+    ciphertext (at k3_shape, if given)."""
+    from troy_tpu_torch.core.ciphertext import Ciphertext
+    from troy_tpu_torch.ops import bconv as BC
+
+    shapes = []
+    convert = BC.base_convert
+
+    def recording(x, tabs):
+        shapes.append(tuple(x.shape))
+        return convert(x, tabs)
+
+    reset_launch_counts()
+    with mock.patch.object(BC, "base_convert", recording):
+        for b in range(out.shape[0]):
+            got = encoder.decode(decryptor.decrypt(Ciphertext(out[b], parms_id)))
+            got = got.cpu().numpy()
+            if got.shape != (N,) or not np.array_equal(got, np.asarray(expected[b], np.int64)):
+                raise AssertionError(f"[{phase}] {label}: ciphertext {b} decrypts wrong")
+    k3 = launch_counts()["base_convert"]
+    if k3 < out.shape[0]:
+        raise AssertionError(f"[{phase}] {label}: decrypt launched base_convert {k3} times")
+    if k3_shape is not None and k3_shape not in shapes:
+        raise AssertionError(f"[{phase}] {label}: decrypt's K3 shapes {set(shapes)} "
+                             f"lack {k3_shape}")
+    log(f"[{phase}] {label}: all {out.shape[0]} ciphertexts decrypt right "
+        f"(decrypt launched base_convert {k3} times, at {sorted(set(shapes))})")
+    return k3
+
+
+def rotated(msgs: np.ndarray, steps) -> np.ndarray:
+    """Slots after rotate_rows(steps): each row of N/2 slots cyclically
+    rotated left; after rotate_columns (steps None): the two rows swapped."""
+    rows = msgs.astype(np.int64).reshape(*msgs.shape[:-1], 2, N // 2)
+    rows = rows[..., ::-1, :] if steps is None else np.roll(rows, -steps, axis=-1)
+    return rows.reshape(msgs.shape)
+
+
+def phase_rotate(ctx, keygen, gen, encoder, decryptor, batched_ev) -> dict:
+    """The batched rotations on 16 public-key ciphertexts; returns their
+    steps, inputs, keys and launch counts for the later phases."""
+    from troy_tpu_torch.core.ciphertext import Ciphertext
+    from troy_tpu_torch.core.encryptor import Encryptor
+    from troy_tpu_torch.core.evaluator import Evaluator
+    from troy_tpu_torch.ops.galois import GaloisTool
+
+    cd = batched_ev.cd
+    t0 = time.perf_counter()
+    elts = sorted({GaloisTool.get_element_from_step(s, N) for s in ROT_KEY_STEPS}
+                  | {GaloisTool.conjugate_element(N)})
+    glk = keygen.create_galois_keys_from_elements(elts)
+    pk = keygen.create_public_key()
+    encryptor = Encryptor(ctx, pk=pk, generator=gen)
+    msgs = np.random.default_rng(MSG_SEED + 1).integers(
+        0, encoder.t.value, size=(BATCH, N), dtype=np.int64)
+    d = torch.stack([encryptor.encrypt_asymmetric(encoder.encode(m)).data for m in msgs])
+    torch.cuda.synchronize()
+    key_shapes = {g: tuple(k.shape) for g, k in glk.keys.items()}
+    log(f"[rotate] Galois keys {key_shapes} ({sum(k.numel() for k in glk.keys.values()) * 8 / 2**20:.1f} "
+        f"MiB), public key {tuple(pk.data().shape)}, {BATCH} public-key ciphertexts "
+        f"{tuple(d.shape)} in {time.perf_counter() - t0:.3f} s")
+    steps = {"rotate_rows(1)": (batched_ev.build_rotate_rows_step(1), 1),
+             "rotate_rows(3)": (batched_ev.build_rotate_rows_step(3), 3),
+             "rotate_columns": (batched_ev.build_rotate_columns_step(), None)}
+    out = {}
+    for label, ((step, step_elts), rot) in steps.items():
+        keys = tuple(glk.key(e) for e in step_elts)
+        res, launches = run_step("rotate", f"{label} step {tuple(d.shape)}, {len(keys)} "
+                                 f"keyswitch round(s), elements {step_elts}",
+                                 lambda: step(d, keys), ("ntt_forward", "ntt_inverse"))
+        check_decrypts("rotate", label, res, cd.parms_id, rotated(msgs, rot),
+                       encoder, decryptor, (L_DATA, N))
+        out[label] = dict(step=step, keys=keys, launches=launches, result=res)
+    obj = Evaluator(ctx).rotate_rows(Ciphertext(d[0], cd.parms_id), 3, glk)
+    if not torch.equal(obj.data, out["rotate_rows(3)"]["result"][0]):
+        raise AssertionError("[rotate] row 0 of the batched rotate_rows(3) != "
+                             "Evaluator.rotate_rows(ct, 3, glk)")
+    log("[rotate] row 0 of the batched rotate_rows(3) equals Evaluator.rotate_rows(ct, 3, glk)")
+    return dict(steps=out, d=d, msgs=msgs, glk=glk)
+
+
+def phase_modswitch(ctx, evaluator, rot: dict, encoder, decryptor) -> dict:
+    """Mod switch L = 6 -> 5, then rotate_rows(1) at L = 5."""
+    from troy_tpu_torch.parallel.batched import BatchedEvaluator
+
+    cd = ctx.first_context_data()
+    ms = BatchedEvaluator(evaluator, cd).build_mod_switch_step()
+    low = BatchedEvaluator(evaluator, cd.next)
+    rot1, elts = low.build_rotate_rows_step(1)
+    keys = tuple(rot["glk"].key(e) for e in elts)
+    d5 = ms(rot["d"])
+    out, launches = run_step(
+        "modswitch", f"mod switch {tuple(rot['d'].shape)} -> {tuple(d5.shape)}, then "
+        f"rotate_rows(1) at L = {cd.next.coeff_modulus_size}",
+        lambda: rot1(ms(rot["d"]), keys), ("ntt_forward", "ntt_inverse"))
+    check_decrypts("modswitch", "rotate_rows(1) after the mod switch", out,
+                   cd.next.parms_id, rotated(rot["msgs"], 1), encoder, decryptor,
+                   (L_DATA - 1, N))
+    return dict(step=ms, launches=launches, rot1=rot1, keys=keys)
+
+
+def phase_client(dev, gen) -> dict:
+    """examples/99_quickstart.py's flow on the card, the plaintext ops and a
+    special-prime encryption, at the example's parameters."""
+    from troy_tpu_torch.core.params import EncryptionParameters, SchemeType
+    from troy_tpu_torch.core.coeff_modulus import CoeffModulus, PlainModulus, SecurityLevel
+    from troy_tpu_torch.core.context import HeContext
+    from troy_tpu_torch.core.keygen import KeyGenerator
+    from troy_tpu_torch.core.encryptor import Encryptor
+    from troy_tpu_torch.core.decryptor import Decryptor
+    from troy_tpu_torch.core.evaluator import Evaluator
+    from troy_tpu_torch.core.batch_encoder import BatchEncoder
+
+    parms = EncryptionParameters(SchemeType.BFV)
+    parms.set_poly_modulus_degree(N)
+    parms.set_coeff_modulus(CoeffModulus.create(N, QUICKSTART_BITS))
+    parms.set_plain_modulus(PlainModulus.batching(N, LOG_T))
+    context = HeContext.create(parms, dev, SecurityLevel.Classical128)
+    reset_launch_counts()
+    keygen = KeyGenerator(context, gen)
+    encryptor = Encryptor(context, pk=keygen.create_public_key(), generator=gen)
+    decryptor = Decryptor(context, keygen.secret_key)
+    evaluator = Evaluator(context)
+    encoder = BatchEncoder(context)
+    t = parms.plain_modulus.value
+    x = np.arange(N, dtype=np.uint64)
+    y = np.arange(N, dtype=np.uint64)[::-1].copy()
+    ct_x = encryptor.encrypt_asymmetric(encoder.encode(x))
+    ct_y = encryptor.encrypt_asymmetric(encoder.encode(y))
+    ct_sum = evaluator.add(ct_x, ct_y)
+    result = encoder.decode(decryptor.decrypt(ct_sum)).cpu().numpy()
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    if not np.array_equal(result, ((x + y) % t).astype(np.int64)):
+        raise AssertionError("[client] the quickstart sum decrypts wrong")
+    log(f"[client] quickstart flow (n={N}, {QUICKSTART_BITS} bits, Classical128): public "
+        f"key, encrypt_asymmetric x2, add, decrypt, decode = (x + y) mod t; slots 0..3 "
+        f"{result[:4].tolist()}; kernel launches {launches}")
+    for name in ("ntt_forward", "ntt_inverse", "base_convert"):
+        if launches[name] == 0:
+            raise AssertionError(f"[client] the quickstart flow did not launch {name}")
+
+    pid = context.first_parms_id
+    p_y = encoder.encode(y)
+    xy = ((x.astype(object) * y) % t).astype(np.int64)
+    ntt_x = evaluator.transform_to_ntt(ct_x)
+    cases = {
+        "multiply_plain, coefficient form": (evaluator.multiply_plain(ct_x, p_y), xy),
+        "multiply_plain, NTT form": (evaluator.transform_from_ntt(evaluator.multiply_plain(
+            ntt_x, evaluator.transform_plain_to_ntt(p_y, pid))), xy),
+        "add_plain": (evaluator.add_plain(ct_x, p_y), ((x + y) % t).astype(np.int64)),
+    }
+    parms.set_use_special_prime_for_encryption(True)
+    context_sp = HeContext.create(parms, dev, SecurityLevel.Classical128)
+    pk_sp = KeyGenerator(context_sp, gen, sk=keygen.secret_key).create_public_key()
+    ct_sp = Encryptor(context_sp, pk=pk_sp, generator=gen).encrypt_asymmetric(encoder.encode(x))
+    cases["special-prime encrypt_asymmetric"] = (ct_sp, x.astype(np.int64))
+    for label, (ct, want) in cases.items():
+        got = encoder.decode(decryptor.decrypt(ct)).cpu().numpy()
+        if not np.array_equal(got, want):
+            raise AssertionError(f"[client] {label} decrypts wrong")
+        log(f"[client] {label}: decrypts right (noise budget "
+            f"{decryptor.invariant_noise_budget(ct)} bits)")
+    return dict(launches=launches)
+
+
+def round_stages(gpu: str, evaluator, cd, rot: dict):
+    """One Galois round split into its stages, each timed alone by events:
+    the gather of both polys (x -> x^g with sign), the keyswitch of c1 from
+    s(x^g) back to s, and the add of the switched c0."""
+    from troy_tpu_torch.ops import poly as P
+    from troy_tpu_torch.ops.galois import GaloisTool
+
+    tool, qtab, d = GaloisTool.for_context(cd), cd.qtab(), rot["d"]
+    elt, conj = GaloisTool.get_element_from_step(1, N), GaloisTool.conjugate_element(N)
+    key = rot["glk"].key(elt)
+    g = tool.apply_coeff(d, elt, qtab)
+    sw = evaluator._switch_key_impl(cd, g[:, 1], key)
+    step, keys = rot["steps"]["rotate_rows(1)"]["step"], rot["steps"]["rotate_rows(1)"]["keys"]
+    stages = {
+        "rotate_rows(1) step, whole": lambda: step(d, keys),
+        "Galois gather, element 3, both polys": lambda: tool.apply_coeff(d, elt, qtab),
+        "Galois gather, conjugation, both polys": lambda: tool.apply_coeff(d, conj, qtab),
+        "keyswitch of c1": lambda: evaluator._switch_key_impl(cd, g[:, 1], key),
+        "add switched c0, stack": lambda: torch.stack(
+            [P.add(sw[:, 0], g[:, 0], qtab), sw[:, 1]], dim=-3),
+    }
+    whole = None
+    for label, fn in stages.items():
+        fn()
+        ms = cuda_ms(fn, REPS)
+        whole = whole or ms
+        log(f"[times] {gpu}: Galois round stage, alone: {label} {ms:.4f} ms "
+            f"({100 * ms / whole:.1f}% of the whole step)")
+
+
+def profile_step(fn, calls: int) -> tuple[float, float]:
+    """Kernel launches and device milliseconds per call of fn, from the
+    profiler's device events."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+    if not kernels:
+        raise AssertionError("[times] the profiler recorded no device kernels")
+    return (sum(e.count for e in kernels) / calls,
+            sum(e.self_device_time_total for e in kernels) / 1e3 / calls)
 
 
 def main() -> int:
@@ -387,20 +627,13 @@ def main() -> int:
     steps = {k: b.build_mul_relin_step(keys) for k, b in batched.items()}
     launches = {}
     for lift, step in steps.items():
-        out, launches[lift] = run_step(lift.upper(), step, d1, d2, keys)
-        reset_launch_counts()
-        for b in range(BATCH):
-            got = encoder.decode(decryptor.decrypt(Ciphertext(out[b], cd.parms_id)))
-            got = got.cpu().numpy()
-            if got.shape != (N,) or not np.array_equal(got, expected[b].astype(np.int64)):
-                raise AssertionError(f"[main] {lift} ciphertext {b} decrypts wrong")
-        dec_launches = launch_counts()["base_convert"]
-        if dec_launches < BATCH:
-            raise AssertionError(f"[main] decrypt launched base_convert {dec_launches} times")
+        out, launches[lift] = run_step(
+            "main", f"{lift.upper()} step {tuple(d1.shape)} x {tuple(d2.shape)}",
+            lambda: step(d1, d2, keys), ("ntt_forward", "ntt_inverse", "base_convert"))
+        check_decrypts("main", f"{lift.upper()} products m1 * m2 mod t", out, cd.parms_id,
+                       expected, encoder, decryptor)
         budget = decryptor.invariant_noise_budget(Ciphertext(out[0], cd.parms_id))
-        log(f"[main] {lift.upper()}: all {BATCH} products decrypt to m1 * m2 mod t "
-            f"(base_convert launched {dec_launches} times by decrypt); noise budget "
-            f"of product 0: {budget} bits")
+        log(f"[main] {lift.upper()}: noise budget of product 0: {budget} bits")
         if budget <= 0:
             raise AssertionError(f"[main] {lift} product has no noise budget left")
 
@@ -429,24 +662,57 @@ def main() -> int:
     log("[main] K4's stage equals the unfused stage (NTT kernel, dyadic_convolute, "
         "NTT kernel) over q and Bsk, and its floor equals the HPS multiply")
 
-    # ---- 5. times ----------------------------------------------------------
+    # ---- 5. rotate, 6. modswitch, 7. client ------------------------------------
+    rot = phase_rotate(ctx, keygen, gen, encoder, decryptor, batched["hps"])
+    modswitch = phase_modswitch(ctx, evs["hps"], rot, encoder, decryptor)
+    phase_client(dev, gen)
+
+    # ---- 8. times ----------------------------------------------------------
+    def batch_ms(label: str, step, first, chain: bool = True):
+        """Event-timed ms per call of step, with the kernels and all plain:
+        chained (each output the next input) or repeated on first."""
+        for _ in range(3):
+            step(first)
+        state = {"cur": first}
+
+        def call():
+            out = step(state["cur"])
+            if chain:
+                state["cur"] = out
+
+        ms = cuda_ms(call, REPS)
+        with all_plain():
+            state["cur"] = first
+            call()
+            plain_ms = cuda_ms(call, PLAIN_REPS)
+        log(f"[times] {gpu}: {label} {ms:.4f} ms per batch of {BATCH} "
+            f"({BATCH / ms * 1e3:.2f} ciphertexts/s); all plain {plain_ms:.4f} ms "
+            f"({BATCH / plain_ms * 1e3:.2f} ciphertexts/s)")
+        return ms, plain_ms
+
     step_ms = {}
     for lift, step in steps.items():
-        for _ in range(3):
-            step(d1, d2, keys)
-        state = {"cur": d1}
-
-        def chained():
-            state["cur"] = step(state["cur"], d2, keys)
-
-        ms = cuda_ms(chained, REPS)
-        with all_plain():
-            state["cur"] = d1
-            chained()
-            plain_ms = cuda_ms(chained, PLAIN_REPS)
-        step_ms[lift] = (ms, plain_ms)
-        log(f"[times] {gpu}: {lift.upper()} step {ms:.4f} ms per batch of {BATCH} "
-            f"({BATCH / ms * 1e3:.2f} ciphertexts/s); all plain {plain_ms:.4f} ms")
+        step_ms[lift] = batch_ms(f"{lift.upper()} multiply + relinearize step, chained",
+                                 lambda d, step=step: step(d, d2, keys), d1)
+    for label, r in rot["steps"].items():
+        step_ms[label] = batch_ms(f"{label} step, chained",
+                                  lambda d, r=r: r["step"](d, r["keys"]), rot["d"])
+    step_ms["mod switch"] = batch_ms(
+        "mod switch L = 6 -> 5 (no kernel; repeated on one input)",
+        modswitch["step"], rot["d"], chain=False)
+    step_ms["mod switch + rotate"] = batch_ms(
+        "mod switch L = 6 -> 5 + rotate_rows(1) at L = 5 (repeated on one input)",
+        lambda d: modswitch["rot1"](modswitch["step"](d), modswitch["keys"]),
+        rot["d"], chain=False)
+    for label in ("rotate_rows(1)", "rotate_columns"):
+        r = rot["steps"][label]
+        prof_launches, prof_ms = profile_step(lambda: r["step"](rot["d"], r["keys"]),
+                                              PROFILE_STEPS)
+        log(f"[times] {gpu}: profiler, {label}, {PROFILE_STEPS} steps: "
+            f"{prof_launches:.0f} kernel launches and {prof_ms:.4f} ms of device kernel "
+            f"time per step; device busy share of the event-timed chained step "
+            f"{100 * prof_ms / step_ms[label][0]:.1f}%")
+    round_stages(gpu, evs["hps"], cd, rot)
 
     def pair(kernel, plain):
         kernel()
@@ -485,7 +751,7 @@ def main() -> int:
             f"kernel {ms[0]:.5f} ms, plain {ms[1]:.5f} ms, unfused kernel path "
             f"(NTT kernel, torch dyadic_convolute, NTT kernel) {unfused_ms:.5f} ms")
 
-    # ---- 6. results ----------------------------------------------------------
+    # ---- 9. results ----------------------------------------------------------
     main_launches = {**launches["hps"],
                      "fused_negacyclic_multiply":
                          launches["fused"]["fused_negacyclic_multiply"]}

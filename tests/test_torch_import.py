@@ -17,6 +17,13 @@ def test_module_list_covers_the_kernel_wrappers():
         assert "troy_tpu_torch." + m in MODULES
 
 
+def test_module_list_covers_the_rotation_slice():
+    for m in ("ops.galois", "ops.dyadic", "ops.poly", "core.keys", "core.keygen",
+              "core.rlwe", "core.encryptor", "core.evaluator", "rns.rns_tool",
+              "rns.scaling", "parallel.batched", "interop"):
+        assert "troy_tpu_torch." + m in MODULES
+
+
 def test_import_leaves_jax_out():
     code = (
         "import sys, importlib\n"

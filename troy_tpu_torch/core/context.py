@@ -24,9 +24,10 @@ from ..rns.scaling import BFVScaler
 class ContextData:
     """Per-level bundle of parameters and device tables."""
 
-    def __init__(self, parms: EncryptionParameters, device):
+    def __init__(self, parms: EncryptionParameters, device, chain_index: int = 0):
         self.parms = parms
         self.device = torch.device(device)
+        self.chain_index = chain_index  # 0 at the key level, growing down the chain
         self.prev: ContextData | None = None   # towards key level (more primes)
         self.next: ContextData | None = None   # towards last level (fewer primes)
         n = parms.poly_modulus_degree
@@ -83,6 +84,9 @@ class ContextData:
         """NTT tables of base q at this level."""
         return self.ntt_tables
 
+    def is_last(self) -> bool:
+        return self.next is None
+
 
 class HeContext:
     """Chain of ContextData keyed by ParmsID.  The last modulus of
@@ -116,7 +120,7 @@ class HeContext:
             cur = key_data
             while len(cur.parms.coeff_modulus) > 1:
                 nxt = ContextData(cur.parms.clone().set_coeff_modulus(
-                    cur.parms.coeff_modulus[:-1]), device)
+                    cur.parms.coeff_modulus[:-1]), device, cur.chain_index + 1)
                 nxt.prev, cur.next = cur, nxt
                 chain.append(nxt)
                 cur = nxt
@@ -137,6 +141,9 @@ class HeContext:
 
     def first_context_data(self) -> ContextData:
         return self._data[self.first_parms_id]
+
+    def last_context_data(self) -> ContextData:
+        return self._data[self.last_parms_id]
 
     @property
     def scheme(self) -> SchemeType:

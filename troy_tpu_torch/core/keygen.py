@@ -1,8 +1,11 @@
 """Key generation (counterpart of troy_tpu/core/keygen.py).
 
-Ternary secret key (NTT form, key level) and relinearization keys with the
+Ternary secret key (NTT form, key level), the public key (an NTT-form
+symmetric encryption of zero at the key level), and switching keys with the
 single-special-prime layout: key i of the (decomp, 2, L_key, n) switching
-key is Enc_s(0) + (q_special mod q_i) * target in RNS limb i only.
+key is Enc_s(0) + (q_special mod q_i) * target in RNS limb i only.  The
+targets are s^k (relinearization keys), s(x^g) (Galois keys) or another
+secret (keyswitching keys).
 """
 
 from __future__ import annotations
@@ -10,8 +13,11 @@ from __future__ import annotations
 import torch
 
 from .context import HeContext, ContextData
-from .keys import SecretKey, RelinKeys
+from .keys import SecretKey, PublicKey, KSwitchKeys, RelinKeys, GaloisKeys
+from .ciphertext import Ciphertext
+from .rlwe import encrypt_zero_symmetric
 from ..ops import ntt as NTT, poly as P, u32 as U
+from ..ops.galois import GaloisTool
 from ..utils.random import sample_uniform, sample_ternary, sample_cbd
 
 
@@ -39,6 +45,11 @@ class KeyGenerator:
             self._sk_powers[k] = P.dyadic_product(
                 self.secret_key_power(k - 1), self._sk.data, qtab)
         return self._sk_powers[k]
+
+    def create_public_key(self) -> PublicKey:
+        cd = self.context.key_context_data()
+        data = encrypt_zero_symmetric(cd, self._sk.data, self.generator, ntt_form=True)
+        return PublicKey(Ciphertext(data, cd.parms_id, is_ntt_form=True))
 
     def _generate_one_kswitch_key(self, target_ntt: torch.Tensor) -> torch.Tensor:
         cd = self.context.key_context_data()
@@ -74,3 +85,37 @@ class KeyGenerator:
         keys = {p - 2: self._generate_one_kswitch_key(self.secret_key_power(p))
                 for p in range(2, max_power + 1)}
         return RelinKeys(keys, self.context.key_parms_id)
+
+    def create_galois_keys_from_elements(self, elements: list[int]) -> GaloisKeys:
+        """Keys for x -> x^g, g in elements (ref: key_generator.h:79-92)."""
+        tool = GaloisTool.for_context(self.context.key_context_data())
+        keys = {g: self._generate_one_kswitch_key(tool.apply_ntt(self._sk.data, g))
+                for g in elements}
+        return GaloisKeys(keys, self.context.key_parms_id)
+
+    def create_galois_keys_from_steps(self, steps: list[int]) -> GaloisKeys:
+        n = self.context.key_context_data().parms.poly_modulus_degree
+        return self.create_galois_keys_from_elements(
+            sorted({GaloisTool.get_element_from_step(s, n) for s in steps}))
+
+    def create_galois_keys(self, include_conjugate: bool = True) -> GaloisKeys:
+        """Rotation steps +-1, +-2, +-4, ... below n/2, plus conjugation:
+        the default set (ref: galois.h get_elements_all)."""
+        n = self.context.key_context_data().parms.poly_modulus_degree
+        steps: list[int] = []
+        step = 1
+        while step < n // 2:
+            steps += [step, -step]
+            step *= 2
+        elems = {GaloisTool.get_element_from_step(s, n) for s in steps}
+        if include_conjugate:
+            elems.add(GaloisTool.conjugate_element(n))
+        return self.create_galois_keys_from_elements(sorted(elems))
+
+    def create_keyswitching_key(self, new_key: SecretKey) -> KSwitchKeys:
+        """Key that switches ciphertexts under this generator's secret to
+        new_key: made by new_key's holder over the old secret (ref:
+        key_generator.cu:159)."""
+        gen_new = KeyGenerator(self.context, self.generator, sk=new_key)
+        return KSwitchKeys({0: gen_new._generate_one_kswitch_key(self._sk.data)},
+                           self.context.key_parms_id)

@@ -42,6 +42,7 @@ class EncryptionParameters:
         self._poly_modulus_degree = 0
         self._coeff_modulus: list[Modulus] = []
         self._plain_modulus = Modulus(0)
+        self.use_special_prime_for_encryption = False
 
     # -- setters mirroring the reference API --------------------------------
     def set_poly_modulus_degree(self, degree: int):
@@ -60,6 +61,10 @@ class EncryptionParameters:
         if self.scheme == SchemeType.CKKS and (t if isinstance(t, int) else t.value):
             raise ValueError("[EncryptionParameters] CKKS has no plain modulus")
         self._plain_modulus = t if isinstance(t, Modulus) else Modulus(t)
+        return self
+
+    def set_use_special_prime_for_encryption(self, flag: bool):
+        self.use_special_prime_for_encryption = flag
         return self
 
     # -- getters -------------------------------------------------------------
@@ -91,6 +96,7 @@ class EncryptionParameters:
         p._poly_modulus_degree = self._poly_modulus_degree
         p._coeff_modulus = list(self._coeff_modulus)
         p._plain_modulus = self._plain_modulus
+        p.use_special_prime_for_encryption = self.use_special_prime_for_encryption
         return p
 
     def __repr__(self):

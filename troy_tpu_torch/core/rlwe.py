@@ -1,7 +1,10 @@
-"""RLWE symmetric encryption of zero (counterpart of troy_tpu/core/rlwe.py).
+"""RLWE encryption of zero (counterpart of troy_tpu/core/rlwe.py).
 
-c = (-(a*s + e), a) with a uniform (sampled in NTT form) and e centered
-binomial noise; BFV ciphertexts are returned in the coefficient domain.
+  symmetric : c = (-(a*s + e), a), a uniform (sampled in NTT form);
+  asymmetric: c = (pk0*u + e0, pk1*u + e1), u ternary;
+
+e, e0, e1 centered binomial noise.  BFV ciphertexts are returned in the
+coefficient domain.
 """
 
 from __future__ import annotations
@@ -10,7 +13,7 @@ import torch
 
 from .context import ContextData
 from ..ops import ntt as NTT, poly as P
-from ..utils.random import sample_uniform, sample_cbd
+from ..utils.random import sample_uniform, sample_cbd, sample_ternary
 
 
 def _symmetric_combine(cd: ContextData, sk_data: torch.Tensor, a_ntt: torch.Tensor,
@@ -28,6 +31,20 @@ def _symmetric_combine(cd: ContextData, sk_data: torch.Tensor, a_ntt: torch.Tens
     return torch.stack([c0, c1])
 
 
+def _asymmetric_combine(cd: ContextData, pk_data: torch.Tensor, u_coeff: torch.Tensor,
+                        e0: torch.Tensor, e1: torch.Tensor, ntt_form: bool) -> torch.Tensor:
+    """c = (pk0*u + e0, pk1*u + e1) from given u, e0, e1 (coefficient form);
+    pk_data (2, L_key, n) in NTT form, cut to this level's limbs."""
+    qtab = cd.qtab()
+    pk = pk_data[..., :cd.coeff_modulus_size, :]
+    u_ntt = NTT.ntt_forward(u_coeff, qtab)
+    c = P.dyadic_product(pk, u_ntt[None], qtab)
+    e = torch.stack([e0, e1])
+    if ntt_form:
+        return P.add(c, NTT.ntt_forward(e, qtab), qtab)
+    return P.add(NTT.ntt_inverse(c, qtab), e, qtab)
+
+
 def encrypt_zero_symmetric(cd: ContextData, sk_data: torch.Tensor,
                            generator: torch.Generator, ntt_form: bool) -> torch.Tensor:
     """(2, L, n) encryption of zero under s at cd's level."""
@@ -36,3 +53,15 @@ def encrypt_zero_symmetric(cd: ContextData, sk_data: torch.Tensor,
     a_ntt = sample_uniform((cd.coeff_modulus_size, n), qtab, generator)
     e = sample_cbd((n,), qtab, generator)
     return _symmetric_combine(cd, sk_data, a_ntt, e, ntt_form)
+
+
+def encrypt_zero_asymmetric(cd: ContextData, pk_data: torch.Tensor,
+                            generator: torch.Generator, ntt_form: bool) -> torch.Tensor:
+    """(2, L, n) encryption of zero under pk at cd's level; draws u, then e0,
+    then e1, in the JAX package's order."""
+    qtab = cd.qtab()
+    n = cd.parms.poly_modulus_degree
+    u = sample_ternary((n,), qtab, generator)
+    e0 = sample_cbd((n,), qtab, generator)
+    e1 = sample_cbd((n,), qtab, generator)
+    return _asymmetric_combine(cd, pk_data, u, e0, e1, ntt_form)

@@ -4,7 +4,8 @@ The JAX package holds residues as u32 arrays; the port as int64 tensors.
 These helpers take numpy arrays (np.asarray of a jax array) and return the
 port's objects on a device, and back.  Layouts are the same on both sides:
 ciphertexts (..., size, L, n), switching keys (decomp, 2, L_key, n), the
-secret key (L_key, n) in NTT form.  No jax import is needed here.
+secret key (L_key, n) and the public key (2, L_key, n) in NTT form.  No jax
+import is needed here.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import numpy as np
 import torch
 
 from .core.ciphertext import Ciphertext
-from .core.keys import SecretKey, RelinKeys
+from .core.keys import SecretKey, PublicKey, RelinKeys, GaloisKeys
 from .core.params import ParmsID
 
 
@@ -45,3 +46,15 @@ def relin_keys(keys: dict, parms_id: ParmsID, device) -> RelinKeys:
     """keys: {index: (decomp, 2, L_key, n) u32 array}, as in the JAX
     package's RelinKeys.keys."""
     return RelinKeys({k: to_tensor(v, device) for k, v in keys.items()}, parms_id)
+
+
+def public_key(data, parms_id: ParmsID, device) -> PublicKey:
+    """data: the (2, L_key, n) u32 NTT-form array of the JAX package's
+    PublicKey.data()."""
+    return PublicKey(Ciphertext(to_tensor(data, device), parms_id, is_ntt_form=True))
+
+
+def galois_keys(keys: dict, parms_id: ParmsID, device) -> GaloisKeys:
+    """keys: {galois element: (decomp, 2, L_key, n) u32 array}, as in the
+    JAX package's GaloisKeys.keys."""
+    return GaloisKeys({g: to_tensor(v, device) for g, v in keys.items()}, parms_id)

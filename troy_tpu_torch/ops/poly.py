@@ -39,3 +39,17 @@ def multiply_scalar(x, scalar: int, t):
 def dyadic_product(x, y, t):
     """Pointwise x * y mod q (NTT-domain products)."""
     return U.mul_mod(x, y, _bq(t))
+
+
+def negacyclic_shift(x, shift: int, t):
+    """x * X^shift in Z_q[X]/(X^n + 1): the coefficients rotate by shift and
+    those that wrap past X^n change sign (ref: negacyclic_shift_ps)."""
+    n = x.shape[-1]
+    k = shift % (2 * n)
+    neg_all = k >= n
+    k %= n
+    out = torch.roll(x, k, dims=-1)
+    if k:
+        wrapped = torch.arange(n, device=x.device) < k
+        out = torch.where(wrapped, negate(out, t), out)
+    return negate(out, t) if neg_all else out

@@ -8,7 +8,9 @@ Counterpart of troy_tpu/rns/rns_tool.py, for the BFV multiply and decrypt:
     conversion to Bsk u {m~} of m~ x, then Montgomery's small reduction by m~;
   * fast_floor_scale_fast_b_conv_sk: floor(t * d / Q) with the x t scale
     folded into the tables, then the Shenoy-Kumaresan conversion back to q;
-  * decrypt_scale_and_round: the exact {t, gamma} rounding of t * phase / Q.
+  * decrypt_scale_and_round: the exact {t, gamma} rounding of t * phase / Q;
+  * divide_and_round_q_last: round(x / q_last) into the next level's base,
+    for the BFV mod switch and special-prime encryption.
 
 Every base conversion goes through ops/bconv.base_convert (the Hopper kernel
 on a CUDA tensor).  The JAX package's unfused floor, fast_floor_fast_b_conv_sk
@@ -129,6 +131,14 @@ class RNSTool:
         self.ff_t_qinv_mod_Bsk = col([(tv * numth.invert_mod(Q % b, b)) % b
                                       for b in bsk_vals])
 
+        # ---- q_last division (mod switch) ------------------------------------
+        if L > 1:
+            q_last = q_values[-1]
+            rest = q_values[:-1]
+            self.q_last_half = q_last >> 1
+            self.q_last_half_mod_q = col([(q_last >> 1) % q for q in rest])
+            self.inv_q_last_mod_q = col([numth.invert_mod(q_last % q, q) for q in rest])
+
         # ---- {t, gamma} decrypt ---------------------------------------------
         gamma = _aux_primes(n, used, 1, need_ntt=False)[0]
         while numth.gcd(gamma, tv) != 1:
@@ -226,3 +236,15 @@ class RNSTool:
             U.add_mod(s_t, U.sub_mod(gv % tv, s_g_mod_t, tv), tv),
             U.sub_mod(s_t, s_g_mod_t, tv))
         return U.mul_mod(corrected, self.inv_gamma_mod_t, tv)
+
+    # ------------------------------------------------------------------
+    # mod switch (ref: rns_tool.cu divide_and_round_q_last:421)
+    # ------------------------------------------------------------------
+    def divide_and_round_q_last(self, x: torch.Tensor) -> torch.Tensor:
+        """(..., L, n) coefficient domain -> (..., L-1, n) = round(x / q_last):
+        (x_i - ([x_last + q_last/2]_{q_last} - q_last/2)) q_last^-1 mod q_i."""
+        q_last = self.base_q.values[-1]
+        q = self.base_q.q[:-1].view(-1, 1)
+        last_plus = U.add_mod(x[..., -1:, :], self.q_last_half, q_last)
+        tmp = U.sub_mod(U.barrett_reduce(last_plus, q), self.q_last_half_mod_q, q)
+        return U.mul_mod(U.sub_mod(x[..., :-1, :], tmp, q), self.inv_q_last_mod_q, q)

@@ -1,6 +1,11 @@
 """BFV plaintext scaling, on int64 residue tensors.
 
-Counterpart of troy_tpu/rns/scaling.py (BFVScaler.scale_up, for encrypt):
+Counterpart of troy_tpu/rns/scaling.py:
+  scale_up     : m in [0, t) -> round(m * Q / t) in base q (encrypt, add_plain);
+  centralize   : m in [0, t) -> the centred lift [m]_t in base q
+                 (multiply_plain);
+  decentralize : its inverse for small centred values.
+
 round(m * Q / t) is decomposed per limb as
 
     m * [floor(Q/t)]_{q_i} + fix,   fix = floor((m * (Q mod t) + t/2) / t),
@@ -30,6 +35,11 @@ class BFVScaler:
             [delta % q for q in base_q.values], dtype=torch.int64,
             device=base_q.device).view(-1, 1)
         self.q_mod_t = Q % tv
+        self.t_half = (tv + 1) >> 1
+        # centred lift: add (-t) mod q_i to plain coefficients in the upper half
+        self.plain_upper_half_increment = torch.tensor(
+            [(-tv) % q for q in base_q.values], dtype=torch.int64,
+            device=base_q.device).view(-1, 1)
 
     def scale_up(self, m: torch.Tensor) -> torch.Tensor:
         """m: (..., n) in [0, t) -> (..., L, n) = round(m * Q / t) mod q."""
@@ -38,3 +48,22 @@ class BFVScaler:
         q = self.base_q.q.view(-1, 1)
         prod = U.mul_mod(m[..., None, :], self.coeff_div_plain, q)
         return U.add_mod(prod, U.barrett_reduce(fix[..., None, :], q), q)
+
+    def centralize(self, m: torch.Tensor) -> torch.Tensor:
+        """m: (..., n) in [0, t) -> (..., L, n) centred lift [m]_t mod q_i
+        (ref: scaling_variant.cu centralize)."""
+        mm = m[..., None, :]
+        q = self.base_q.q.view(-1, 1)
+        return U.barrett_reduce(
+            torch.where(mm >= self.t_half, mm + self.plain_upper_half_increment, mm), q)
+
+    def decentralize(self, x: torch.Tensor) -> torch.Tensor:
+        """Inverse of centralize for values whose centred magnitude is below
+        q_0 / 2: (..., L, n) -> (..., n) mod t, read from limb 0
+        (ref: scaling_variant.cu decentralize)."""
+        tv = self.t.value
+        q0 = self.base_q.values[0]
+        x0 = x[..., 0, :]
+        pos = U.barrett_reduce(x0, tv)
+        neg = U.neg_mod(U.barrett_reduce(q0 - x0, tv), tv)
+        return torch.where(x0 > (q0 >> 1), neg, pos)

@@ -1,8 +1,8 @@
 """Host-side number theory on Python ints.
 
-Copy of troy_tpu/utils/numth.py (minus the Galois-only helpers), so that the
-PyTorch port imports nothing of the JAX package; tests/test_torch_context.py
-holds the two to the same primes, roots and ParmsIDs.  Nothing here runs in
+Copy of troy_tpu/utils/numth.py, so that the PyTorch port imports nothing of
+the JAX package; tests/test_torch_context.py holds the two to the same
+primes, roots and ParmsIDs, and tests/test_torch_galois.py to the same NAF.  Nothing here runs in
 the hot path.
 """
 
@@ -150,3 +150,19 @@ def reverse_bits(value: int, bit_count: int) -> int:
         result = (result << 1) | (value & 1)
         value >>= 1
     return result
+
+
+def naf(value: int) -> list[int]:
+    """Non-adjacent form of value as signed powers of two, lowest first: the
+    rotation-step decomposition (ref: number_theory.cu naf,
+    evaluator_keyswitching.cu:276)."""
+    out = []
+    while value != 0:
+        if value & 1:
+            z = 2 - (value % 4)
+            out.append(z)
+            value -= z
+        else:
+            out.append(0)
+        value //= 2
+    return [d << i for i, d in enumerate(out) if d != 0]
