@@ -13,10 +13,13 @@ client flow of examples/99_quickstart.py.  In phases:
 
   1. device   the card's name and power limit (fails without CUDA);
   2. build    nvcc builds every csrc/*.cu into one library under
-              troy_tpu_torch/build/;
+              troy_tpu_torch/build/; beside it, nvcc -Xptxas -v on ntt.cu
+              prints each NTT kernel's registers and spills, and the
+              occupancy calculator its CTAs per SM;
   3. kernels  each kernel against its plain PyTorch version, bit for bit:
-              the NTT pair at every shape the path gives it and at degrees
-              16 to 32768; the base conversion (K3) at every conversion of
+              the NTT pair (and the earlier radix-2 pair that [times] uses
+              as its yardstick) at every shape the path gives it and at every
+              degree 2 to 32768; the base conversion (K3) at every conversion of
               both lifts, the floor, Shenoy-Kumaresan and decrypt, at a
               15 -> 9 contraction and at one input limb; the fused tensor
               product (K4) over base q and Bsk and at degrees 16 to 32768.
@@ -46,11 +49,20 @@ client flow of examples/99_quickstart.py.  In phases:
               encryption, each decrypting right;
   8. times    CUDA-event times of the chained steps against their all-plain
               versions (multiply + relinearize, the three rotations, the mod
-              switch), the profiler's launches, device time and busy share
-              of one rotate_rows(1) and one rotate_columns step, one Galois
-              round split into its stages (gather, keyswitch, add), and each
-              kernel against its plain version (K4 also against the unfused
-              kernel path).
+              switch), the profiler's launches, device time, NTT kernel time
+              and busy share of the HPS step and of one rotate_rows(1) and
+              one rotate_columns step, one Galois round split into its
+              stages (gather, keyswitch, add), each kernel against its plain
+              version (K4 also against the unfused kernel path), and the NTT
+              kernel against the earlier radix-2 kernel in turns (new, old,
+              old, new) at every NTT shape of the HPS step and the Galois round:
+              device microseconds per launch from CUDA events around a CUDA
+              graph of 50 launches, beside the launch's bound.
+
+Bounds: the least time the card could take for a launch's work, the larger
+of its bytes (each input read once, each output written once) over
+3.35 TB/s and its int32 operations over 132 SMs x 64 lanes x 1.98 GHz
+(the H100 SXM's published memory rate and boost clock).
 
 Prints one JSON line of kernel results, then the nvidia-smi line, then
 {"ok": true, "device": {...}} as the last line.  Any failure raises, so the
@@ -76,22 +88,58 @@ BATCH = 16
 KEY_SEED = 0xBEEF
 MSG_SEED = 7
 REPS = 20
-KERNEL_REPS = 50
+GRAPH_LAUNCHES = 50
 PLAIN_REPS = 5
 PROFILE_STEPS = 5
 ROT_KEY_STEPS = [1, 4, -1]
 QUICKSTART_BITS = [30] * 4
-KERNELS = {  # name: (source, the TPU kernel it replaces)
-    "ntt_forward": ("troy_tpu_torch/csrc/ntt.cu", "troy_tpu/ops/ntt_pallas.py:206"),
-    "ntt_inverse": ("troy_tpu_torch/csrc/ntt.cu", "troy_tpu/ops/ntt_pallas.py:228"),
+K4_DEGREES = (16, 1024, 16384, 32768)
+KERNELS = {  # name: (source, the TPU kernels it replaces: K1 and K2 for the NTT)
+    "ntt_forward": ("troy_tpu_torch/csrc/ntt.cu",
+                    "troy_tpu/ops/ntt_pallas.py:74, troy_tpu/ops/ntt_pallas.py:206"),
+    "ntt_inverse": ("troy_tpu_torch/csrc/ntt.cu",
+                    "troy_tpu/ops/ntt_pallas.py:89, troy_tpu/ops/ntt_pallas.py:228"),
     "base_convert": ("troy_tpu_torch/csrc/bconv.cu", "troy_tpu/ops/ntt_pallas.py:413"),
     "fused_negacyclic_multiply": ("troy_tpu_torch/csrc/fused_mul.cu",
                                   "troy_tpu/ops/fused_mul.py:75"),
 }
 
 
+MEM_BYTES_PER_S = 3.35e12             # H100 SXM HBM3 (NVIDIA data sheet)
+INT32_OPS_PER_S = 132 * 64 * 1.98e9   # SMs x int32 lanes x boost clock
+NTT_BUTTERFLY_OPS = 8                 # Shoup product (3) + 2 adds + 2 reductions + 1
+
+
 def log(msg: str):
     print(msg, flush=True)
+
+
+def bound_us(nbytes: float, ops: float) -> tuple[float, str]:
+    """The launch's least time in microseconds and what sets it."""
+    t_bytes, t_ops = nbytes / MEM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e6, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def ntt_bound(shape) -> tuple[float, str]:
+    """An NTT of (..., n) int64: n values in and out, n/2 log2 n butterflies."""
+    polys, n = int(np.prod(shape[:-1])), shape[-1]
+    return bound_us(2 * polys * n * 8, polys * (n // 2) * (n.bit_length() - 1) * NTT_BUTTERFLY_OPS)
+
+
+def bconv_bound(shape, l_out: int) -> tuple[float, str]:
+    """K3 on (..., L_in, n) -> (..., L_out, n): per column a Shoup scale of
+    each input (3 ops), a 64-bit multiply-add per input and output (2), one
+    Barrett reduction per output (6)."""
+    l_in, cols = shape[-2], int(np.prod(shape[:-2])) * shape[-1]
+    return bound_us((l_in + l_out) * cols * 8, cols * (3 * l_in + 2 * l_in * l_out + 6 * l_out))
+
+
+def fused_bound(shape) -> tuple[float, str]:
+    """K4 on a, b (B, 2, L, n) -> (B, 3, L, n): 7 transforms and the
+    dyadic products (about 40 ops a coefficient) per (batch, limb)."""
+    polys, n = shape[0] * shape[2], shape[-1]
+    ops = polys * (7 * (n // 2) * (n.bit_length() - 1) * NTT_BUTTERFLY_OPS + 40 * n)
+    return bound_us(7 * polys * n * 8, ops)
 
 
 def gpu_line() -> str:
@@ -99,6 +147,23 @@ def gpu_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_report(proc: subprocess.Popen):
+    """Registers, stack and spills of each kernel of ntt.cu, as
+    nvcc -Xptxas -v prints them."""
+    out, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"[build] nvcc -Xptxas -v failed:\n{out}\n{err}")
+    names = {"ntt_kernelILb0": "ntt_forward", "ntt_kernelILb1": "ntt_inverse",
+             "ntt_forward_radix2": "ntt_forward radix-2 yardstick",
+             "ntt_inverse_radix2": "ntt_inverse radix-2 yardstick"}
+    current = None
+    for line in err.splitlines():
+        if "Compiling entry function" in line:
+            current = next((v for k, v in names.items() if k in line), None)
+        elif current and ("spill" in line or "registers" in line):
+            log(f"[build] ptxas, {current}: {line.split(':', 1)[-1].strip()}")
 
 
 def cuda_device() -> torch.device:
@@ -162,7 +227,8 @@ def residues(shape, q: torch.Tensor, gen, factor: int = 1) -> torch.Tensor:
 
 
 def phase_ntt(dev, tables: dict) -> dict:
-    """NTT kernel pair vs plain; returns max |err| per kernel."""
+    """NTT kernel pair vs plain, and the radix-2 yardstick of [times] too;
+    returns max |err| per kernel.  The inverse also takes lazy [0, 2q)."""
     from troy_tpu_torch.ops import ntt as NTT, ntt_cuda
 
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -174,13 +240,18 @@ def phase_ntt(dev, tables: dict) -> dict:
         y_ref = NTT.ntt_forward_plain(x, t)
         z = ntt_cuda.ntt_inverse(y, t)
         z_ref = NTT.ntt_inverse_plain(y, t)
+        z_lazy = ntt_cuda.ntt_inverse(x, t)
+        z_lazy_ref = NTT.ntt_inverse_plain(x % t.q.view(-1, 1), t)
+        yard = (torch.equal(ntt_cuda.run_radix2(False, x, t), y_ref)
+                and torch.equal(ntt_cuda.run_radix2(True, y, t), z_ref))
         torch.cuda.synchronize()
         e_f = int((y - y_ref).abs().max())
-        e_i = int((z - z_ref).abs().max())
+        e_i = max(int((z - z_ref).abs().max()), int((z_lazy - z_lazy_ref).abs().max()))
         back = bool(torch.equal(z, x % t.q.view(-1, 1)))
         log(f"[kernels] ntt {label} {shape}: forward max|err| {e_f}, "
-            f"inverse max|err| {e_i}, inverse(forward(x)) == x: {back}")
-        if e_f or e_i or not back:
+            f"inverse max|err| {e_i}, inverse(forward(x)) == x: {back}, "
+            f"radix-2 yardstick equal: {yard}")
+        if e_f or e_i or not back or not yard:
             raise AssertionError(f"[kernels] ntt {label}: kernel disagrees with plain")
         err["ntt_forward"] = max(err["ntt_forward"], e_f)
         err["ntt_inverse"] = max(err["ntt_inverse"], e_i)
@@ -230,7 +301,7 @@ def phase_fused(dev, cases: dict) -> int:
 
 
 def other_degrees(dev) -> dict:
-    """NTT tables off the main path, n = 16 to the kernels' limit 32768
+    """NTT tables off the main path, every n = 2 to the kernels' limit 32768
     (above 48 KiB of dynamic shared memory), and n = 65536, which the
     wrappers refuse."""
     from troy_tpu_torch.core.modulus import Modulus
@@ -238,7 +309,7 @@ def other_degrees(dev) -> dict:
     from troy_tpu_torch.utils import numth
 
     out = {}
-    for log_n in (4, 10, 14, 15, 16):
+    for log_n in range(1, 17):
         n = 1 << log_n
         mods = [Modulus(p) for p in numth.get_primes(2 * n, 30, 2)]
         out[n] = NTTTables(log_n, mods, dev)
@@ -516,9 +587,14 @@ def round_stages(gpu: str, evaluator, cd, rot: dict):
             f"({100 * ms / whole:.1f}% of the whole step)")
 
 
-def profile_step(fn, calls: int) -> tuple[float, float]:
-    """Kernel launches and device milliseconds per call of fn, from the
-    profiler's device events."""
+PROFILED = {  # kernel: a part of its name in the profiler
+    "ntt_forward": "ntt_kernel<false>", "ntt_inverse": "ntt_kernel<true>",
+    "base_convert": "bconv_kernel", "fused_negacyclic_multiply": "fused_mul_kernel"}
+
+
+def profile_step(fn, calls: int) -> dict:
+    """Per call of fn, from the profiler's device events: kernel launches,
+    device milliseconds, and each port kernel's launches and milliseconds."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
@@ -529,8 +605,84 @@ def profile_step(fn, calls: int) -> tuple[float, float]:
                if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
     if not kernels:
         raise AssertionError("[times] the profiler recorded no device kernels")
-    return (sum(e.count for e in kernels) / calls,
-            sum(e.self_device_time_total for e in kernels) / 1e3 / calls)
+    out = {"launches": sum(e.count for e in kernels) / calls,
+           "ms": sum(e.self_device_time_total for e in kernels) / 1e3 / calls}
+    for name, part in PROFILED.items():
+        mine = [e for e in kernels if part in e.key]
+        out[name] = (sum(e.count for e in mine) / calls,
+                     sum(e.self_device_time_total for e in mine) / 1e3 / calls)
+    return out
+
+
+def record_launches(fn) -> list:
+    """fn() once with the NTT and K3 dispatch attributes recording each
+    call's kernel, input shape and tables."""
+    from contextlib import ExitStack
+    from troy_tpu_torch.ops import ntt as NTT, bconv as BC
+
+    calls = []
+
+    def recording(name, impl):
+        def call(x, t):
+            calls.append((name, tuple(x.shape), t))
+            return impl(x, t)
+        return call
+
+    with ExitStack() as stack:
+        for mod, name in ((NTT, "ntt_forward"), (NTT, "ntt_inverse"), (BC, "base_convert")):
+            stack.enter_context(mock.patch.object(mod, name, recording(name, getattr(mod, name))))
+        fn()
+    torch.cuda.synchronize()
+    return calls
+
+
+def launch_bound(name: str, shape, t) -> tuple[float, str]:
+    return bconv_bound(shape, t.L_out) if name == "base_convert" else ntt_bound(shape)
+
+
+def graph_us(fn, launches: int = GRAPH_LAUNCHES) -> float:
+    """Device microseconds per call of fn: CUDA events around one replay of
+    a CUDA graph of `launches` calls, so no host time falls between them."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / launches * 1e3
+
+
+def phase_ntt_ab(gpu: str, dev, shapes: dict) -> dict:
+    """The NTT kernel against the earlier radix-2 kernel, in turns (new, old,
+    old, new), at each (kernel, shape) of shapes; returns
+    {(name, shape): (new us, old us)}, each the lower of its two turns."""
+    from troy_tpu_torch.ops import ntt_cuda
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    out = {}
+    for (name, shape), t in shapes.items():
+        inverse = name == "ntt_inverse"
+        x = residues(shape, t.q, g)
+        new = lambda: (ntt_cuda.ntt_inverse if inverse else ntt_cuda.ntt_forward)(x, t)
+        old = lambda: ntt_cuda.run_radix2(inverse, x, t)
+        n1, o1, o2, n2 = graph_us(new), graph_us(old), graph_us(old), graph_us(new)
+        bound, by = ntt_bound(shape)
+        new_us, old_us = min(n1, n2), min(o1, o2)
+        out[(name, shape)] = (new_us, old_us)
+        log(f"[times] {gpu}: {name} {shape}: register-radix kernel {n1:.3f} / {n2:.3f} us, "
+            f"radix-2 yardstick {o1:.3f} / {o2:.3f} us a launch (graph of "
+            f"{GRAPH_LAUNCHES}); bound {bound:.3f} us ({by}); share of the bound "
+            f"{100 * bound / new_us:.1f}% against {100 * bound / old_us:.1f}%; "
+            f"new <= old: {new_us <= old_us}")
+    return out
 
 
 def main() -> int:
@@ -560,10 +712,20 @@ def main() -> int:
 
     # ---- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
+    _cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    ptxas = subprocess.Popen(
+        [_cuda_build._nvcc(), *_cuda_build.COMPILE_FLAGS, "-Xptxas", "-v", "-c", "-o",
+         str(_cuda_build.BUILD_DIR / "ntt_ptxas.o"), str(_cuda_build.CSRC / "ntt.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     lib = _cuda_build.build()
     _cuda_build.load()
     log(f"[build] {lib.name} from {', '.join(p.name for p in _cuda_build.sources())} "
         f"in {time.perf_counter() - t0:.3f} s")
+    ptxas_report(ptxas)
+    for which, label in enumerate(("ntt_forward", "ntt_inverse", "ntt_forward radix-2 yardstick",
+                                   "ntt_inverse radix-2 yardstick")):
+        log(f"[build] {label} at n = {N}: {ntt_cuda.kernel_info(which, N.bit_length() - 1)} "
+            f"(cudaFuncGetAttributes, cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
 
     t0 = time.perf_counter()
     ctx = build_context(dev)
@@ -607,7 +769,7 @@ def main() -> int:
     err["fused_negacyclic_multiply"] = phase_fused(dev, {
         "base q": ((BATCH,), qtab),
         "base Bsk": ((BATCH,), bsk),
-        **{f"n={n}": ((3,), t) for n, t in degrees.items() if n <= 32768},
+        **{f"n={n}": ((3,), degrees[n]) for n in K4_DEGREES},
     })
     phase_refusals(dev, qtab, tool.conv_B_to_q.tables, degrees[65536])
 
@@ -704,20 +866,48 @@ def main() -> int:
         "mod switch L = 6 -> 5 + rotate_rows(1) at L = 5 (repeated on one input)",
         lambda d: modswitch["rot1"](modswitch["step"](d), modswitch["keys"]),
         rot["d"], chain=False)
+    r1 = rot["steps"]["rotate_rows(1)"]
+    step_calls = {"HPS step": record_launches(lambda: steps["hps"](d1, d2, keys)),
+                  "rotate_rows(1)": record_launches(lambda: r1["step"](rot["d"], r1["keys"]))}
+    profiles = {"HPS step": profile_step(lambda: steps["hps"](d1, d2, keys), PROFILE_STEPS)}
     for label in ("rotate_rows(1)", "rotate_columns"):
         r = rot["steps"][label]
-        prof_launches, prof_ms = profile_step(lambda: r["step"](rot["d"], r["keys"]),
-                                              PROFILE_STEPS)
-        log(f"[times] {gpu}: profiler, {label}, {PROFILE_STEPS} steps: "
-            f"{prof_launches:.0f} kernel launches and {prof_ms:.4f} ms of device kernel "
-            f"time per step; device busy share of the event-timed chained step "
-            f"{100 * prof_ms / step_ms[label][0]:.1f}%")
+        profiles[label] = profile_step(lambda: r["step"](rot["d"], r["keys"]), PROFILE_STEPS)
+    for label, prof in profiles.items():
+        chained = step_ms["hps" if label == "HPS step" else label][0]
+        ntt_n = prof["ntt_forward"][0] + prof["ntt_inverse"][0]
+        ntt_ms = prof["ntt_forward"][1] + prof["ntt_inverse"][1]
+        line = (f"[times] {gpu}: profiler, {label}, {PROFILE_STEPS} steps: "
+                f"{prof['launches']:.0f} kernel launches and {prof['ms']:.4f} ms of device "
+                f"kernel time per step, of which the NTT kernels {ntt_n:.0f} launches "
+                f"{ntt_ms:.4f} ms and K3 {prof['base_convert'][0]:.0f} launches "
+                f"{prof['base_convert'][1]:.4f} ms; device busy share of the event-timed "
+                f"chained step ({chained:.4f} ms) {100 * prof['ms'] / chained:.1f}%")
+        if label in step_calls:
+            ntt_bound_ms = sum(ntt_bound(shape)[0] for name, shape, _ in step_calls[label]
+                               if name != "base_convert") / 1e3
+            line += (f"; NTT bound {ntt_bound_ms:.4f} ms, {100 * ntt_bound_ms / ntt_ms:.1f}% "
+                     f"of the NTT kernels' time")
+        log(line)
     round_stages(gpu, evs["hps"], cd, rot)
+    ab_shapes = {}
+    for calls in step_calls.values():
+        for name, shape, t in calls:
+            if name != "base_convert":
+                ab_shapes.setdefault((name, shape), t)
+    ab_shapes.setdefault(("ntt_forward", (BATCH, L, N)), qtab)
+    ab = phase_ntt_ab(gpu, dev, ab_shapes)
+    for label, calls in step_calls.items():
+        per = sum(ab[(name, shape)][0] for name, shape, _ in calls if name != "base_convert")
+        old = sum(ab[(name, shape)][1] for name, shape, _ in calls if name != "base_convert")
+        log(f"[times] {gpu}: {label}: {sum(name != 'base_convert' for name, _, _ in calls)} NTT "
+            f"launches, {per:.3f} us by the register-radix kernel, {old:.3f} us by the "
+            f"radix-2 yardstick (sums of the graph times above)")
 
     def pair(kernel, plain):
-        kernel()
-        plain()
-        return cuda_ms(kernel, KERNEL_REPS), cuda_ms(plain, PLAIN_REPS)
+        """Device ms per call of the kernel and of its plain version, each
+        by CUDA events around a CUDA graph of its calls."""
+        return graph_us(kernel) / 1e3, graph_us(plain, PLAIN_REPS) / 1e3
 
     times = {}
     g = torch.Generator(device=dev).manual_seed(2)
@@ -727,8 +917,8 @@ def main() -> int:
             ("ntt_inverse", ntt_cuda.ntt_inverse, NTT.ntt_inverse_plain)):
         times[name] = pair(lambda: kernel(xq, qtab), lambda: plain(xq, qtab))
         log(f"[times] {gpu}: {name} at {tuple(xq.shape)}: kernel "
-            f"{times[name][0]:.5f} ms, plain {times[name][1]:.5f} ms (wall time "
-            f"per call, wrapper included)")
+            f"{times[name][0]:.5f} ms, plain {times[name][1]:.5f} ms (device time per "
+            f"call, CUDA graph)")
     for label, (lead, tabs) in bconv_cases.items():
         if label in ("15 -> 9", "1 -> 3"):
             continue
@@ -738,28 +928,42 @@ def main() -> int:
         if label.startswith("floor"):
             times["base_convert"] = ms
         log(f"[times] {gpu}: base_convert {label} {tuple(x.shape)} -> "
-            f"{tabs.L_out} limbs: kernel {ms[0]:.5f} ms, plain {ms[1]:.5f} ms")
+            f"{tabs.L_out} limbs: kernel {ms[0]:.5f} ms, plain {ms[1]:.5f} ms (device "
+            f"time per call, CUDA graph)")
     for label, t in (("base q", qtab), ("base Bsk", bsk)):
         a = residues((BATCH, 2, t.size, N), t.q, g)
         b = residues((BATCH, 2, t.size, N), t.q, g)
         ms = pair(lambda: fused_mul_cuda.fused_negacyclic_multiply(a, b, t),
                   lambda: FM.fused_negacyclic_multiply_plain(a, b, t))
-        unfused_ms = cuda_ms(lambda: unfused_stage(a, b, t), KERNEL_REPS)
+        unfused_ms = graph_us(lambda: unfused_stage(a, b, t)) / 1e3
         if label == "base q":
             times["fused_negacyclic_multiply"] = ms
         log(f"[times] {gpu}: fused_negacyclic_multiply {label} {tuple(a.shape)}: "
             f"kernel {ms[0]:.5f} ms, plain {ms[1]:.5f} ms, unfused kernel path "
-            f"(NTT kernel, torch dyadic_convolute, NTT kernel) {unfused_ms:.5f} ms")
+            f"(NTT kernel, torch dyadic_convolute, NTT kernel) {unfused_ms:.5f} ms (device "
+            f"time per call, CUDA graph)")
 
     # ---- 9. results ----------------------------------------------------------
     main_launches = {**launches["hps"],
                      "fused_negacyclic_multiply":
                          launches["fused"]["fused_negacyclic_multiply"]}
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-         "launches": main_launches[name], "max_abs_err": err[name],
-         "ms": times[name][0], "plain_ms": times[name][1]}
-        for name, (src, replaces) in KERNELS.items()]}))
+    floor_tabs = tool.ff_tables
+    timed = {  # the work each kernel's "ms" times, for its bound
+        "ntt_forward": ntt_bound(tuple(xq.shape)), "ntt_inverse": ntt_bound(tuple(xq.shape)),
+        "base_convert": bconv_bound((BATCH, 3, floor_tabs.L_in, N), floor_tabs.L_out),
+        "fused_negacyclic_multiply": fused_bound((BATCH, 2, L, N))}
+    hps = profiles["HPS step"]
+    results = []
+    for name, (src, replaces) in KERNELS.items():
+        mine = [(shape, t) for kname, shape, t in step_calls["HPS step"] if kname == name]
+        results.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": main_launches[name], "max_abs_err": err[name],
+            "ms": times[name][0], "plain_ms": times[name][1],
+            "bound_ms": timed[name][0] / 1e3, "bound_by": timed[name][1], "library_ms": None,
+            "bound_us": sum(launch_bound(name, shape, t)[0] for shape, t in mine),
+            "device_us": hps[name][1] * 1e3, "launches_per_step": len(mine)})
+    print(json.dumps({"kernels": results}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

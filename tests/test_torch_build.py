@@ -17,7 +17,7 @@ def test_digest_covers_sources_and_headers(tmp_path):
     shutil.copytree(_cuda_build.CSRC, csrc)
     base = _cuda_build.digest(csrc)
     assert base == _cuda_build.digest(_cuda_build.CSRC)
-    for name in ("ntt_common.cuh", "bconv.cu"):
+    for name in ("ntt_common.cuh", "bconv.cu", "ntt.cu"):
         path = csrc / name
         text = path.read_text()
         path.write_text(text + "\n// edited\n")

@@ -19,7 +19,9 @@ ntt_forward / ntt_inverse dispatch on the tensor's device alone.  Callers use
 them through this module's attributes (NTT.ntt_forward), never by name import.
 
 Tables are built on the host with Python ints (NTTTables._rows copies the
-JAX table builder) and moved to the context's device.  The forward transform
+JAX table builder) and moved to the context's device.  The kernel's own
+twiddle layout (kernel_phase_plan, NTTTables.kernel_phases) is built here
+too, in numpy, so that the CPU tests can check it.  The forward transform
 accepts lazy inputs in [0, 2q): keyswitch digits arrive unreduced.
 """
 
@@ -37,6 +39,104 @@ def _shoup(values: np.ndarray, q: int) -> np.ndarray:
     return ((values.astype(np.uint64) << np.uint64(32)) // np.uint64(q)).astype(np.uint32)
 
 
+KERNEL_MAX_DEPTH = 5  # stages one kernel phase runs in registers: 32 values
+
+
+def kernel_phase_plan(log_n: int) -> list[tuple[int, int]]:
+    """The NTT kernel's phases (csrc/ntt.cu): (r, k) runs the k forward
+    stages m = 2^r .. 2^(r+k-1) in registers, the inverse the same stages in
+    reverse.  The last phase takes min(5, log_n) stages, so that every phase
+    before it reads shared memory at a stride of 32 or more (no bank
+    conflicts).  Before it, a first phase of at most 4 stages (the
+    inverse runs it as its last, two sub-transforms a thread, storing to
+    device memory from registers), then the rest split as evenly as
+    possible into phases of at most 5.
+    At n = 8192: (0, 4), (4, 4), (8, 5)."""
+    last = min(KERNEL_MAX_DEPTH, log_n)
+    rest = log_n - last
+    first = min(KERNEL_MAX_DEPTH - 1, rest)
+    mid = rest - first
+    count = -(-mid // KERNEL_MAX_DEPTH)
+    depths = ([first] if first else []) + [
+        mid // count + (i < mid % count) for i in range(count)] + [last]
+    plan, r = [], 0
+    for k in depths:
+        plan.append((r, k))
+        r += k
+    return plan
+
+
+def kernel_plan_code(plan: list[tuple[int, int]]) -> int:
+    """The plan as the kernel reads it: depth of phase i in bits 4i..4i+3."""
+    return sum(k << (4 * i) for i, (_, k) in enumerate(plan))
+
+
+FACTOR_LEVEL = 3     # the last phase's levels from here on factor their twiddles
+CONSTANT_SLOTS = 16  # psi_br[0 .. 15] ahead of the phases (slot 0 padding)
+
+
+def phase_slots(k: int, last: bool) -> int:
+    """Table slots (u32 pairs) of one sub-transform root of a phase: 2^k,
+    or in a factored last phase the 2^FACTOR_LEVEL slots of the levels
+    before it and two for psi_br[v 2^l], l = 3, 4 (the second padding when
+    k = 4), an even count so that a root's slots load as 16-byte pairs."""
+    return (1 << FACTOR_LEVEL) + 2 if last and k > FACTOR_LEVEL else 1 << k
+
+
+def phase_entries(log_n: int) -> int:
+    """(w, w') pairs of one limb's kernel table (phase_rows), which the
+    kernel copies into shared memory: 2 848 at n = 8192."""
+    plan = kernel_phase_plan(log_n)
+    return CONSTANT_SLOTS + sum((1 << r) * phase_slots(k, i == len(plan) - 1)
+                                for i, (r, k) in enumerate(plan))
+
+
+def phase_nodes(r: int, k: int, last: bool = False) -> np.ndarray:
+    """(2^r, phase_slots(k, last)) indices into a psi_br row for the phase
+    (r, k): row v - 2^r serves the sub-transforms of root v.  Node m + g of
+    psi_br is the twiddle of group g at stage m, and group g of level l of
+    root v is node v 2^l + g.  Slot p = 2^l + g holds that node for
+    l < FACTOR_LEVEL, level by level (the heap subtree of v); in the last
+    phase the levels l >= FACTOR_LEVEL are factored, since
+    psi_br[v 2^l + g] = psi_br[v 2^l] psi_br[g] (the bits of v 2^l and of g
+    do not overlap, so their reversals add): slot 8 + l - 3 holds v 2^l, and
+    the factors psi_br[g] sit once per limb ahead of the phases.  Earlier
+    phases keep the whole subtree (their tables are small and shared by
+    many CTAs).  Index 0 marks padding (slot 0, and slot 9 when k = 4)."""
+    v = np.arange(1 << r, 2 << r)[:, None]
+    depth = FACTOR_LEVEL if last and k > FACTOR_LEVEL else k
+    p = np.arange(1 << depth)
+    lvl = np.zeros_like(p)
+    for i in range(1, depth):
+        lvl += p >= (1 << i)
+    nodes = (v << lvl) + p - (1 << lvl)
+    nodes[:, 0] = 0
+    if depth < k:
+        extra = [v << l for l in range(depth, k)]
+        extra += [np.zeros_like(v)] * (phase_slots(k, last) - (1 << depth) - len(extra))
+        nodes = np.concatenate([nodes, *extra], axis=1)
+    return nodes
+
+
+def phase_rows(row: np.ndarray, row_shoup: np.ndarray, log_n: int) -> np.ndarray:
+    """One limb's kernel twiddles, as (w, floor(w 2^32 / q)) u32 pairs, so
+    that a thread loads two slots as one 16-byte vector: CONSTANT_SLOTS
+    factors psi_br[g] (zero where g >= n), then every phase of
+    kernel_phase_plan back to back (phase_nodes), padding (0, 0)."""
+    n = 1 << log_n
+    g = np.arange(min(CONSTANT_SLOTS, n))
+    parts = [np.stack([row[g], row_shoup[g]], axis=-1)]
+    parts[0][0] = 0
+    parts.append(np.zeros((CONSTANT_SLOTS - len(g), 2), np.uint32))
+    plan = kernel_phase_plan(log_n)
+    for i, (r, k) in enumerate(plan):
+        nodes = phase_nodes(r, k, last=i == len(plan) - 1)
+        pair = np.stack([row[nodes], row_shoup[nodes]], axis=-1)
+        pair[nodes == 0] = 0
+        parts.append(pair.reshape(-1, 2))
+    return np.concatenate(parts).reshape(-1).astype(np.uint32)
+
+
 class NTTTables:
     """Per-(n, modulus-list) twiddle tables on one device.
 
@@ -46,7 +146,10 @@ class NTTTables:
     Kernel tensors (u32 bit patterns stored as int32):
       kernel_rows (4, L, n): psi_br, its Shoup companion, inv_psi_br, its
         Shoup companion;
-      kernel_scalars (3, L): q, n^-1, the Shoup companion of n^-1.
+      kernel_scalars (3, L): q, n^-1, the Shoup companion of n^-1;
+      kernel_phases (2, L, 2 E): phase_rows of psi_br and of inv_psi_br per
+        limb, E entries each (the NTT kernel's twiddles);
+      phase_plan / plan_code: kernel_phase_plan(log_n) and its packed form.
     """
 
     _row_cache: dict = {}  # (log_n, q) -> per-modulus host rows
@@ -73,9 +176,12 @@ class NTTTables:
             p = p * psi % q
             ip = ip * ipsi % q
         ninv = numth.invert_mod(n, q)
-        rows = dict(psi_br=fwd, psi_br_shoup=_shoup(fwd, q),
-                    inv_psi_br=inv, inv_psi_br_shoup=_shoup(inv, q),
-                    n_inv=ninv, n_inv_shoup=(ninv << 32) // q)
+        fwd_sh, inv_sh = _shoup(fwd, q), _shoup(inv, q)
+        rows = dict(psi_br=fwd, psi_br_shoup=fwd_sh,
+                    inv_psi_br=inv, inv_psi_br_shoup=inv_sh,
+                    n_inv=ninv, n_inv_shoup=(ninv << 32) // q,
+                    phases=np.stack([phase_rows(fwd, fwd_sh, log_n),
+                                     phase_rows(inv, inv_sh, log_n)]))
         cls._row_cache[key] = rows
         return rows
 
@@ -84,6 +190,8 @@ class NTTTables:
         self.n = 1 << log_n
         self.moduli = list(moduli)
         self.device = torch.device(device)
+        self.phase_plan = kernel_phase_plan(log_n)
+        self.plan_code = kernel_plan_code(self.phase_plan)
         rows = [self._rows(log_n, m) for m in moduli]
         q = np.array([m.value for m in moduli], dtype=np.int64)
         kernel_rows = np.stack([
@@ -99,6 +207,8 @@ class NTTTables:
             n_inv=torch.tensor([r["n_inv"] for r in rows], dtype=torch.int64),
             kernel_rows=torch.from_numpy(kernel_rows.view(np.int32)),
             kernel_scalars=torch.from_numpy(kernel_scalars.view(np.int32)),
+            kernel_phases=torch.from_numpy(
+                np.stack([r["phases"] for r in rows], axis=1).view(np.int32)),
         )
 
     def _set(self, **tensors):
@@ -118,12 +228,14 @@ class NTTTables:
         special prime, for the keyswitch output base)."""
         out = object.__new__(NTTTables)
         out.log_n, out.n, out.device = self.log_n, self.n, self.device
+        out.phase_plan, out.plan_code = self.phase_plan, self.plan_code
         out.moduli = [self.moduli[i] for i in idx]
         ix = torch.tensor(idx, dtype=torch.int64, device=self.device)
         out._set(q=self.q[ix], psi_br=self.psi_br[ix],
                  inv_psi_br=self.inv_psi_br[ix], n_inv=self.n_inv[ix],
                  kernel_rows=self.kernel_rows[:, ix],
-                 kernel_scalars=self.kernel_scalars[:, ix])
+                 kernel_scalars=self.kernel_scalars[:, ix],
+                 kernel_phases=self.kernel_phases[:, ix])
         return out
 
 
