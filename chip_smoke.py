@@ -14,16 +14,19 @@ client flow of examples/99_quickstart.py.  In phases:
   1. device   the card's name and power limit (fails without CUDA);
   2. build    nvcc builds every csrc/*.cu into one library under
               troy_tpu_torch/build/; beside it, nvcc -Xptxas -v on ntt.cu
-              prints each NTT kernel's registers and spills, and the
-              occupancy calculator its CTAs per SM;
+              and fused_mul.cu prints each kernel's registers and spills,
+              and the occupancy calculator its CTAs per SM (and K4's
+              clusters on the card);
   3. kernels  each kernel against its plain PyTorch version, bit for bit:
               the NTT pair (and the earlier radix-2 pair that [times] uses
               as its yardstick) at every shape the path gives it and at every
               degree 2 to 32768; the base conversion (K3) at every conversion of
               both lifts, the floor, Shenoy-Kumaresan and decrypt, at a
               15 -> 9 contraction and at one input limb; the fused tensor
-              product (K4) over base q and Bsk and at degrees 16 to 32768.
-              Each wrapper refuses input its kernel cannot take;
+              product (K4, and its earlier radix-2 kernel, the yardstick of
+              [times]) on lazy [0, 2q) input over base q and Bsk and at every
+              degree 2 to 32768.  Each wrapper refuses input its kernel
+              cannot take;
   4. main     keygen, encode, encrypt 16 distinct pairs; one HPS step and
               one BEHZ step.  Each must launch the NTT kernels and K3, equal
               the same step with every kernel dispatch (NTT.ntt_forward,
@@ -55,9 +58,11 @@ client flow of examples/99_quickstart.py.  In phases:
               stages (gather, keyswitch, add), each kernel against its plain
               version (K4 also against the unfused kernel path), and the NTT
               kernel against the earlier radix-2 kernel in turns (new, old,
-              old, new) at every NTT shape of the HPS step and the Galois round:
-              device microseconds per launch from CUDA events around a CUDA
-              graph of 50 launches, beside the launch's bound.
+              old, new) at every NTT shape of the HPS step and the Galois round,
+              and K4 against its earlier radix-2 kernel the same way over q,
+              over Bsk and at the degrees of K4_DEGREES: device microseconds
+              per launch from CUDA events around a CUDA graph of 50 launches,
+              beside the launch's bound.
 
 Bounds: the least time the card could take for a launch's work, the larger
 of its bytes (each input read once, each output written once) over
@@ -149,19 +154,34 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+PTXAS_NAMES = {  # a part of each kernel's mangled name: the name printed
+    "ntt_kernelILb0": "ntt_forward", "ntt_kernelILb1": "ntt_inverse",
+    "ntt_forward_radix2": "ntt_forward radix-2 yardstick",
+    "ntt_inverse_radix2": "ntt_inverse radix-2 yardstick",
+    "fused_mul_kernelILi13E": "fused_negacyclic_multiply at n = 8192",
+    "fused_mul_radix2": "fused_negacyclic_multiply radix-2 yardstick"}
+
+
+def ptxas_start(source: str) -> subprocess.Popen:
+    """nvcc -Xptxas -v on one csrc/ source, started in the background."""
+    from troy_tpu_torch.ops import _cuda_build
+
+    return subprocess.Popen(
+        [_cuda_build._nvcc(), *_cuda_build.COMPILE_FLAGS, "-Xptxas", "-v", "-c", "-o",
+         str(_cuda_build.BUILD_DIR / f"{source}.ptxas.o"), str(_cuda_build.CSRC / source)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
 def ptxas_report(proc: subprocess.Popen):
-    """Registers, stack and spills of each kernel of ntt.cu, as
+    """Registers, stack and spills of each kernel of one source, as
     nvcc -Xptxas -v prints them."""
     out, err = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"[build] nvcc -Xptxas -v failed:\n{out}\n{err}")
-    names = {"ntt_kernelILb0": "ntt_forward", "ntt_kernelILb1": "ntt_inverse",
-             "ntt_forward_radix2": "ntt_forward radix-2 yardstick",
-             "ntt_inverse_radix2": "ntt_inverse radix-2 yardstick"}
     current = None
     for line in err.splitlines():
         if "Compiling entry function" in line:
-            current = next((v for k, v in names.items() if k in line), None)
+            current = next((v for k, v in PTXAS_NAMES.items() if k in line), None)
         elif current and ("spill" in line or "registers" in line):
             log(f"[build] ptxas, {current}: {line.split(':', 1)[-1].strip()}")
 
@@ -280,21 +300,23 @@ def phase_bconv(dev, cases: dict) -> int:
 
 
 def phase_fused(dev, cases: dict) -> int:
-    """Fused tensor-product kernel vs plain; returns max |err|."""
+    """Fused tensor-product kernel vs plain on lazy [0, 2q) input, and the
+    radix-2 yardstick of [times] too; returns max |err|."""
     from troy_tpu_torch.ops import fused_mul as FM, fused_mul_cuda
 
     gen = torch.Generator(device=dev).manual_seed(4)
     worst = 0
     for label, (lead, t) in cases.items():
         shape = (*lead, 2, t.size, t.n)
-        a, b = residues(shape, t.q, gen), residues(shape, t.q, gen)
+        a, b = residues(shape, t.q, gen, 2), residues(shape, t.q, gen, 2)
         c = fused_mul_cuda.fused_negacyclic_multiply(a, b, t)
         c_ref = FM.fused_negacyclic_multiply_plain(a, b, t)
+        yard = torch.equal(fused_mul_cuda.run_radix2(a, b, t), c_ref)
         torch.cuda.synchronize()
         e = int((c - c_ref).abs().max())
         log(f"[kernels] fused_negacyclic_multiply {label} {shape} -> "
-            f"{tuple(c.shape)}: max|err| {e}")
-        if e or c.shape != c_ref.shape:
+            f"{tuple(c.shape)}: max|err| {e}, radix-2 yardstick equal: {yard}")
+        if e or c.shape != c_ref.shape or not yard:
             raise AssertionError(f"[kernels] fused {label}: kernel disagrees with plain")
         worst = max(worst, e)
     return worst
@@ -351,10 +373,12 @@ def phase_refusals(dev, t, bconv_tabs, big):
         "wrong limb count": (xb[:, :1].contiguous(), ValueError),
         "CPU tensor": (xb.cpu(), ValueError)})
     a = torch.zeros((2, 2, t.size, t.n), dtype=torch.int64, device=dev)
+    shifted = torch.zeros(a.numel() + 1, dtype=torch.int64, device=dev)[1:].view(a.shape)
     expect_refusals("fused_negacyclic_multiply",
                     lambda v: fused_mul_cuda.fused_negacyclic_multiply(v, a, t), {
                         "int32": (a.to(torch.int32), TypeError),
                         "not contiguous": (a.transpose(0, 1), ValueError),
+                        "not 16-byte aligned": (shifted, ValueError),
                         "three polynomials": (torch.zeros((2, 3, t.size, t.n), dtype=torch.int64,
                                                           device=dev), ValueError),
                         "CPU tensor": (a.cpu(), ValueError)})
@@ -685,6 +709,31 @@ def phase_ntt_ab(gpu: str, dev, shapes: dict) -> dict:
     return out
 
 
+def phase_fused_ab(gpu: str, dev, cases: dict) -> dict:
+    """K4 against its earlier radix-2 kernel, in turns (new, old, old, new),
+    on lazy [0, 2q) input at each case (lead, tables); returns
+    {label: (new us, old us)}, each the lower of its two turns."""
+    from troy_tpu_torch.ops import fused_mul_cuda
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    out = {}
+    for label, (lead, t) in cases.items():
+        shape = (*lead, 2, t.size, t.n)
+        a, b = residues(shape, t.q, g, 2), residues(shape, t.q, g, 2)
+        new = lambda: fused_mul_cuda.fused_negacyclic_multiply(a, b, t)
+        old = lambda: fused_mul_cuda.run_radix2(a, b, t)
+        n1, o1, o2, n2 = graph_us(new), graph_us(old), graph_us(old), graph_us(new)
+        bound, by = fused_bound(shape)
+        new_us, old_us = min(n1, n2), min(o1, o2)
+        out[label] = (new_us, old_us)
+        log(f"[times] {gpu}: fused_negacyclic_multiply {label} {shape}: cluster kernel "
+            f"{n1:.3f} / {n2:.3f} us, radix-2 yardstick {o1:.3f} / {o2:.3f} us a launch "
+            f"(graph of {GRAPH_LAUNCHES}); bound {bound:.3f} us ({by}); share of the bound "
+            f"{100 * bound / new_us:.1f}% against {100 * bound / old_us:.1f}%; "
+            f"{old_us / new_us:.2f}x; new <= old: {new_us <= old_us}")
+    return out
+
+
 def main() -> int:
     # ---- 1. device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -713,19 +762,28 @@ def main() -> int:
     # ---- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
     _cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    ptxas = subprocess.Popen(
-        [_cuda_build._nvcc(), *_cuda_build.COMPILE_FLAGS, "-Xptxas", "-v", "-c", "-o",
-         str(_cuda_build.BUILD_DIR / "ntt_ptxas.o"), str(_cuda_build.CSRC / "ntt.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    ptxas = [ptxas_start(src) for src in ("ntt.cu", "fused_mul.cu")]
     lib = _cuda_build.build()
     _cuda_build.load()
     log(f"[build] {lib.name} from {', '.join(p.name for p in _cuda_build.sources())} "
         f"in {time.perf_counter() - t0:.3f} s")
-    ptxas_report(ptxas)
+    for proc in ptxas:
+        ptxas_report(proc)
+    log_n = N.bit_length() - 1
     for which, label in enumerate(("ntt_forward", "ntt_inverse", "ntt_forward radix-2 yardstick",
                                    "ntt_inverse radix-2 yardstick")):
-        log(f"[build] {label} at n = {N}: {ntt_cuda.kernel_info(which, N.bit_length() - 1)} "
+        log(f"[build] {label} at n = {N}: {ntt_cuda.kernel_info(which, log_n)} "
             f"(cudaFuncGetAttributes, cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
+    for which, label in enumerate(("fused_negacyclic_multiply",
+                                   "fused_negacyclic_multiply radix-2 yardstick")):
+        info = fused_mul_cuda.kernel_info(which, log_n)
+        log(f"[build] {label} at n = {N}: {info} (cudaFuncGetAttributes, "
+            f"cudaOccupancyMaxActiveBlocksPerMultiprocessor, cudaOccupancyMaxActiveClusters)")
+        if which == 0 and (info["smem"] != fused_mul_cuda.shared_bytes(log_n)
+                           or info["clusters"] < 1):
+            raise AssertionError(f"[build] K4's launch shape {info} is not the wrapper's "
+                                 f"{fused_mul_cuda.shared_bytes(log_n)} bytes a CTA, or "
+                                 f"no cluster fits")
 
     t0 = time.perf_counter()
     ctx = build_context(dev)
@@ -769,7 +827,7 @@ def main() -> int:
     err["fused_negacyclic_multiply"] = phase_fused(dev, {
         "base q": ((BATCH,), qtab),
         "base Bsk": ((BATCH,), bsk),
-        **{f"n={n}": ((3,), degrees[n]) for n in K4_DEGREES},
+        **{f"n={n}": ((3,), t) for n, t in degrees.items() if n <= 32768},
     })
     phase_refusals(dev, qtab, tool.conv_B_to_q.tables, degrees[65536])
 
@@ -930,18 +988,22 @@ def main() -> int:
         log(f"[times] {gpu}: base_convert {label} {tuple(x.shape)} -> "
             f"{tabs.L_out} limbs: kernel {ms[0]:.5f} ms, plain {ms[1]:.5f} ms (device "
             f"time per call, CUDA graph)")
+    fused_ab = phase_fused_ab(gpu, dev, {
+        "base q": ((BATCH,), qtab), "base Bsk": ((BATCH,), bsk),
+        **{f"n={n}": ((3,), degrees[n]) for n in K4_DEGREES}})
     for label, t in (("base q", qtab), ("base Bsk", bsk)):
-        a = residues((BATCH, 2, t.size, N), t.q, g)
-        b = residues((BATCH, 2, t.size, N), t.q, g)
-        ms = pair(lambda: fused_mul_cuda.fused_negacyclic_multiply(a, b, t),
-                  lambda: FM.fused_negacyclic_multiply_plain(a, b, t))
+        a = residues((BATCH, 2, t.size, N), t.q, g, 2)
+        b = residues((BATCH, 2, t.size, N), t.q, g, 2)
+        plain_ms = graph_us(lambda: FM.fused_negacyclic_multiply_plain(a, b, t),
+                            PLAIN_REPS) / 1e3
         unfused_ms = graph_us(lambda: unfused_stage(a, b, t)) / 1e3
+        ms = fused_ab[label][0] / 1e3
         if label == "base q":
-            times["fused_negacyclic_multiply"] = ms
+            times["fused_negacyclic_multiply"] = (ms, plain_ms)
         log(f"[times] {gpu}: fused_negacyclic_multiply {label} {tuple(a.shape)}: "
-            f"kernel {ms[0]:.5f} ms, plain {ms[1]:.5f} ms, unfused kernel path "
-            f"(NTT kernel, torch dyadic_convolute, NTT kernel) {unfused_ms:.5f} ms (device "
-            f"time per call, CUDA graph)")
+            f"kernel {ms:.5f} ms (the A/B above), plain {plain_ms:.5f} ms, unfused kernel "
+            f"path (NTT kernel, torch dyadic_convolute, NTT kernel) {unfused_ms:.5f} ms "
+            f"(device time per call, CUDA graph); kernel / unfused {ms / unfused_ms:.3f}")
 
     # ---- 9. results ----------------------------------------------------------
     main_launches = {**launches["hps"],

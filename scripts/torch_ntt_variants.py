@@ -74,36 +74,7 @@ SHAPES = [("forward", (16, 2), 6), ("forward", (16, 2), 9), ("inverse", (16, 3),
 
 _LOAD_PHASE = '''
 // fwd_fused: the forward's first phase (r = 0, K <= 4) straight from device
-// memory, sub-transforms u and u + 1 a thread, 16-byte loads.
-template <int K>
-__device__ __forceinline__ void load_phase(uint32_t* s, const int64_t* in,
-                                           int log_n,
-                                           const uint2* __restrict__ tw,
-                                           uint32_t q) {
-  constexpr int E = 1 << K;
-  const int log_s = log_n - K;
-  const uint4* t4 = reinterpret_cast<const uint4*>(tw);
-  const longlong2* src = reinterpret_cast<const longlong2*>(in);
-  for (int u = 2 * threadIdx.x; u < (1 << log_s); u += 2 * blockDim.x) {
-    uint32_t a[E], b[E];
-    longlong2 v[E];
-#pragma unroll
-    for (int j = 0; j < E; ++j) v[j] = __ldg(src + (((j << log_s) + u) >> 1));
-#pragma unroll
-    for (int j = 0; j < E; ++j) {
-      a[j] = static_cast<uint32_t>(v[j].x);
-      b[j] = static_cast<uint32_t>(v[j].y);
-    }
-    radix_stages<K, false, false>(a, t4, nullptr, q);
-    radix_stages<K, false, false>(b, t4, nullptr, q);
-#pragma unroll
-    for (int j = 0; j < E; ++j) {
-      s[pad((j << log_s) + u)] = a[j];
-      s[pad((j << log_s) + u + 1)] = b[j];
-    }
-  }
-}
-
+// memory (ntt_phases.cuh:load_phase, which K4 runs).
 __device__ __forceinline__ void run_load_phase(int k, uint32_t* s,
                                                const int64_t* in, int log_n,
                                                const uint2* tw, uint32_t q) {
@@ -354,18 +325,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-struct Shape {
-  int threads;
-  size_t smem;  // values; with the staging buffer: + 8 n
-};
-
-// Threads and shared memory of a CTA: n padded u32 values.
-Shape ntt_shape(int log_n, int) {
-  const int n = 1 << log_n;
-  const int threads = n >> 5 < 32 ? 32 : (n >> 5 > kThreads ? kThreads : n >> 5);
-  return {threads, static_cast<size_t>(data_words(log_n)) * sizeof(uint32_t)};
-}
-
 // CTAs of `kernel` resident on the whole card with smem bytes each, per
 // device (queried once).
 template <bool kInverse>
@@ -450,7 +409,8 @@ def _cluster(c: int) -> list[tuple[str, str]]:
         *[(f"smem_phase<{k}, kInverse, kFactor>(s, log_n, r, tw, consts, q);",
            f"smem_phase<{k}, kInverse, kFactor>(s, log_n, r, tw, consts, q, u0, u1, first);")
           for k in range(1, 6)],
-        ("struct Shape {", _CLUSTER_KERNEL + "struct Shape {"),
+        ("template <bool kInverse>\nint launch_ntt(",
+         _CLUSTER_KERNEL + "template <bool kInverse>\nint launch_ntt("),
         ("  ntt_kernel<kInverse><<<", _CLUSTER_LAUNCH),
     ]
 
@@ -462,9 +422,8 @@ _LDG_TWIDDLE = [
     ("{ return *p; }", "{ return __ldg(p); }"),
     ("stage_twiddles(s + data_words(log_n), table, entries)",
      "reinterpret_cast<const uint2*>(table)"),
-    (" +\n                       static_cast<size_t>(entries) * sizeof(uint2)};", "};"),
+    (" +\n              static_cast<size_t>(entries) * sizeof(uint2)};", "};"),
 ]
-_WAIT = '  asm volatile("cp.async.wait_all;\\n" ::: "memory");\n'
 
 VARIANTS = {
     "committed": [],
@@ -484,13 +443,9 @@ VARIANTS = {
         *_LDG_TWIDDLE,
         ("// One polynomial per CTA:", _LOAD_PHASE + "// One polynomial per CTA:"),
         ("const bool fused = kInverse && count > 1;", "const bool fused = count > 1;"),
-        ("  const longlong2* src = reinterpret_cast<const longlong2*>(in + base);\n",
-         "  if (!kInverse && fused) {\n    run_load_phase(plan & 15, s, in + base, log_n, "
-         "tw + kConstantSlots, q);\n  } else {\n"
-         "  const longlong2* src = reinterpret_cast<const longlong2*>(in + base);\n"),
-        ("  }\n" + _WAIT, "  }\n  }\n" + _WAIT),
-        ("const int p = kInverse ? count - 1 - step : step;",
-         "const int p = kInverse ? count - 1 - step : step + fused;"),
+        ("  load_values(s, in + base, log_n);\n",
+         "  if (!kInverse && fused)\n    run_load_phase(plan & 15, s, in + base, log_n, "
+         "tw + kConstantSlots, q);\n  else\n    load_values(s, in + base, log_n);\n"),
         ("  if (fused) {\n    run_store_phase", "  if (kInverse && fused) {\n    run_store_phase")],
     "persistent": [
         *_LDG_TWIDDLE,
@@ -506,30 +461,47 @@ FORWARD_ONLY = {"fwd_fused", "fwd_cluster2", "fwd_cluster4"}
 CLUSTER_ROWS = 132  # a cluster variant runs only at launches of fewer polynomials
 
 
-def build(names: list[str]) -> dict:
-    src = (_cuda_build.CSRC / "ntt.cu").read_text()
+PHASES_INCLUDE = '#include "ntt_phases.cuh"\n'
+
+
+def variant_source(name: str, source: str = "ntt.cu", variants: dict = VARIANTS) -> str:
+    """csrc/<source> with the shared phase header written in place of its
+    include (so that a substitution reaches the phases too), then the
+    variant's substitutions applied in order; raises if one finds no text."""
+    text = (_cuda_build.CSRC / source).read_text()
+    header = (_cuda_build.CSRC / "ntt_phases.cuh").read_text().replace("#pragma once\n", "")
+    text = text.replace(PHASES_INCLUDE, header)
+    for sub in variants[name]:
+        if sub[0] == "REGION":  # the text from one marker to the next
+            _, start, end, new = sub
+            if start not in text or end not in text:
+                raise RuntimeError(f"[variants] {name}: {start[:60]!r} not in {source}")
+            text = text[:text.index(start)] + new + text[text.index(end):]
+            continue
+        old, new = sub
+        if old not in text:
+            raise RuntimeError(f"[variants] {name}: {old[:60]!r} not in {source}")
+        text = text.replace(old, new)
+    return text
+
+
+def build(names: list[str], source: str = "ntt.cu", variants: dict = VARIANTS,
+          kernels: tuple = ()) -> dict:
+    """Each variant of csrc/<source> compiled into its own library under
+    troy_tpu_torch/build/variants/, all in parallel; their ptxas registers
+    printed (of the kernels whose mangled names contain one of `kernels`,
+    or of the first two)."""
     root = _cuda_build.BUILD_DIR / "variants"
     shutil.rmtree(root, ignore_errors=True)
     procs = {}
     for name in names:
-        text = src
-        for sub in VARIANTS[name]:
-            if sub[0] == "REGION":  # the text from one marker to the next
-                _, start, end, new = sub
-                if start not in text or end not in text:
-                    raise RuntimeError(f"[variants] {name}: {start[:60]!r} not in ntt.cu")
-                text = text[:text.index(start)] + new + text[text.index(end):]
-                continue
-            old, new = sub
-            if old not in text:
-                raise RuntimeError(f"[variants] {name}: {old[:60]!r} not in ntt.cu")
-            text = text.replace(old, new)
+        text = variant_source(name, source, variants)
         d = root / name
         d.mkdir(parents=True)
-        (d / "ntt.cu").write_text(text)
+        (d / source).write_text(text)
         shutil.copy(_cuda_build.CSRC / "ntt_common.cuh", d)
         cmd = [_cuda_build._nvcc(), *_cuda_build.COMPILE_FLAGS, "-Xptxas", "-v", "-shared",
-               "-o", str(d / "lib.so"), str(d / "ntt.cu")]
+               "-o", str(d / "lib.so"), str(d / source)]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                        text=True)
     libs = {}
@@ -537,8 +509,12 @@ def build(names: list[str]) -> dict:
         out, err = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"[variants] {name} does not build:\n{err[-4000:]}")
-        regs = [line.split(":", 1)[-1].strip() for line in err.splitlines()
-                if "registers" in line]
+        regs, entry = [], ""
+        for line in err.splitlines():
+            if "Compiling entry function" in line:
+                entry = line
+            elif "registers" in line and (not kernels or any(k in entry for k in kernels)):
+                regs.append(line.split(":", 1)[-1].strip())
         print(f"[build] {name}: {'; '.join(regs[:2])}", flush=True)
         libs[name] = ctypes.CDLL(str(root / name / "lib.so"))
     return libs

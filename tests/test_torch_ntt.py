@@ -154,14 +154,16 @@ def phase_index_map(log_n, r, k):
     return base[:, None] + (torch.arange(1 << k) << log_s)[None]
 
 
-def emulate_kernel(x, t, inverse):
-    """csrc/ntt.cu's ntt_kernel on (..., L, n) residues, phase by phase:
-    each sub-transform's 2^k values gathered by the phase's index map, its k
-    levels run with the twiddles of its root in kernel_phases (in the last
-    phase the levels from FACTOR_LEVEL on multiply by the constant
-    psi_br[g], then by the root's psi_br[v 2^l]), and scattered back.
-    Asserts the u32 invariants (< 4q forward, < 2q inverse) after every
-    level."""
+def emulate_kernel(x, t, inverse, lazy=False, n_inv=None):
+    """csrc/ntt.cu's ntt_kernel on (..., L, n) residues, phase by phase, as
+    csrc/ntt_phases.cuh runs them: each sub-transform's 2^k values gathered
+    by the phase's index map, its k levels run with the twiddles of its root
+    in kernel_phases (in the last phase the levels from FACTOR_LEVEL on
+    multiply by the constant psi_br[g], then by the root's psi_br[v 2^l]),
+    and scattered back.  Asserts the u32 invariants (< 4q forward, < 2q
+    inverse) after every level.  lazy: the forward's values as the phases
+    leave them in shared memory, in [0, 4q), not reduced to [0, q).  n_inv:
+    the inverse's final scale per limb, n^-1 mod q unless given."""
     n, L, log_n = t.n, t.size, t.log_n
     s = x.reshape(-1, n).clone()
     rows = s.shape[0]
@@ -222,11 +224,11 @@ def emulate_kernel(x, t, inverse):
         s[:, idx] = xs
     q2 = q.view(rows, 1)
     if inverse:
-        n_inv = t.n_inv[limb].view(rows, 1)
+        n_inv = (t.n_inv if n_inv is None else n_inv)[limb].view(rows, 1)
         n_inv_sh = (n_inv << 32) // q2
         s = shoup_lazy(s, n_inv, n_inv_sh, q2)
         s = torch.where(s >= q2, s - q2, s)
-    else:
+    elif not lazy:
         s = torch.where(s >= 2 * q2, s - 2 * q2, s)
         s = torch.where(s >= q2, s - q2, s)
     return s.view(x.shape)

@@ -3,6 +3,11 @@
 // (bconv.cu): Shoup and Barrett products, and the radix-2 negacyclic
 // butterfly stages over polynomials held in shared memory.
 //
+// The radix-2 stages (forward_stages, inverse_stages) serve only the two
+// timing yardsticks, the first NTT pair (troy_ntt_*_radix2) and the first
+// K4 (troy_fused_mul_radix2), which only chip_smoke.py launches; the
+// kernels of the port run the register-radix phases of ntt_phases.cuh.
+//
 // Values are u32 residues of moduli q < 2^30, so lazy values below 4q fit
 // 32 bits.  Twiddle rows are NTTTables.kernel_rows (ops/ntt.py): psi^brv(i)
 // and inv_psi^brv(i) with their Shoup companions floor(w * 2^32 / q).

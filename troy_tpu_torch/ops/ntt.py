@@ -146,7 +146,9 @@ class NTTTables:
     Kernel tensors (u32 bit patterns stored as int32):
       kernel_rows (4, L, n): psi_br, its Shoup companion, inv_psi_br, its
         Shoup companion;
-      kernel_scalars (3, L): q, n^-1, the Shoup companion of n^-1;
+      kernel_scalars (6, L): q, n^-1, the Shoup companion of n^-1 (the NTT
+        kernel's), then the fused tensor product's (csrc/fused_mul.cu):
+        -q^-1 mod 2^32, n^-1 2^32 mod q and its Shoup companion;
       kernel_phases (2, L, 2 E): phase_rows of psi_br and of inv_psi_br per
         limb, E entries each (the NTT kernel's twiddles);
       phase_plan / plan_code: kernel_phase_plan(log_n) and its packed form.
@@ -176,10 +178,13 @@ class NTTTables:
             p = p * psi % q
             ip = ip * ipsi % q
         ninv = numth.invert_mod(n, q)
+        ninv_mont = (ninv << 32) % q
         fwd_sh, inv_sh = _shoup(fwd, q), _shoup(inv, q)
         rows = dict(psi_br=fwd, psi_br_shoup=fwd_sh,
                     inv_psi_br=inv, inv_psi_br_shoup=inv_sh,
                     n_inv=ninv, n_inv_shoup=(ninv << 32) // q,
+                    q_inv_neg=(-pow(q, -1, 1 << 32)) % (1 << 32),
+                    n_inv_mont=ninv_mont, n_inv_mont_shoup=(ninv_mont << 32) // q,
                     phases=np.stack([phase_rows(fwd, fwd_sh, log_n),
                                      phase_rows(inv, inv_sh, log_n)]))
         cls._row_cache[key] = rows
@@ -198,7 +203,8 @@ class NTTTables:
             np.stack([r[k] for r in rows])
             for k in ("psi_br", "psi_br_shoup", "inv_psi_br", "inv_psi_br_shoup")])
         kernel_scalars = np.array(
-            [q, [r["n_inv"] for r in rows], [r["n_inv_shoup"] for r in rows]],
+            [q, *[[r[k] for r in rows] for k in ("n_inv", "n_inv_shoup", "q_inv_neg",
+                                                  "n_inv_mont", "n_inv_mont_shoup")]],
             dtype=np.uint64).astype(np.uint32)
         self._set(
             q=torch.from_numpy(q),
