@@ -8,8 +8,12 @@ prime special, so data level L = 6), plain modulus
 PlainModulus.batching(8192, 20), batch 16: the batched BFV multiply +
 relinearize step under both lifts of base q to the auxiliary base Bsk (the
 default HPS lift and the reference-exact BEHZ lift, Evaluator(ctx,
-lift="behz")), the batched Galois rotations and the mod switch; and the
-client flow of examples/99_quickstart.py.  In phases:
+lift="behz")), the batched Galois rotations and the mod switch; the client
+flow of examples/99_quickstart.py; bench.py's CKKS configuration (the same
+chain, scale 2^25, batch 16: multiply + relinearize, rescale, rotate_vector
+and complex_conjugate); and a BFV multiply + relinearize at n = 65536, where
+the NTT and the fused tensor product take their two-launch routes.  In
+phases:
 
   1. device   the card's name and power limit (fails without CUDA);
   2. build    nvcc builds every csrc/*.cu into one library under
@@ -20,13 +24,17 @@ client flow of examples/99_quickstart.py.  In phases:
   3. kernels  each kernel against its plain PyTorch version, bit for bit:
               the NTT pair (and the earlier radix-2 pair that [times] uses
               as its yardstick) at every shape the path gives it and at every
-              degree 2 to 32768; the base conversion (K3) at every conversion of
+              degree 2 to 131072 (above 32768 the column and block kernels,
+              each launch also against its plain partial transform); the
+              base conversion (K3) at every conversion of
               both lifts, the floor, Shenoy-Kumaresan and decrypt, at a
               15 -> 9 contraction and at one input limb; the fused tensor
               product (K4, and its earlier radix-2 kernel, the yardstick of
               [times]) on lazy [0, 2q) input over base q and Bsk and at every
-              degree 2 to 32768.  Each wrapper refuses input its kernel
-              cannot take;
+              degree 2 to 131072 (above 32768 its route through the NTT
+              kernels and the tensor-product kernel, which is also held to
+              dyadic_convolute).  Each wrapper refuses input its kernel
+              cannot take, and every degree above 131072;
   4. main     keygen, encode, encrypt 16 distinct pairs; one HPS step and
               one BEHZ step.  Each must launch the NTT kernels and K3, equal
               the same step with every kernel dispatch (NTT.ntt_forward,
@@ -50,7 +58,29 @@ client flow of examples/99_quickstart.py.  In phases:
               encrypt_asymmetric, add, decrypt, decode), multiply_plain in
               coefficient and NTT form, add_plain, and one special-prime
               encryption, each decrypting right;
-  8. times    CUDA-event times of the chained steps against their all-plain
+  8. ckks     bench.py's CKKS configuration (n = 8192, 7 x 30-bit primes,
+              seed 0xBEEF, scale 2^25, batch 16, messages uniform(-1, 1) from
+              numpy seed 7): keys and symmetric encryptions from
+              RandomGenerator(seed, mode="aes") streams (the host AES build),
+              then the batched multiply + relinearize, the rescale, and
+              rotate_vector(1) and complex_conjugate in NTT form on complex
+              messages.  Each must launch the NTT kernels, equal its
+              all-plain run and decode to the expected slots, the rms error
+              within 4 times the noise's expected rms, the largest within 32
+              times it (plus, for the keyswitches, a term on a few slots;
+              each printed beside the error); then its chained time, the profiler's launches,
+              device time and busy share, and the NTT kernels' share of
+              their bound;
+  9. large_n  BFV multiply + relinearize at n = 65536 (9 x 30-bit primes, t =
+              PlainModulus.batching(65536, 20), batch 2): it must launch the
+              column and block NTT kernels and K3, equal its all-plain run
+              and decrypt right; K4 at its entry point at the step's q and
+              Bsk shapes (its large route) equals the unfused stage and its
+              floor the multiply; then each large-n launch's device time
+              beside its bound at (3, 2, n) for n = 65536 and 131072, and the
+              two-launch NTT with blocks of 4096, 8192 and 32768 in turns, at
+              (3, 2, 65536) and at the step's keyswitch digits;
+ 10. times    CUDA-event times of the chained steps against their all-plain
               versions (multiply + relinearize, the three rotations, the mod
               switch), the profiler's launches, device time, NTT kernel time
               and busy share of the HPS step and of one rotate_rows(1) and
@@ -69,8 +99,9 @@ of its bytes (each input read once, each output written once) over
 3.35 TB/s and its int32 operations over 132 SMs x 64 lanes x 1.98 GHz
 (the H100 SXM's published memory rate and boost clock).
 
-Prints one JSON line of kernel results, then the nvidia-smi line, then
-{"ok": true, "device": {...}} as the last line.  Any failure raises, so the
+Prints one JSON line of kernel results (each kernel's launches on the path
+that runs it, with every path's count under "paths"), then the nvidia-smi
+line, then {"ok": true, "device": {...}} as the last line.  Any failure raises, so the
 exit code is not 0 and no result line is printed.  Imports nothing of jax.
 """
 
@@ -99,15 +130,29 @@ PROFILE_STEPS = 5
 ROT_KEY_STEPS = [1, 4, -1]
 QUICKSTART_BITS = [30] * 4
 K4_DEGREES = (16, 1024, 16384, 32768)
+LARGE_DEGREES = (65536, 131072)   # the two-launch routes (F3)
+REFUSED_DEGREE = 262144           # above the reference's largest degree
+CKKS_SCALE = 2.0 ** 25
+N_LARGE = 65536
+LARGE_BITS = [30] * 9             # 8 data primes + the special prime
+LARGE_BATCH = 2
+SPLIT_BLOCKS = (12, 13, 15)       # log2 n2 of the two-launch NTT, timed at N_LARGE
+_FWD = "troy_tpu/ops/ntt_pallas.py:74, troy_tpu/ops/ntt_pallas.py:206"
+_INV = "troy_tpu/ops/ntt_pallas.py:89, troy_tpu/ops/ntt_pallas.py:228"
 KERNELS = {  # name: (source, the TPU kernels it replaces: K1 and K2 for the NTT)
-    "ntt_forward": ("troy_tpu_torch/csrc/ntt.cu",
-                    "troy_tpu/ops/ntt_pallas.py:74, troy_tpu/ops/ntt_pallas.py:206"),
-    "ntt_inverse": ("troy_tpu_torch/csrc/ntt.cu",
-                    "troy_tpu/ops/ntt_pallas.py:89, troy_tpu/ops/ntt_pallas.py:228"),
+    "ntt_forward": ("troy_tpu_torch/csrc/ntt.cu", _FWD),
+    "ntt_inverse": ("troy_tpu_torch/csrc/ntt.cu", _INV),
+    "ntt_forward_columns": ("troy_tpu_torch/csrc/ntt.cu", _FWD),
+    "ntt_forward_blocks": ("troy_tpu_torch/csrc/ntt.cu", _FWD),
+    "ntt_inverse_blocks": ("troy_tpu_torch/csrc/ntt.cu", _INV),
+    "ntt_inverse_columns": ("troy_tpu_torch/csrc/ntt.cu", _INV),
     "base_convert": ("troy_tpu_torch/csrc/bconv.cu", "troy_tpu/ops/ntt_pallas.py:413"),
     "fused_negacyclic_multiply": ("troy_tpu_torch/csrc/fused_mul.cu",
                                   "troy_tpu/ops/fused_mul.py:75"),
+    "tensor_product": ("troy_tpu_torch/csrc/tensor_product.cu",
+                       "troy_tpu/ops/fused_mul.py:75"),
 }
+NTT_KERNELS = [k for k in KERNELS if k.startswith("ntt_")]
 
 
 MEM_BYTES_PER_S = 3.35e12             # H100 SXM HBM3 (NVIDIA data sheet)
@@ -139,6 +184,21 @@ def bconv_bound(shape, l_out: int) -> tuple[float, str]:
     return bound_us((l_in + l_out) * cols * 8, cols * (3 * l_in + 2 * l_in * l_out + 6 * l_out))
 
 
+def stages_bound(shape, stages: int) -> tuple[float, str]:
+    """One launch of the two-launch NTT route: every value in and out, and
+    `stages` of its log2 n stages."""
+    polys, n = int(np.prod(shape[:-1])), shape[-1]
+    return bound_us(2 * polys * n * 8, polys * (n // 2) * stages * NTT_BUTTERFLY_OPS)
+
+
+def product_bound(shape) -> tuple[float, str]:
+    """The tensor product on (B, 4, L, n) -> (B, 3, L, n): 7 polynomials of
+    int64 moved, four 64-bit products (about 4 int32 multiplies each), an add
+    and three Barrett reductions (about 8 int32 ops each) a coefficient."""
+    cols = shape[0] * shape[2] * shape[3]
+    return bound_us(7 * cols * 8, cols * (4 * 4 + 2 + 3 * 8))
+
+
 def fused_bound(shape) -> tuple[float, str]:
     """K4 on a, b (B, 2, L, n) -> (B, 3, L, n): 7 transforms and the
     dyadic products (about 40 ops a coefficient) per (batch, limb)."""
@@ -156,6 +216,11 @@ def gpu_line() -> str:
 
 PTXAS_NAMES = {  # a part of each kernel's mangled name: the name printed
     "ntt_kernelILb0": "ntt_forward", "ntt_kernelILb1": "ntt_inverse",
+    "ntt_block_kernelILb0": "ntt_forward_blocks", "ntt_block_kernelILb1": "ntt_inverse_blocks",
+    "ntt_columns_kernelILi3ELb0": "ntt_forward_columns (split 3)",
+    "ntt_columns_kernelILi3ELb1": "ntt_inverse_columns (split 3)",
+    "ntt_columns_kernelILi4ELb0": "ntt_forward_columns (split 4)",
+    "tensor_product_kernel": "tensor_product",
     "ntt_forward_radix2": "ntt_forward radix-2 yardstick",
     "ntt_inverse_radix2": "ntt_inverse radix-2 yardstick",
     "fused_mul_kernelILi13E": "fused_negacyclic_multiply at n = 8192",
@@ -247,34 +312,56 @@ def residues(shape, q: torch.Tensor, gen, factor: int = 1) -> torch.Tensor:
 
 
 def phase_ntt(dev, tables: dict) -> dict:
-    """NTT kernel pair vs plain, and the radix-2 yardstick of [times] too;
-    returns max |err| per kernel.  The inverse also takes lazy [0, 2q)."""
+    """NTT kernels vs plain, and the radix-2 yardstick of [times] too;
+    returns max |err| per kernel.  The inverse also takes lazy [0, 2q).
+    With a split (n > 32768) each of the two launches is also held to its
+    plain partial transform."""
     from troy_tpu_torch.ops import ntt as NTT, ntt_cuda
 
     gen = torch.Generator(device=dev).manual_seed(1)
-    err = {"ntt_forward": 0, "ntt_inverse": 0}
+    err = {k: 0 for k in NTT_KERNELS}
     for label, (lead, t, lazy) in tables.items():
         shape = (*lead, t.size, t.n)
         x = residues(shape, t.q, gen, 2 if lazy else 1)
+        canon = x % t.q.view(-1, 1)
         y = ntt_cuda.ntt_forward(x, t)
         y_ref = NTT.ntt_forward_plain(x, t)
         z = ntt_cuda.ntt_inverse(y, t)
         z_ref = NTT.ntt_inverse_plain(y, t)
         z_lazy = ntt_cuda.ntt_inverse(x, t)
-        z_lazy_ref = NTT.ntt_inverse_plain(x % t.q.view(-1, 1), t)
-        yard = (torch.equal(ntt_cuda.run_radix2(False, x, t), y_ref)
-                and torch.equal(ntt_cuda.run_radix2(True, y, t), z_ref))
-        torch.cuda.synchronize()
+        z_lazy_ref = NTT.ntt_inverse_plain(canon, t)
         e_f = int((y - y_ref).abs().max())
         e_i = max(int((z - z_ref).abs().max()), int((z_lazy - z_lazy_ref).abs().max()))
-        back = bool(torch.equal(z, x % t.q.view(-1, 1)))
+        if t.split:
+            fwd, inv = ("ntt_forward_columns", "ntt_forward_blocks"), (
+                "ntt_inverse_blocks", "ntt_inverse_columns")
+            c_ref = NTT.forward_stages_plain(x, t, 0, t.split)
+            b_ref = NTT.inverse_stages_plain(canon, t, t.split, t.log_n, False)
+            launch_err = {
+                "ntt_forward_columns": (ntt_cuda.columns(False, x, t), c_ref),
+                "ntt_forward_blocks": (ntt_cuda.blocks(False, c_ref, t),
+                                       NTT.forward_stages_plain(c_ref, t, t.split, t.log_n)),
+                "ntt_inverse_blocks": (ntt_cuda.blocks(True, x, t), b_ref),
+                "ntt_inverse_columns": (ntt_cuda.columns(True, b_ref, t),
+                                        NTT.inverse_stages_plain(b_ref, t, 0, t.split, True))}
+            launch_err = {k: int((a - b).abs().max()) for k, (a, b) in launch_err.items()}
+            yard = f"each launch against its plain partial transform: {launch_err}"
+            bad = any(launch_err.values())
+            for k, e in launch_err.items():
+                err[k] = max(err[k], e, e_f if k in fwd else e_i)
+        else:
+            fwd, inv = ("ntt_forward",), ("ntt_inverse",)
+            ok = (torch.equal(ntt_cuda.run_radix2(False, x, t), y_ref)
+                  and torch.equal(ntt_cuda.run_radix2(True, y, t), z_ref))
+            yard, bad = f"radix-2 yardstick equal: {ok}", not ok
+            err["ntt_forward"] = max(err["ntt_forward"], e_f)
+            err["ntt_inverse"] = max(err["ntt_inverse"], e_i)
+        torch.cuda.synchronize()
+        back = bool(torch.equal(z, canon))
         log(f"[kernels] ntt {label} {shape}: forward max|err| {e_f}, "
-            f"inverse max|err| {e_i}, inverse(forward(x)) == x: {back}, "
-            f"radix-2 yardstick equal: {yard}")
-        if e_f or e_i or not back or not yard:
+            f"inverse max|err| {e_i}, inverse(forward(x)) == x: {back}, {yard}")
+        if e_f or e_i or not back or bad:
             raise AssertionError(f"[kernels] ntt {label}: kernel disagrees with plain")
-        err["ntt_forward"] = max(err["ntt_forward"], e_f)
-        err["ntt_inverse"] = max(err["ntt_inverse"], e_i)
     return err
 
 
@@ -299,41 +386,52 @@ def phase_bconv(dev, cases: dict) -> int:
     return worst
 
 
-def phase_fused(dev, cases: dict) -> int:
+def phase_fused(dev, cases: dict) -> dict:
     """Fused tensor-product kernel vs plain on lazy [0, 2q) input, and the
-    radix-2 yardstick of [times] too; returns max |err|."""
-    from troy_tpu_torch.ops import fused_mul as FM, fused_mul_cuda
+    radix-2 yardstick of [times] too (n <= 32768); above, its route and the
+    tensor-product kernel against dyadic_convolute.  Returns max |err| of
+    K4 and of the tensor-product kernel."""
+    from troy_tpu_torch.ops import dyadic as D, fused_mul as FM, fused_mul_cuda, ntt as NTT
 
     gen = torch.Generator(device=dev).manual_seed(4)
-    worst = 0
+    err = {"fused_negacyclic_multiply": 0, "tensor_product": 0}
     for label, (lead, t) in cases.items():
         shape = (*lead, 2, t.size, t.n)
         a, b = residues(shape, t.q, gen, 2), residues(shape, t.q, gen, 2)
         c = fused_mul_cuda.fused_negacyclic_multiply(a, b, t)
         c_ref = FM.fused_negacyclic_multiply_plain(a, b, t)
-        yard = torch.equal(fused_mul_cuda.run_radix2(a, b, t), c_ref)
+        if t.split:
+            y = NTT.ntt_forward_plain(torch.cat([a, b], dim=-3), t)
+            e_tp = int((fused_mul_cuda.tensor_product(y, t)
+                        - D.dyadic_convolute(y[..., :2, :, :], y[..., 2:, :, :], t)).abs().max())
+            err["tensor_product"] = max(err["tensor_product"], e_tp)
+            yard, bad = f"tensor-product kernel max|err| {e_tp}", e_tp != 0
+        else:
+            ok = torch.equal(fused_mul_cuda.run_radix2(a, b, t), c_ref)
+            yard, bad = f"radix-2 yardstick equal: {ok}", not ok
         torch.cuda.synchronize()
         e = int((c - c_ref).abs().max())
         log(f"[kernels] fused_negacyclic_multiply {label} {shape} -> "
-            f"{tuple(c.shape)}: max|err| {e}, radix-2 yardstick equal: {yard}")
-        if e or c.shape != c_ref.shape or not yard:
+            f"{tuple(c.shape)}: max|err| {e}, {yard}")
+        if e or c.shape != c_ref.shape or bad:
             raise AssertionError(f"[kernels] fused {label}: kernel disagrees with plain")
-        worst = max(worst, e)
-    return worst
+        err["fused_negacyclic_multiply"] = max(err["fused_negacyclic_multiply"], e)
+    return err
 
 
 def other_degrees(dev) -> dict:
-    """NTT tables off the main path, every n = 2 to the kernels' limit 32768
-    (above 48 KiB of dynamic shared memory), and n = 65536, which the
-    wrappers refuse."""
+    """NTT tables off the main path, every n = 2 to the reference's largest
+    degree 131072 (above 48 KiB of dynamic shared memory from n = 4096, two
+    launches from n = 65536), and n = 262144 (one limb), which the wrappers
+    refuse."""
     from troy_tpu_torch.core.modulus import Modulus
     from troy_tpu_torch.ops.ntt import NTTTables
     from troy_tpu_torch.utils import numth
 
     out = {}
-    for log_n in range(1, 17):
+    for log_n in range(1, 19):
         n = 1 << log_n
-        mods = [Modulus(p) for p in numth.get_primes(2 * n, 30, 2)]
+        mods = [Modulus(p) for p in numth.get_primes(2 * n, 30, 2 if n <= 131072 else 1)]
         out[n] = NTTTables(log_n, mods, dev)
     return out
 
@@ -362,10 +460,10 @@ def phase_refusals(dev, t, bconv_tabs, big):
         "not contiguous": (x.transpose(0, 1), ValueError),
         "wrong limb count": (x[:, :1].contiguous(), ValueError),
         "CPU tensor": (x.cpu(), ValueError)})
-    expect_refusals("ntt_forward at n = 65536",
+    expect_refusals(f"ntt_forward at n = {big.n}",
                     lambda v: ntt_cuda.ntt_forward(v, big), {
-                        "n above 32768": (torch.zeros((1, big.size, big.n), dtype=torch.int64,
-                                                      device=dev), ValueError)})
+                        "n above 131072": (torch.zeros((1, big.size, big.n), dtype=torch.int64,
+                                                       device=dev), ValueError)})
     xb = torch.zeros((2, bconv_tabs.L_in, N), dtype=torch.int64, device=dev)
     expect_refusals("base_convert", lambda v: bconv_cuda.base_convert(v, bconv_tabs), {
         "int32": (xb.to(torch.int32), TypeError),
@@ -383,9 +481,9 @@ def phase_refusals(dev, t, bconv_tabs, big):
                                                           device=dev), ValueError),
                         "CPU tensor": (a.cpu(), ValueError)})
     ab = torch.zeros((1, 2, big.size, big.n), dtype=torch.int64, device=dev)
-    expect_refusals("fused_negacyclic_multiply at n = 65536",
+    expect_refusals(f"fused_negacyclic_multiply at n = {big.n}",
                     lambda v: fused_mul_cuda.fused_negacyclic_multiply(v, v, big), {
-                        "n above 32768": (ab, ValueError)})
+                        "n above 131072": (ab, ValueError)})
 
 
 def run_step(phase: str, label: str, fn, required) -> tuple[torch.Tensor, dict]:
@@ -413,7 +511,7 @@ def run_step(phase: str, label: str, fn, required) -> tuple[torch.Tensor, dict]:
 
 
 def check_decrypts(phase: str, label: str, out: torch.Tensor, parms_id, expected,
-                   encoder, decryptor, k3_shape=None) -> int:
+                   encoder, decryptor, k3_shape=None, n: int | None = None) -> int:
     """Every ciphertext of the batch out decrypts to its row of expected;
     returns how often decrypt launched K3, which must be at least once per
     ciphertext (at k3_shape, if given)."""
@@ -432,7 +530,7 @@ def check_decrypts(phase: str, label: str, out: torch.Tensor, parms_id, expected
         for b in range(out.shape[0]):
             got = encoder.decode(decryptor.decrypt(Ciphertext(out[b], parms_id)))
             got = got.cpu().numpy()
-            if got.shape != (N,) or not np.array_equal(got, np.asarray(expected[b], np.int64)):
+            if got.shape != (n or N,) or not np.array_equal(got, np.asarray(expected[b], np.int64)):
                 raise AssertionError(f"[{phase}] {label}: ciphertext {b} decrypts wrong")
     k3 = launch_counts()["base_convert"]
     if k3 < out.shape[0]:
@@ -611,9 +709,14 @@ def round_stages(gpu: str, evaluator, cd, rot: dict):
             f"({100 * ms / whole:.1f}% of the whole step)")
 
 
-PROFILED = {  # kernel: a part of its name in the profiler
-    "ntt_forward": "ntt_kernel<false>", "ntt_inverse": "ntt_kernel<true>",
-    "base_convert": "bconv_kernel", "fused_negacyclic_multiply": "fused_mul_kernel"}
+PROFILED = {  # kernel: parts of its name in the profiler
+    "ntt_forward": ("ntt_kernel<false>",), "ntt_inverse": ("ntt_kernel<true>",),
+    "ntt_forward_columns": ("ntt_columns_kernel<", ", false>"),
+    "ntt_inverse_columns": ("ntt_columns_kernel<", ", true>"),
+    "ntt_forward_blocks": ("ntt_block_kernel<false>",),
+    "ntt_inverse_blocks": ("ntt_block_kernel<true>",),
+    "base_convert": ("bconv_kernel",), "fused_negacyclic_multiply": ("fused_mul_kernel",),
+    "tensor_product": ("tensor_product_kernel",)}
 
 
 def profile_step(fn, calls: int) -> dict:
@@ -631,8 +734,8 @@ def profile_step(fn, calls: int) -> dict:
         raise AssertionError("[times] the profiler recorded no device kernels")
     out = {"launches": sum(e.count for e in kernels) / calls,
            "ms": sum(e.self_device_time_total for e in kernels) / 1e3 / calls}
-    for name, part in PROFILED.items():
-        mine = [e for e in kernels if part in e.key]
+    for name, parts in PROFILED.items():
+        mine = [e for e in kernels if all(p in e.key for p in parts)]
         out[name] = (sum(e.count for e in mine) / calls,
                      sum(e.self_device_time_total for e in mine) / 1e3 / calls)
     return out
@@ -661,7 +764,14 @@ def record_launches(fn) -> list:
 
 
 def launch_bound(name: str, shape, t) -> tuple[float, str]:
-    return bconv_bound(shape, t.L_out) if name == "base_convert" else ntt_bound(shape)
+    """The bound of one launch of kernel `name` on a dispatch call's input."""
+    if name == "base_convert":
+        return bconv_bound(shape, t.L_out)
+    if name.endswith("_columns"):
+        return stages_bound(shape, t.split)
+    if name.endswith("_blocks"):
+        return stages_bound(shape, t.log_n - t.split)
+    return ntt_bound(shape)
 
 
 def graph_us(fn, launches: int = GRAPH_LAUNCHES) -> float:
@@ -734,6 +844,363 @@ def phase_fused_ab(gpu: str, dev, cases: dict) -> dict:
     return out
 
 
+def unfused_stage(a, b, t):
+    """The evaluator's unfused tensor-product stage: NTT kernel,
+    dyadic_convolute, NTT kernel."""
+    from troy_tpu_torch.ops import dyadic as D, ntt as NTT
+
+    return NTT.ntt_inverse(D.dyadic_convolute(NTT.ntt_forward(a, t),
+                                              NTT.ntt_forward(b, t), t), t)
+
+
+def ntt_totals(prof: dict) -> tuple[float, float]:
+    """Launches and device ms of every NTT kernel in a profile_step result."""
+    return (sum(prof[k][0] for k in NTT_KERNELS), sum(prof[k][1] for k in NTT_KERNELS))
+
+
+def step_report(phase: str, gpu: str, label: str, fn, chained_ms: float, calls: int):
+    """The profiler's launches, device ms and busy share of fn() against its
+    chained time, and the NTT kernels' share of the bound of the NTT calls
+    fn makes (one pass over each transform's values)."""
+    prof = profile_step(fn, calls)
+    ntt_n, ntt_ms = ntt_totals(prof)
+    bound_ms = sum(ntt_bound(shape)[0] for name, shape, _ in record_launches(fn)
+                   if name != "base_convert") / 1e3
+    log(f"[{phase}] {gpu}: {label}: chained {chained_ms:.4f} ms a step; profiler, {calls} "
+        f"steps: {prof['launches']:.0f} kernel launches and {prof['ms']:.4f} ms of device "
+        f"kernel time a step, busy share {100 * prof['ms'] / chained_ms:.1f}%; NTT kernels "
+        f"{ntt_n:.0f} launches {ntt_ms:.4f} ms against a bound of {bound_ms:.4f} ms "
+        f"({100 * bound_ms / ntt_ms:.1f}%); K3 {prof['base_convert'][0]:.0f} launches "
+        f"{prof['base_convert'][1]:.4f} ms")
+    return prof
+
+
+NOISE_SIGMA = (21 / 2) ** 0.5  # standard deviation of the centred binomial noise
+
+
+def ckks_noise(n: int, levels: int, q_max: int, q_special: int) -> dict:
+    """Expected rms of one decoded slot's error after each CKKS step, at
+    scale 2^25 (a coefficient-domain error polynomial of coefficient
+    deviation d gives slots of rms d sqrt(n)); at n = 1024 the port's CPU
+    run gives within 3% of these for fresh, multiplied and rescaled
+    ciphertexts, and 1.7x below the rotation's:
+      fresh: the encryption noise e, d = sigma;
+      multiply: m1 e2 + m2 e1 with m uniform(-1, 1), sqrt(2/3) fresh (the
+        relinearization adds about 2^11 at scale 2^50, nothing);
+      rescale: plus the division's rounding of c0 + c1 s, d = sqrt((1 + 2n/3)
+        / 12), at the scale 2^50 / q_last;
+      rotate: plus the keyswitch, L digits below q_max times noise over the
+        special prime, d = sqrt(L n / 3) sigma q_max / q_special, and its
+        division's rounding.
+    digit_mean: the keyswitch's digits lie in [0, q), so their mean q/2
+    times the all-ones polynomial, 2 / (1 - zeta) = about 2n / pi at the
+    slot of zeta itself, puts sqrt(L) (q_max / 2) (2n / pi) sigma sqrt(n) /
+    q_special / scale on that slot and its neighbours alone: the rotation's
+    largest errors (2^-8.6 at n = 1024, where the CPU run's largest is
+    2^-9.0)."""
+    root_n = n ** 0.5
+    fresh = NOISE_SIGMA * root_n / CKKS_SCALE
+    mul = (2 / 3) ** 0.5 * fresh
+    rounding = ((1 + 2 * n / 3) / 12) ** 0.5
+    keyswitch = (levels * n / 3) ** 0.5 * NOISE_SIGMA * q_max / q_special + rounding
+    digit_mean = (levels ** 0.5 * q_max / 2 / q_special * (2 * n / np.pi) * NOISE_SIGMA
+                  * root_n / CKKS_SCALE)
+    return {"mul": mul, "rounding": rounding * root_n, "digit_mean": digit_mean,
+            "rotate": (fresh ** 2 + (keyswitch * root_n / CKKS_SCALE) ** 2) ** 0.5}
+
+
+def check_ckks(label: str, out: torch.Tensor, parms_id, scale: float, expected,
+               rms: float, encoder, decryptor, peak: float = 0.0) -> float:
+    """Every ciphertext of the batch out decodes to its row of expected: the
+    rms slot error within 4 times the expected rms `rms`, the largest within
+    32 times it plus 4 times `peak`, the expected size of a noise term that
+    sits on a few slots only (ckks_noise's digit_mean); returns the largest
+    slot error."""
+    from troy_tpu_torch.core.ciphertext import Ciphertext
+
+    worst, sq, count = 0.0, 0.0, 0
+    for b in range(out.shape[0]):
+        got = encoder.decode(decryptor.decrypt(Ciphertext(out[b], parms_id, True, scale)))
+        diff = np.abs(got - expected[b])
+        worst, sq, count = max(worst, float(diff.max())), sq + float((diff ** 2).sum()), count + diff.size
+    got_rms = (sq / count) ** 0.5
+    rms_tol, max_tol = 4 * rms, 32 * rms + 4 * peak
+    log(f"[ckks] {label}: all {out.shape[0]} ciphertexts decode (scale 2^{np.log2(scale):.2f}): "
+        f"rms error 2^{np.log2(got_rms):.2f} against the tolerance 2^{np.log2(rms_tol):.2f} "
+        f"(4 x the expected rms 2^{np.log2(rms):.2f}); max |err| {worst:.3e} = "
+        f"2^{np.log2(worst):.2f} against {max_tol:.3e} = 2^{np.log2(max_tol):.2f} (32 x the rms"
+        + (f" + 4 x the digit-mean term 2^{np.log2(peak):.2f})" if peak else ")"))
+    if not (got_rms < rms_tol and worst < max_tol):
+        raise AssertionError(f"[ckks] {label}: decodes off: rms {got_rms:.3e}, max {worst:.3e}")
+    return worst
+
+
+def phase_ckks(dev, gpu: str) -> dict:
+    """bench.py's CKKS configuration: AES-keyed keys and encryptions, then
+    the batched multiply + relinearize, rescale, rotate_vector(1) and
+    complex_conjugate, each checked, then timed."""
+    from troy_tpu_torch.core.params import EncryptionParameters, SchemeType
+    from troy_tpu_torch.core.coeff_modulus import CoeffModulus, SecurityLevel
+    from troy_tpu_torch.core.context import HeContext
+    from troy_tpu_torch.core.keygen import KeyGenerator
+    from troy_tpu_torch.core.encryptor import Encryptor
+    from troy_tpu_torch.core.decryptor import Decryptor
+    from troy_tpu_torch.core.evaluator import Evaluator
+    from troy_tpu_torch.core.ciphertext import Ciphertext
+    from troy_tpu_torch.core.ckks_encoder import CKKSEncoder
+    from troy_tpu_torch.ops.galois import GaloisTool
+    from troy_tpu_torch.parallel.batched import BatchedEvaluator
+    from troy_tpu_torch.utils.random import RandomGenerator
+
+    t0 = time.perf_counter()
+    parms = EncryptionParameters(SchemeType.CKKS)
+    parms.set_poly_modulus_degree(N)
+    parms.set_coeff_modulus(CoeffModulus.create(N, Q_BITS))
+    ctx = HeContext.create(parms, dev, SecurityLevel.Nil, seed=KEY_SEED)
+    keygen = KeyGenerator(ctx, prng=RandomGenerator(KEY_SEED, "aes", "keygen"))
+    rlk = keygen.create_relin_keys().key(2)
+    glk = keygen.create_galois_keys_from_elements(sorted(
+        {GaloisTool.get_element_from_step(1, N), GaloisTool.conjugate_element(N)}))
+    encoder = CKKSEncoder(ctx)
+    encryptor = Encryptor(ctx, sk=keygen.secret_key,
+                          prng=RandomGenerator(KEY_SEED, "aes", "encryptor"))
+    decryptor = Decryptor(ctx, keygen.secret_key)
+    rng = np.random.default_rng(MSG_SEED)
+    m1 = rng.uniform(-1, 1, (BATCH, encoder.slot_count))
+    m2 = rng.uniform(-1, 1, (BATCH, encoder.slot_count))
+    mc = m1 + 1j * m2
+
+    def encrypt(msgs):
+        return torch.stack([encryptor.encrypt_symmetric(
+            encoder.encode(m, scale=CKKS_SCALE)).data for m in msgs])
+
+    d1, d2, dc = encrypt(m1), encrypt(m2), encrypt(mc)
+    torch.cuda.synchronize()
+    log(f"[ckks] context n={N}, {len(Q_BITS)} x 30-bit primes, scale 2^25, seed {KEY_SEED:#x}: "
+        f"secret, relin and 2 Galois keys from RandomGenerator(mode='aes', 'keygen') "
+        f"({keygen.generator.counter} AES blocks), {3 * BATCH} symmetric encryptions "
+        f"{tuple(d1.shape)} from its 'encryptor' stream ({encryptor.generator.counter} blocks) "
+        f"in {time.perf_counter() - t0:.3f} s")
+    cd = ctx.first_context_data()
+    batched = BatchedEvaluator(Evaluator(ctx), cd)
+    q = [m.value for m in parms.coeff_modulus]
+    L = cd.coeff_modulus_size
+    noise = ckks_noise(N, L, max(q[:L]), q[-1])
+    mul, rescale = batched.build_mul_relin_step(rlk), batched.build_rescale_step()
+    rot, rot_elts = batched.build_rotate_rows_step(1)
+    conj, conj_elts = batched.build_rotate_columns_step()
+    rot_keys = tuple(glk.key(e) for e in rot_elts)
+    conj_keys = tuple(glk.key(e) for e in conj_elts)
+    need = ("ntt_forward", "ntt_inverse")
+    out, launches = {}, {}
+    out["mul"], launches["mul"] = run_step(
+        "ckks", f"multiply + relinearize step {tuple(d1.shape)} x {tuple(d2.shape)}",
+        lambda: mul(d1, d2, rlk), need)
+    check_ckks("multiply + relinearize", out["mul"], cd.parms_id, CKKS_SCALE ** 2, m1 * m2,
+               noise["mul"], encoder, decryptor)
+    out["rescale"], launches["rescale"] = run_step(
+        "ckks", f"rescale step {tuple(out['mul'].shape)}", lambda: rescale(out["mul"]), need)
+    after = CKKS_SCALE ** 2 / q[L - 1]
+    check_ckks("rescale", out["rescale"], cd.next.parms_id, after, m1 * m2,
+               (noise["mul"] ** 2 + (noise["rounding"] / after) ** 2) ** 0.5, encoder, decryptor)
+    out["rotate"], launches["rotate"] = run_step(
+        "ckks", f"rotate_vector(1) step {tuple(dc.shape)}, elements {rot_elts}",
+        lambda: rot(dc, rot_keys), need)
+    check_ckks("rotate_vector(1)", out["rotate"], cd.parms_id, CKKS_SCALE,
+               np.roll(mc, -1, axis=-1), noise["rotate"], encoder, decryptor,
+               noise["digit_mean"])
+    out["conjugate"], launches["conjugate"] = run_step(
+        "ckks", f"complex_conjugate step {tuple(dc.shape)}, element {conj_elts}",
+        lambda: conj(dc, conj_keys), need)
+    check_ckks("complex_conjugate", out["conjugate"], cd.parms_id, CKKS_SCALE, np.conj(mc),
+               noise["rotate"], encoder, decryptor, noise["digit_mean"])
+    ev = batched.ev
+    ct0 = Ciphertext(dc[0], cd.parms_id, True, CKKS_SCALE)
+    if not (torch.equal(ev.rotate_vector(ct0, 1, glk).data, out["rotate"][0])
+            and torch.equal(ev.complex_conjugate(ct0, glk).data, out["conjugate"][0])):
+        raise AssertionError("[ckks] row 0 of the batched rotations != Evaluator's")
+    log("[ckks] row 0 of the batched rotate_vector(1) and complex_conjugate equals "
+        "Evaluator.rotate_vector / complex_conjugate")
+
+    steps = {  # label: (one step, chained call, chained)
+        "multiply + relinearize": (lambda: mul(d1, d2, rlk), lambda d: mul(d, d2, rlk)),
+        "rescale": (lambda: rescale(out["mul"]), None),
+        "rotate_vector(1)": (lambda: rot(dc, rot_keys), lambda d: rot(d, rot_keys)),
+        "complex_conjugate": (lambda: conj(dc, conj_keys), lambda d: conj(d, conj_keys)),
+    }
+    profiles = {}
+    for label, (fn, chain) in steps.items():
+        for _ in range(3):
+            fn()
+        state = {"cur": d1 if label.startswith("multiply") else dc}
+
+        def call(fn=fn, chain=chain):
+            if chain is None:
+                fn()
+            else:
+                state["cur"] = chain(state["cur"])
+
+        ms = cuda_ms(call, REPS)
+        profiles[label] = (ms, step_report("ckks", gpu, f"{label} step, batch {BATCH}"
+                                           + ("" if chain else " (repeated on one input)"),
+                                           fn, ms, PROFILE_STEPS))
+    return dict(launches=launches, profiles=profiles)
+
+
+def phase_large_n(dev, gpu: str, degrees: dict) -> dict:
+    """BFV multiply + relinearize at n = 65536 through the two-launch NTT,
+    K4's large route at its entry point, then each large-n launch timed."""
+    from troy_tpu_torch.core.params import EncryptionParameters, SchemeType
+    from troy_tpu_torch.core.coeff_modulus import CoeffModulus, PlainModulus, SecurityLevel
+    from troy_tpu_torch.core.context import HeContext
+    from troy_tpu_torch.core.keygen import KeyGenerator
+    from troy_tpu_torch.core.encryptor import Encryptor
+    from troy_tpu_torch.core.decryptor import Decryptor
+    from troy_tpu_torch.core.evaluator import Evaluator
+    from troy_tpu_torch.core.batch_encoder import BatchEncoder
+    from troy_tpu_torch.core.ciphertext import Ciphertext
+    from troy_tpu_torch.parallel.batched import BatchedEvaluator
+    from troy_tpu_torch.ops import (dyadic as D, fused_mul as FM, fused_mul_cuda,
+                                    ntt as NTT, ntt_cuda)
+
+    t0 = time.perf_counter()
+    n = N_LARGE
+    parms = EncryptionParameters(SchemeType.BFV)
+    parms.set_poly_modulus_degree(n)
+    parms.set_coeff_modulus(CoeffModulus.create(n, LARGE_BITS))
+    parms.set_plain_modulus(PlainModulus.batching(n, LOG_T))
+    ctx = HeContext.create(parms, dev, SecurityLevel.Nil)
+    cd = ctx.first_context_data()
+    gen = torch.Generator(device=dev).manual_seed(KEY_SEED)
+    keygen = KeyGenerator(ctx, gen)
+    rlk = keygen.create_relin_keys().key(2)
+    encryptor = Encryptor(ctx, keygen.secret_key, gen)
+    decryptor = Decryptor(ctx, keygen.secret_key)
+    encoder = BatchEncoder(ctx)
+    t_val = encoder.t.value
+    msgs = np.random.default_rng(MSG_SEED + 2).integers(0, t_val, size=(2 * LARGE_BATCH, n),
+                                                        dtype=np.int64)
+    cts = [encryptor.encrypt_symmetric(encoder.encode(m)).data for m in msgs]
+    d1, d2 = torch.stack(cts[:LARGE_BATCH]), torch.stack(cts[LARGE_BATCH:])
+    expected = (msgs[:LARGE_BATCH].astype(object) * msgs[LARGE_BATCH:]) % t_val
+    batched = BatchedEvaluator(Evaluator(ctx), cd)
+    tool, qtab = cd.rns_tool, cd.qtab()
+    bsk = tool.bsk_ntt
+    torch.cuda.synchronize()
+    log(f"[large_n] context n={n} L={cd.coeff_modulus_size} |Bsk|={bsk.size} t={t_val}, "
+        f"NTT split {qtab.split} (blocks of {1 << qtab.block_log_n}), keys and "
+        f"{2 * LARGE_BATCH} encryptions in {time.perf_counter() - t0:.3f} s")
+    step = batched.build_mul_relin_step(rlk)
+    need = ("ntt_forward_columns", "ntt_forward_blocks", "ntt_inverse_blocks",
+            "ntt_inverse_columns", "base_convert")
+    out, launches = run_step("large_n", f"HPS step {tuple(d1.shape)} x {tuple(d2.shape)}",
+                             lambda: step(d1, d2, rlk), need)
+    check_decrypts("large_n", "HPS products m1 * m2 mod t", out, cd.parms_id, expected,
+                   encoder, decryptor, n=n)
+    budget = decryptor.invariant_noise_budget(Ciphertext(out[0], cd.parms_id))
+    log(f"[large_n] noise budget of product 0: {budget} bits")
+    if budget <= 0:
+        raise AssertionError("[large_n] product has no noise budget left")
+
+    lift = {k: tool.fast_b_conv_hps(d) for k, d in (("d1", d1), ("d2", d2))}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    fused_q = FM.fused_negacyclic_multiply(d1, d2, qtab)
+    fused_b = FM.fused_negacyclic_multiply(lift["d1"], lift["d2"], bsk)
+    torch.cuda.synchronize()
+    k4 = launch_counts()
+    log(f"[large_n] tensor-product stage through K4's large route: launches {k4}")
+    if k4["tensor_product"] != 2 or k4["fused_negacyclic_multiply"]:
+        raise AssertionError("[large_n] K4 did not take its large route twice")
+    if not (torch.equal(fused_q, unfused_stage(d1, d2, qtab))
+            and torch.equal(fused_b, unfused_stage(lift["d1"], lift["d2"], bsk))):
+        raise AssertionError("[large_n] K4 != the unfused tensor-product stage")
+    if not torch.equal(tool.fast_floor_scale_fast_b_conv_sk(fused_q, fused_b),
+                       batched.multiply(d1, d2)):
+        raise AssertionError("[large_n] the floor of K4's stage != the HPS multiply")
+    log("[large_n] K4's large route equals the unfused stage over q and Bsk, and its "
+        "floor equals the HPS multiply")
+    for _ in range(2):
+        step(d1, d2, rlk)
+    state = {"cur": d1}
+
+    def chained():
+        state["cur"] = step(state["cur"], d2, rlk)
+
+    ms = cuda_ms(chained, 5)
+    profile = step_report("large_n", gpu, f"HPS multiply + relinearize step, batch {LARGE_BATCH}",
+                          lambda: step(d1, d2, rlk), ms, 2)
+    calls = record_launches(lambda: step(d1, d2, rlk))
+
+    # each large-n launch alone, by CUDA graphs, beside its bound
+    g = torch.Generator(device=dev).manual_seed(8)
+    times = {}
+    for deg in LARGE_DEGREES:
+        t = degrees[deg]
+        shape = (3, t.size, deg)
+        x = residues(shape, t.q, g)
+        ab = residues((3, 4, t.size, deg), t.q, g)
+        a2, b2 = ab[:, :2].contiguous(), ab[:, 2:].contiguous()
+        split, log_n = t.split, t.log_n
+        cases = {
+            "ntt_forward_columns": (lambda: ntt_cuda.columns(False, x, t),
+                                    lambda: NTT.forward_stages_plain(x, t, 0, split),
+                                    stages_bound(shape, split)),
+            "ntt_forward_blocks": (lambda: ntt_cuda.blocks(False, x, t),
+                                   lambda: NTT.forward_stages_plain(x, t, split, log_n),
+                                   stages_bound(shape, log_n - split)),
+            "ntt_inverse_blocks": (lambda: ntt_cuda.blocks(True, x, t),
+                                   lambda: NTT.inverse_stages_plain(x, t, split, log_n, False),
+                                   stages_bound(shape, log_n - split)),
+            "ntt_inverse_columns": (lambda: ntt_cuda.columns(True, x, t),
+                                    lambda: NTT.inverse_stages_plain(x, t, 0, split, True),
+                                    stages_bound(shape, split)),
+            "ntt_forward (two launches)": (lambda: ntt_cuda.ntt_forward(x, t),
+                                           lambda: NTT.ntt_forward_plain(x, t), ntt_bound(shape)),
+            "ntt_inverse (two launches)": (lambda: ntt_cuda.ntt_inverse(x, t),
+                                           lambda: NTT.ntt_inverse_plain(x, t), ntt_bound(shape)),
+            "tensor_product": (lambda: fused_mul_cuda.tensor_product(ab, t),
+                               lambda: D.dyadic_convolute(ab[:, :2], ab[:, 2:], t),
+                               product_bound((3, 4, t.size, deg))),
+            "fused_negacyclic_multiply (large route, 5 launches)": (
+                lambda: fused_mul_cuda.fused_negacyclic_multiply(a2, b2, t),
+                lambda: FM.fused_negacyclic_multiply_plain(a2, b2, t),
+                fused_bound((3, 2, t.size, deg))),
+        }
+        for label, (kernel, plain, (bound, by)) in cases.items():
+            us, plain_us = graph_us(kernel), graph_us(plain, PLAIN_REPS)
+            times[(label, deg)] = (us / 1e3, plain_us / 1e3, bound / 1e3, by)
+            arg = {"tensor_product": tuple(ab.shape)}.get(
+                label, tuple(a2.shape) if label.startswith("fused") else shape)
+            log(f"[large_n] {gpu}: {label} at {arg}: kernel {us:.3f} us, plain "
+                f"{plain_us:.3f} us a call (graph); bound {bound:.3f} us ({by}), share "
+                f"{100 * bound / us:.1f}%")
+    # the block size of the route at N_LARGE, in turns (a, b, c, c, b, a), at
+    # (3, 2, n) and at the step's keyswitch digits (batch, L, L + 1, n)
+    log_n = N_LARGE.bit_length() - 1
+    cases = {"(3, 2, n)": ((3,), degrees[N_LARGE].moduli),
+             "the step's digits": ((LARGE_BATCH, cd.coeff_modulus_size),
+                                   ctx.key_context_data().parms.coeff_modulus)}
+    for label, (lead, mods) in cases.items():
+        by_split = {}
+        for log_b in SPLIT_BLOCKS:
+            t = NTT.NTTTables(log_n, mods, dev, split=log_n - log_b)
+            x = residues((*lead, t.size, N_LARGE), t.q, g)
+            by_split[log_b] = (lambda t=t, x=x: ntt_cuda.ntt_inverse(ntt_cuda.ntt_forward(x, t), t))
+        got = {}
+        for log_b in list(SPLIT_BLOCKS) + list(SPLIT_BLOCKS)[::-1]:
+            got.setdefault(log_b, []).append(graph_us(by_split[log_b], 20))
+        del by_split
+        shape = (*lead, len(mods), N_LARGE)
+        bound = 2 * ntt_bound(shape)[0]
+        log(f"[large_n] {gpu}: forward + inverse NTT at {shape} ({label}) by block size, in "
+            "turns: " + "; ".join(
+                f"blocks of {1 << b} (split {log_n - b}): {' / '.join(f'{v:.3f}' for v in got[b])} "
+                f"us, share of the one-pass bound {100 * bound / min(got[b]):.1f}%"
+                for b in SPLIT_BLOCKS))
+    return dict(launches=launches, k4=k4, times=times, profile=profile, calls=calls)
+
+
 def main() -> int:
     # ---- 1. device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -746,8 +1213,7 @@ def main() -> int:
         f"{torch.cuda.device_count()} device(s)")
 
     from troy_tpu_torch.ops import (_cuda_build, ntt as NTT, ntt_cuda, bconv as BC,
-                                    bconv_cuda, dyadic as D, fused_mul as FM,
-                                    fused_mul_cuda)
+                                    bconv_cuda, fused_mul as FM, fused_mul_cuda)
     from troy_tpu_torch.core.keygen import KeyGenerator
     from troy_tpu_torch.core.encryptor import Encryptor
     from troy_tpu_torch.core.decryptor import Decryptor
@@ -762,7 +1228,7 @@ def main() -> int:
     # ---- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
     _cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    ptxas = [ptxas_start(src) for src in ("ntt.cu", "fused_mul.cu")]
+    ptxas = [ptxas_start(src) for src in ("ntt.cu", "fused_mul.cu", "tensor_product.cu")]
     lib = _cuda_build.build()
     _cuda_build.load()
     log(f"[build] {lib.name} from {', '.join(p.name for p in _cuda_build.sources())} "
@@ -805,7 +1271,7 @@ def main() -> int:
         "base Bsk": ((BATCH,), bsk, False),
         "keyswitch digits": ((BATCH * L,), otab, True),
         "plain modulus t": ((1,), encoder.tables, False),
-        **{f"n={n}": ((3,), t, True) for n, t in degrees.items() if n <= 32768},
+        **{f"n={n}": ((3,), t, True) for n, t in degrees.items() if n <= 131072},
     })
 
     def converter(l_in, l_out):
@@ -824,12 +1290,12 @@ def main() -> int:
         "1 -> 3": ((4,), converter(1, 3)),
     }
     err["base_convert"] = phase_bconv(dev, bconv_cases)
-    err["fused_negacyclic_multiply"] = phase_fused(dev, {
+    err.update(phase_fused(dev, {
         "base q": ((BATCH,), qtab),
         "base Bsk": ((BATCH,), bsk),
-        **{f"n={n}": ((3,), t) for n, t in degrees.items() if n <= 32768},
-    })
-    phase_refusals(dev, qtab, tool.conv_B_to_q.tables, degrees[65536])
+        **{f"n={n}": ((3,), t) for n, t in degrees.items() if n <= 131072},
+    }))
+    phase_refusals(dev, qtab, tool.conv_B_to_q.tables, degrees[REFUSED_DEGREE])
 
     # ---- 4. main path --------------------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(KEY_SEED)
@@ -859,11 +1325,6 @@ def main() -> int:
 
     # K4 at its own entry point: the tensor-product stage of the HPS multiply.
     lift_b = {k: tool.fast_b_conv_hps(d) for k, d in (("d1", d1), ("d2", d2))}
-
-    def unfused_stage(a, b, t):
-        return NTT.ntt_inverse(D.dyadic_convolute(NTT.ntt_forward(a, t),
-                                                  NTT.ntt_forward(b, t), t), t)
-
     torch.cuda.synchronize()
     reset_launch_counts()
     fused_q = FM.fused_negacyclic_multiply(d1, d2, qtab)
@@ -887,7 +1348,11 @@ def main() -> int:
     modswitch = phase_modswitch(ctx, evs["hps"], rot, encoder, decryptor)
     phase_client(dev, gen)
 
-    # ---- 8. times ----------------------------------------------------------
+    # ---- 8. ckks, 9. large_n -------------------------------------------------
+    ckks = phase_ckks(dev, gpu)
+    large = phase_large_n(dev, gpu, degrees)
+
+    # ---- 10. times ---------------------------------------------------------
     def batch_ms(label: str, step, first, chain: bool = True):
         """Event-timed ms per call of step, with the kernels and all plain:
         chained (each output the next input) or repeated on first."""
@@ -933,8 +1398,7 @@ def main() -> int:
         profiles[label] = profile_step(lambda: r["step"](rot["d"], r["keys"]), PROFILE_STEPS)
     for label, prof in profiles.items():
         chained = step_ms["hps" if label == "HPS step" else label][0]
-        ntt_n = prof["ntt_forward"][0] + prof["ntt_inverse"][0]
-        ntt_ms = prof["ntt_forward"][1] + prof["ntt_inverse"][1]
+        ntt_n, ntt_ms = ntt_totals(prof)
         line = (f"[times] {gpu}: profiler, {label}, {PROFILE_STEPS} steps: "
                 f"{prof['launches']:.0f} kernel launches and {prof['ms']:.4f} ms of device "
                 f"kernel time per step, of which the NTT kernels {ntt_n:.0f} launches "
@@ -1005,26 +1469,42 @@ def main() -> int:
             f"path (NTT kernel, torch dyadic_convolute, NTT kernel) {unfused_ms:.5f} ms "
             f"(device time per call, CUDA graph); kernel / unfused {ms / unfused_ms:.3f}")
 
-    # ---- 9. results ----------------------------------------------------------
-    main_launches = {**launches["hps"],
-                     "fused_negacyclic_multiply":
-                         launches["fused"]["fused_negacyclic_multiply"]}
+    # ---- 11. results ---------------------------------------------------------
+    paths = {  # each main path's launch counts, read just after its run
+        "hps": {**launches["hps"], "fused_negacyclic_multiply":
+                launches["fused"]["fused_negacyclic_multiply"]},
+        "ckks": {k: sum(c[k] for c in ckks["launches"].values()) for k in KERNELS},
+        "large_n": {k: large["launches"][k] + large["k4"][k] for k in KERNELS}}
     floor_tabs = tool.ff_tables
     timed = {  # the work each kernel's "ms" times, for its bound
         "ntt_forward": ntt_bound(tuple(xq.shape)), "ntt_inverse": ntt_bound(tuple(xq.shape)),
         "base_convert": bconv_bound((BATCH, 3, floor_tabs.L_in, N), floor_tabs.L_out),
         "fused_negacyclic_multiply": fused_bound((BATCH, 2, L, N))}
-    hps = profiles["HPS step"]
+    for name in KERNELS:  # the large route's kernels at (3, 2, 65536)
+        if name not in timed:
+            ms, plain_ms, bound_ms, by = large["times"][(name, N_LARGE)]
+            times[name] = (ms, plain_ms)
+            timed[name] = (bound_ms * 1e3, by)
+    hps_kernels = ("ntt_forward", "ntt_inverse", "base_convert", "fused_negacyclic_multiply")
     results = []
     for name, (src, replaces) in KERNELS.items():
-        mine = [(shape, t) for kname, shape, t in step_calls["HPS step"] if kname == name]
+        path = "hps" if name in hps_kernels else "large_n"
+        if path == "hps":
+            prof = profiles["HPS step"]
+            mine = [(shape, t) for kname, shape, t in step_calls["HPS step"] if kname == name]
+        else:  # per launch of the large step: a dispatch call runs columns and blocks
+            prof = large["profile"]
+            mine = [(shape, t) for kname, shape, t in large["calls"] if name.startswith(kname)]
         results.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": main_launches[name], "max_abs_err": err[name],
+            "launches": paths[path][name], "max_abs_err": err[name],
             "ms": times[name][0], "plain_ms": times[name][1],
             "bound_ms": timed[name][0] / 1e3, "bound_by": timed[name][1], "library_ms": None,
+            "path": path, "paths": {p: c[name] for p, c in paths.items()},
             "bound_us": sum(launch_bound(name, shape, t)[0] for shape, t in mine),
-            "device_us": hps[name][1] * 1e3, "launches_per_step": len(mine)})
+            "device_us": prof[name][1] * 1e3, "launches_per_step": len(mine)})
+        if results[-1]["launches"] == 0:
+            raise AssertionError(f"[results] {name} was not launched on its path ({path})")
     print(json.dumps({"kernels": results}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

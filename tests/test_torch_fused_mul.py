@@ -95,7 +95,7 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     x = torch.zeros(1, 2, 1, 16, dtype=torch.int64)
     with pytest.raises(ValueError):
         fused_mul_cuda.fused_negacyclic_multiply(x, x, tt)
-    assert fused_mul_cuda.LAUNCHES == {"fused_negacyclic_multiply": 0}
+    assert set(fused_mul_cuda.LAUNCHES.values()) == {0}
 
 
 # ---------------------------------------------------------------------------

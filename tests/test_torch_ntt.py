@@ -127,7 +127,7 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     for fn in (ntt_cuda.ntt_forward, ntt_cuda.ntt_inverse):
         with pytest.raises(ValueError):
             fn(x, tt)
-    assert ntt_cuda.LAUNCHES == {"ntt_forward": 0, "ntt_inverse": 0}
+    assert set(ntt_cuda.LAUNCHES.values()) == {0}
 
 
 # ---------------------------------------------------------------------------
@@ -154,35 +154,84 @@ def phase_index_map(log_n, r, k):
     return base[:, None] + (torch.arange(1 << k) << log_s)[None]
 
 
+def run_levels(xs, tw, consts, q, k, inverse, factored_from):
+    """The k levels of one phase on xs (rows, n_sub, 2^k), as
+    csrc/ntt_phases.cuh:radix_stages runs them: level l pairs values a and
+    a + h, h = 2^(k-1-l), under slot 2^l + g of the sub-transform's root
+    (tw, (rows, n_sub, slots, 2)), or, for levels from factored_from on, the
+    root's slot 8 + l - FACTOR_LEVEL times the constant psi_br[g] (consts).
+    Asserts the u32 invariants (< 4q forward, < 2q inverse) after every
+    level."""
+    rows, n_sub, e = xs.shape
+    q = q.view(rows, 1, 1, 1)
+    two_q = 2 * q
+    for l in (reversed(range(k)) if inverse else range(k)):
+        h = e >> (l + 1)
+        v = xs.view(rows, n_sub, 1 << l, 2, h)
+        a, b = v[..., 0, :], v[..., 1, :]
+        factored = l >= factored_from
+        if factored:
+            slot = tw[:, :, 8 + l - FACTOR_LEVEL, None, None]
+            c = consts[:, None, :1 << l, None]
+        else:
+            slot = tw[:, :, 1 << l:2 << l, None]
+        w, ws = slot[..., 0], slot[..., 1]
+
+        def mul(y):
+            if factored:  # group 0 has the factor psi_br[0] = 1, no product
+                y = torch.cat([y[:, :, :1], shoup_lazy(
+                    y[:, :, 1:], c[..., 1:, :, 0], c[..., 1:, :, 1], q)], dim=2)
+            return shoup_lazy(y, w, ws, q)
+
+        if inverse:
+            total = a + b
+            x0 = torch.where(total >= two_q, total - two_q, total)
+            x1 = mul(a + two_q - b)
+        else:
+            u = torch.where(a >= two_q, a - two_q, a)
+            tv = mul(b)
+            x0, x1 = u + tv, u + two_q - tv
+        xs = torch.stack([x0, x1], dim=-2).reshape(rows, n_sub, e)
+        assert (xs < (two_q if inverse else 2 * two_q).view(rows, 1, 1)).all()
+    return xs
+
+
 def emulate_kernel(x, t, inverse, lazy=False, n_inv=None):
     """csrc/ntt.cu's ntt_kernel on (..., L, n) residues, phase by phase, as
     csrc/ntt_phases.cuh runs them: each sub-transform's 2^k values gathered
     by the phase's index map, its k levels run with the twiddles of its root
     in kernel_phases (in the last phase the levels from FACTOR_LEVEL on
     multiply by the constant psi_br[g], then by the root's psi_br[v 2^l]),
-    and scattered back.  Asserts the u32 invariants (< 4q forward, < 2q
-    inverse) after every level.  lazy: the forward's values as the phases
-    leave them in shared memory, in [0, 4q), not reduced to [0, q).  n_inv:
-    the inverse's final scale per limb, n^-1 mod q unless given."""
-    n, L, log_n = t.n, t.size, t.log_n
+    and scattered back (run_levels asserts the ranges).  lazy: the forward's
+    values as the phases leave them in shared memory, in [0, 4q), not
+    reduced to [0, q).  n_inv: the inverse's final scale per limb, n^-1 mod
+    q unless given.
+
+    With a split (t.split > 0) it replays ntt_block_kernel instead: every
+    block b of 2^block_log_n values of a polynomial is one CTA's polynomial,
+    with block b's slice of kernel_phases, and the inverse's scale is 1 (the
+    block scalars)."""
+    L, log_n = t.size, t.block_log_n
+    n = 1 << log_n
     s = x.reshape(-1, n).clone()
     rows = s.shape[0]
-    limb = torch.arange(rows) % L
-    q = t.q[limb].view(rows, 1, 1, 1)
-    two_q = 2 * q
-    table = (t.kernel_phases.to(torch.int64) & U32)[int(inverse)][limb].view(rows, -1, 2)
+    limb = (torch.arange(rows) >> t.split) % L
+    block = torch.arange(rows) & ((1 << t.split) - 1)
+    q = t.q[limb].view(rows, 1, 1)
+    table = (t.kernel_phases.to(torch.int64) & U32)[int(inverse)].reshape(
+        L << t.split, -1, 2)[(limb << t.split) + block]
     consts = table[:, :CONSTANT_SLOTS]
     assert (consts[:, 0] == 0).all()
     plan = t.phase_plan
     offs = [CONSTANT_SLOTS]
     for i, (r, k) in enumerate(plan):
         offs.append(offs[-1] + (1 << r) * phase_slots(k, i == len(plan) - 1))
-    assert offs[-1] == table.shape[1]
+    assert offs[-1] == table.shape[1] == t.entries
     order = range(len(plan))
     for p in (reversed(order) if inverse else order):
         r, k = plan[p]
         last = p == len(plan) - 1
-        e, n_sub, slots = 1 << k, n >> k, phase_slots(k, last)
+        slots = phase_slots(k, last)
         idx = phase_index_map(log_n, r, k)
         assert torch.equal(idx.flatten().sort().values, torch.arange(n))
         if p == 0 and len(plan) > 1:
@@ -192,39 +241,13 @@ def emulate_kernel(x, t, inverse, lazy=False, n_inv=None):
         root = idx[:, 0] >> (log_n - r)
         tw = table[:, offs[p] + (root[:, None] * slots) + torch.arange(slots)[None]]
         assert (tw[:, :, 0] == 0).all()  # slot 0 is padding
-        xs = s[:, idx]
-        for l in (reversed(range(k)) if inverse else range(k)):
-            h = e >> (l + 1)
-            v = xs.view(rows, n_sub, 1 << l, 2, h)
-            a, b = v[..., 0, :], v[..., 1, :]
-            factored = last and l >= FACTOR_LEVEL
-            if factored:
-                slot = tw[:, :, 8 + l - FACTOR_LEVEL, None, None]
-                c = consts[:, None, :1 << l, None]
-            else:
-                slot = tw[:, :, 1 << l:2 << l, None]
-            w, ws = slot[..., 0], slot[..., 1]
-
-            def mul(y):
-                if factored:  # group 0 has the factor psi_br[0] = 1, no product
-                    y = torch.cat([y[:, :, :1], shoup_lazy(
-                        y[:, :, 1:], c[..., 1:, :, 0], c[..., 1:, :, 1], q)], dim=2)
-                return shoup_lazy(y, w, ws, q)
-
-            if inverse:
-                total = a + b
-                x0 = torch.where(total >= two_q, total - two_q, total)
-                x1 = mul(a + two_q - b)
-            else:
-                u = torch.where(a >= two_q, a - two_q, a)
-                tv = mul(b)
-                x0, x1 = u + tv, u + two_q - tv
-            xs = torch.stack([x0, x1], dim=-2).reshape(rows, n_sub, e)
-            assert (xs < (two_q if inverse else 2 * two_q).view(rows, 1, 1)).all()
-        s[:, idx] = xs
+        s[:, idx] = run_levels(s[:, idx], tw, consts, q, k, inverse,
+                               FACTOR_LEVEL if last else k)
     q2 = q.view(rows, 1)
     if inverse:
-        n_inv = (t.n_inv if n_inv is None else n_inv)[limb].view(rows, 1)
+        if n_inv is None:
+            n_inv = torch.ones_like(t.n_inv) if t.split else t.n_inv
+        n_inv = n_inv[limb].view(rows, 1)
         n_inv_sh = (n_inv << 32) // q2
         s = shoup_lazy(s, n_inv, n_inv_sh, q2)
         s = torch.where(s >= q2, s - q2, s)
@@ -232,6 +255,44 @@ def emulate_kernel(x, t, inverse, lazy=False, n_inv=None):
         s = torch.where(s >= 2 * q2, s - 2 * q2, s)
         s = torch.where(s >= q2, s - q2, s)
     return s.view(x.shape)
+
+
+def emulate_columns(x, t, inverse):
+    """csrc/ntt.cu's ntt_columns_kernel on (..., L, n) residues: the K =
+    split stages over the columns x[e n2 + j] (phase_index_map(log_n, 0, K):
+    one sub-transform of root 1 per column j, so every column reads the same
+    2^K slots of column_phases), a thread's columns 2j and 2j + 1 at
+    neighbouring 16-byte addresses; out reduced to [0, q) (forward) or
+    scaled by n^-1 (inverse)."""
+    n, L, k = t.n, t.size, t.split
+    s = x.reshape(-1, n).clone()
+    rows = s.shape[0]
+    limb = torch.arange(rows) % L
+    q = t.q[limb].view(rows, 1, 1)
+    table = (t.column_phases.to(torch.int64) & U32)[int(inverse)][limb].view(rows, 1, -1, 2)
+    assert table.shape[2] == 1 << k and (table[:, :, 0] == 0).all()
+    idx = phase_index_map(t.log_n, 0, k)
+    assert torch.equal(idx[:, 0], torch.arange(n >> k))
+    assert torch.equal(idx[1::2], idx[0::2] + 1)  # a thread's two columns
+    s[:, idx] = run_levels(s[:, idx], table.expand(rows, n >> k, -1, 2), None, q, k,
+                           inverse, k)
+    q2 = q.view(rows, 1)
+    if inverse:
+        n_inv = t.n_inv[limb].view(rows, 1)
+        s = shoup_lazy(s, n_inv, (n_inv << 32) // q2, q2)
+        return torch.where(s >= q2, s - q2, s).view(x.shape)
+    s = torch.where(s >= 2 * q2, s - 2 * q2, s)
+    return torch.where(s >= q2, s - q2, s).view(x.shape)
+
+
+def emulate_ntt(x, t, inverse):
+    """The wrapper's route (ops/ntt_cuda.py): one launch of ntt_kernel, or
+    with a split the column and block kernels (the inverse in reverse)."""
+    if not t.split:
+        return emulate_kernel(x, t, inverse)
+    if inverse:
+        return emulate_columns(emulate_kernel(x, t, True), t, True)
+    return emulate_kernel(emulate_columns(x, t, False), t, False)
 
 
 @pytest.mark.parametrize("log_n,L,lead", [(4, 3, (2,)), (10, 2, (2,)), (13, 3, (2,)),

@@ -1,8 +1,10 @@
 """Modulus-switching chain: ContextData + HeContext, with tables on a device.
 
-Counterpart of troy_tpu/core/context.py.  Each ContextData bundles one
-level's tables (NTT tables, the BFV RNS tool, the BFV scaler), built on the
-host with Python ints on first use and moved to the context's device.  The
+Counterpart of troy_tpu/core/context.py, for BFV and CKKS.  Each
+ContextData bundles one level's tables (NTT tables, the RNS tool: the BFV
+toolbox, or for CKKS only the division by the last prime; the BFV scaler),
+built on the host with Python ints on first use and moved to the context's
+device.  The
 chain runs key level -> first -> ... -> last, each level dropping the
 trailing prime; the last prime of the key level is the special prime.
 
@@ -17,7 +19,7 @@ from .params import EncryptionParameters, ParmsID, SchemeType
 from .coeff_modulus import CoeffModulus, SecurityLevel
 from ..ops.ntt import NTTTables
 from ..rns.rns_base import RNSBase
-from ..rns.rns_tool import RNSTool
+from ..rns.rns_tool import LastPrimeTool, RNSTool
 from ..rns.scaling import BFVScaler
 
 
@@ -46,9 +48,10 @@ class ContextData:
         if t.value and any(m.value == t.value for m in moduli):
             raise ValueError("[ContextData] plain modulus equals a coeff modulus")
         self.base_q = RNSBase(moduli, self.device)
+        self.total_coeff_modulus: int = self.base_q.prod
         self.simd_supported = bool(t.value and t.is_prime and t.value % (2 * n) == 1)
         self._ntt_tables: NTTTables | None = None
-        self._rns_tool: RNSTool | None = None
+        self._rns_tool: LastPrimeTool | None = None
         self._scaler: BFVScaler | None = None
 
     @property
@@ -59,11 +62,14 @@ class ContextData:
         return self._ntt_tables
 
     @property
-    def rns_tool(self) -> RNSTool:
+    def rns_tool(self) -> LastPrimeTool:
+        """RNSTool for BFV; for CKKS (no plain modulus) the last-prime
+        division alone."""
         if self._rns_tool is None:
-            if self.parms.scheme != SchemeType.BFV:
-                raise ValueError("[ContextData] the port's RNS tool is BFV-only")
-            self._rns_tool = RNSTool(self.log_n, self.base_q, self.parms.plain_modulus)
+            if self.parms.scheme == SchemeType.BFV:
+                self._rns_tool = RNSTool(self.log_n, self.base_q, self.parms.plain_modulus)
+            else:
+                self._rns_tool = LastPrimeTool(self.log_n, self.base_q)
         return self._rns_tool
 
     @property
@@ -99,13 +105,19 @@ class HeContext:
         self.first_parms_id: ParmsID = ""
         self.last_parms_id: ParmsID = ""
         self.using_keyswitching = False
+        self.seed: int | None = None
 
     @staticmethod
     def create(parms: EncryptionParameters, device,
-               sec_level: SecurityLevel = SecurityLevel.Classical128) -> "HeContext":
-        if parms.scheme != SchemeType.BFV:
-            raise ValueError("[HeContext.create] the port supports BFV only")
+               sec_level: SecurityLevel = SecurityLevel.Classical128,
+               seed: int | None = None) -> "HeContext":
+        """The chain for parms on device.  seed keys the default samplers of
+        the objects made from the context (utils/random.py:stream), as in
+        the JAX package's HeContext.create(..., seed)."""
+        if parms.scheme not in (SchemeType.BFV, SchemeType.CKKS):
+            raise ValueError("[HeContext.create] the port supports BFV and CKKS")
         ctx = HeContext()
+        ctx.seed = seed
         n = parms.poly_modulus_degree
         total_bits = sum(m.bit_count for m in parms.coeff_modulus)
         if sec_level != SecurityLevel.Nil and \

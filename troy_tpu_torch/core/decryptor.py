@@ -1,6 +1,11 @@
-"""BFV decryption (counterpart of troy_tpu/core/decryptor.py): the phase
-c0 + c1 s + c2 s^2 + ... via NTT-form secret-key powers, then the exact
-{t, gamma} rounding of the RNS tool; and the invariant noise budget."""
+"""Decryption (counterpart of troy_tpu/core/decryptor.py): the phase
+c0 + c1 s + c2 s^2 + ... via NTT-form secret-key powers, then per scheme
+
+  BFV : the exact {t, gamma} rounding of the RNS tool -> m mod t;
+  CKKS: the phase itself, in NTT form with the ciphertext's scale (the
+        CKKS encoder decodes it);
+
+and the BFV invariant noise budget."""
 
 from __future__ import annotations
 
@@ -8,6 +13,7 @@ import numpy as np
 import torch
 
 from .context import HeContext, ContextData
+from .params import SchemeType
 from .plaintext import Plaintext
 from .ciphertext import Ciphertext
 from .keys import SecretKey
@@ -37,10 +43,24 @@ class Decryptor:
             acc = term if acc is None else P.add(acc, term, qtab)
         return P.add(NTT.ntt_inverse(acc, qtab), data[0], qtab)
 
+    def phase_ntt(self, cd: ContextData, data: torch.Tensor) -> torch.Tensor:
+        """NTT-form phase of an NTT-form (size, L, n) ciphertext."""
+        qtab = cd.qtab()
+        L = cd.coeff_modulus_size
+        acc = data[0]
+        for i in range(1, data.shape[0]):
+            acc = P.add(acc, P.dyadic_product(data[i], self._power(i)[:L], qtab), qtab)
+        return acc
+
     def decrypt(self, ct: Ciphertext) -> Plaintext:
+        cd = self.context.get_context_data(ct.parms_id)
+        if cd.parms.scheme == SchemeType.CKKS:
+            # the CKKS plaintext contract is NTT form (ref: decryptor.cu)
+            ph = (self.phase_ntt(cd, ct.data) if ct.is_ntt_form
+                  else NTT.ntt_forward(self.phase(cd, ct.data), cd.qtab()))
+            return Plaintext(ph, parms_id=ct.parms_id, is_ntt_form=True, scale=ct.scale)
         if ct.is_ntt_form:
             raise ValueError("[Decryptor] BFV ciphertexts are coefficient form")
-        cd = self.context.get_context_data(ct.parms_id)
         m = cd.rns_tool.decrypt_scale_and_round(self.phase(cd, ct.data))
         return Plaintext(m[None, :], parms_id=ct.parms_id)
 

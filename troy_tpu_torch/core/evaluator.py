@@ -1,5 +1,5 @@
-"""BFV evaluator at the u32 fast width (counterpart of
-troy_tpu/core/evaluator.py, BFV branches).
+"""BFV and CKKS evaluator at the u32 fast width (counterpart of
+troy_tpu/core/evaluator.py, its BFV and CKKS branches).
 
   * translate: negate, add, sub, and add_plain / sub_plain;
   * multiply: the BEHZ tensor product with a lift of base q to Bsk and the
@@ -12,10 +12,19 @@ troy_tpu/core/evaluator.py, BFV branches).
     keys lack the step's element) and rotate_columns;
   * mod switch (divide and round by the last prime) and the NTT transforms.
 
+CKKS ciphertexts live in the NTT domain and carry a scale, with the JAX
+package's rules: add / sub need equal scales (to 1e-9 relative), multiply,
+square and multiply_plain multiply them, rescale_to_next divides by the
+dropped prime (divide and round in the NTT domain); multiply is the
+NTT-domain dyadic product; relinearize, rotate_vector and complex_conjugate
+keyswitch with NTT-form output; mod_switch_to_next drops the last limb.
+
 Per-level tables are built on first use and cached on the ContextData.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -34,15 +43,18 @@ LIFTS = ("hps", "behz")
 
 class Evaluator:
     def __init__(self, context: HeContext, lift: str = "hps"):
-        if context.scheme != SchemeType.BFV:
-            raise ValueError("[Evaluator] the port supports BFV only")
+        if context.scheme not in (SchemeType.BFV, SchemeType.CKKS):
+            raise ValueError("[Evaluator] the port supports BFV and CKKS")
         if lift not in LIFTS:
             raise ValueError(f"[Evaluator] lift={lift!r}: expected 'hps' or 'behz'")
         self.context = context
         self.lift = lift
 
-    def _cd(self, ct: Ciphertext) -> ContextData:
+    def _cd(self, ct: Ciphertext | Plaintext) -> ContextData:
         return self.context.get_context_data(ct.parms_id)
+
+    def _ckks(self) -> bool:
+        return self.context.scheme == SchemeType.CKKS
 
     @staticmethod
     def _check_same(ct1: Ciphertext, ct2: Ciphertext, op: str):
@@ -66,8 +78,11 @@ class Evaluator:
         return out
 
     def add(self, ct1: Ciphertext, ct2: Ciphertext) -> Ciphertext:
-        """Sum of two ciphertexts; the smaller is padded with zero polys."""
+        """Sum of two ciphertexts; the smaller is padded with zero polys.
+        CKKS scales must agree to 1e-9 relative."""
         self._check_same(ct1, ct2, "add")
+        if self._ckks() and abs(ct1.scale - ct2.scale) > 0.5 * max(ct1.scale, ct2.scale) * 1e-9:
+            raise ValueError("[Evaluator.add] CKKS scale mismatch")
         big, small = (ct1, ct2) if ct1.size >= ct2.size else (ct2, ct1)
         pad = big.size - small.size
         small_data = small.data
@@ -84,15 +99,19 @@ class Evaluator:
     def _translate_plain(self, ct: Ciphertext, plain: Plaintext,
                          subtract: bool) -> Ciphertext:
         """c0 +- scale_up(m), or +- m for an RNS-form plaintext at ct's level
-        (ref: evaluator_translate_plain.cu)."""
+        (ref: evaluator_translate_plain.cu); a CKKS plaintext goes to the NTT
+        domain first."""
         cd = self._cd(ct)
         rns = self._is_rns_plain(plain)
         if rns and plain.parms_id != ct.parms_id:
             raise ValueError("[Evaluator.add_plain] plaintext level mismatch")
-        if plain.is_ntt_form != ct.is_ntt_form:
-            raise ValueError("[Evaluator.add_plain] NTT form mismatch")
         qtab = cd.qtab()
-        m = plain.data if rns else cd.scaler.scale_up(plain.data[0])
+        if self._ckks():
+            m = plain.data if plain.is_ntt_form else NTT.ntt_forward(plain.data, qtab)
+        elif plain.is_ntt_form != ct.is_ntt_form:
+            raise ValueError("[Evaluator.add_plain] NTT form mismatch")
+        else:
+            m = plain.data if rns else cd.scaler.scale_up(plain.data[0])
         c0 = (P.sub if subtract else P.add)(ct.data[0], m, qtab)
         out = ct.clone()
         out.data = torch.cat([c0[None], ct.data[1:]])
@@ -109,33 +128,48 @@ class Evaluator:
     # ------------------------------------------------------------------
     def multiply_plain(self, ct: Ciphertext, plain: Plaintext) -> Ciphertext:
         """ct * m through the NTT: a mod-t plaintext is lifted centred; a
-        coefficient-form ciphertext goes to the NTT domain and back."""
+        BFV coefficient-form ciphertext goes to the NTT domain and back.  A
+        CKKS product's scale is the product of the scales."""
         cd = self._cd(ct)
         qtab = cd.qtab()
-        if self._is_rns_plain(plain):
-            if plain.parms_id != ct.parms_id:
+        ckks = self._ckks()
+        if ckks or self._is_rns_plain(plain):
+            if self._is_rns_plain(plain) and plain.parms_id != ct.parms_id:
                 raise ValueError("[Evaluator.multiply_plain] plaintext level mismatch")
             m_ntt = plain.data if plain.is_ntt_form else NTT.ntt_forward(plain.data, qtab)
         else:
             m_ntt = NTT.ntt_forward(cd.scaler.centralize(plain.data[0]), qtab)
         out = ct.clone()
-        if ct.is_ntt_form:
+        if ct.is_ntt_form or ckks:
             out.data = D.dyadic_broadcast_product(ct.data, m_ntt, qtab)
         else:
             out.data = NTT.ntt_inverse(D.dyadic_broadcast_product(
                 NTT.ntt_forward(ct.data, qtab), m_ntt, qtab), qtab)
+        if ckks:
+            out.scale = ct.scale * plain.scale
         return out
 
     def multiply(self, ct1: Ciphertext, ct2: Ciphertext) -> Ciphertext:
+        """BFV: the BEHZ multiply; CKKS: the NTT-domain dyadic product, at
+        the product of the scales."""
         self._check_same(ct1, ct2, "multiply")
+        out = ct1.clone()
+        if self._ckks():
+            out.data = D.dyadic_convolute(ct1.data, ct2.data, self._cd(ct1).qtab())
+            out.scale = ct1.scale * ct2.scale
+            return out
         if ct1.is_ntt_form:
             raise ValueError("[Evaluator.multiply] BFV operands must be coeff form")
-        out = ct1.clone()
         out.data = self.bfv_multiply_impl(self._cd(ct1), ct1.data,
                                           None if ct1 is ct2 else ct2.data)
         return out
 
     def square(self, ct: Ciphertext) -> Ciphertext:
+        if self._ckks():
+            out = ct.clone()
+            out.data = D.dyadic_square(ct.data, self._cd(ct).qtab())
+            out.scale = ct.scale * ct.scale
+            return out
         return self.multiply(ct, ct)
 
     def bfv_multiply_impl(self, cd: ContextData, x1: torch.Tensor,
@@ -311,17 +345,96 @@ class Evaluator:
         n = self._cd(ct).parms.poly_modulus_degree
         return self.apply_galois(ct, GaloisTool.conjugate_element(n), glk)
 
+    def rotate_vector(self, ct: Ciphertext, steps: int, glk: GaloisKeys) -> Ciphertext:
+        """CKKS slot rotation (the same Galois rounds as rotate_rows)."""
+        return self._rotate_internal(ct, steps, glk)
+
+    def complex_conjugate(self, ct: Ciphertext, glk: GaloisKeys) -> Ciphertext:
+        """CKKS slot conjugation: the conjugation element."""
+        return self.rotate_columns(ct, glk)
+
     # ------------------------------------------------------------------
     # mod switch (ref: evaluator_modswitch.cu)
     # ------------------------------------------------------------------
     def mod_switch_to_next(self, ct: Ciphertext) -> Ciphertext:
-        """Divide and round by the level's last prime (coefficient form)."""
+        """BFV: divide and round by the level's last prime (coefficient
+        form); CKKS: drop the last limb, the scale unchanged."""
         cd = self._cd(ct)
         if cd.is_last():
             raise ValueError("[Evaluator.mod_switch_to_next] already at last level")
         out = ct.clone()
-        out.data = cd.rns_tool.divide_and_round_q_last(ct.data)
+        out.data = (ct.data[..., :-1, :] if self._ckks()
+                    else cd.rns_tool.divide_and_round_q_last(ct.data))
         out.parms_id = cd.next.parms_id
+        return out
+
+    def rescale_to_next(self, ct: Ciphertext) -> Ciphertext:
+        """CKKS rescale (ref: evaluator_modswitch.cu:445): divide and round
+        by the last prime in the NTT domain; the scale divides by it."""
+        cd = self._cd(ct)
+        if not self._ckks():
+            raise ValueError("[Evaluator.rescale_to_next] CKKS only")
+        if cd.is_last():
+            raise ValueError("[Evaluator.rescale_to_next] already at last level")
+        out = ct.clone()
+        out.data = cd.rns_tool.divide_and_round_q_last_ntt(ct.data, cd.qtab())
+        out.scale = ct.scale / cd.parms.coeff_modulus[-1].value
+        out.parms_id = cd.next.parms_id
+        return out
+
+    def rescale_to(self, ct: Ciphertext, parms_id: ParmsID) -> Ciphertext:
+        """Rescale down the chain until parms_id (ref: evaluator.h rescale_to)."""
+        target = self.context.get_context_data(parms_id)
+        cur = ct
+        while cur.parms_id != parms_id:
+            if self._cd(cur).chain_index >= target.chain_index:
+                raise ValueError("[Evaluator.rescale_to] target at or above current level")
+            cur = self.rescale_to_next(cur)
+        return cur
+
+    def mod_switch_plain_to_next(self, plain: Plaintext) -> Plaintext:
+        """CKKS NTT-form plaintext: drop the last limb
+        (ref: mod_switch_drop_to_plain)."""
+        cd = self._cd(plain)
+        out = plain.clone()
+        out.data = plain.data[..., :-1, :]
+        out.parms_id = cd.next.parms_id
+        return out
+
+    # -- drop-to family (ref: evaluator_modswitch.cu:173: copy the limb
+    #    prefix, no scaling) ----------------------------------------------
+    def _check_drop_target(self, cd: ContextData, parms_id: ParmsID,
+                           op: str) -> ContextData:
+        target = self.context.get_context_data(parms_id)
+        if target.chain_index < cd.chain_index:
+            raise ValueError(f"[Evaluator.{op}] target level above the ciphertext's level")
+        if list(target.base_q.values) != list(cd.base_q.values[: target.base_q.size]):
+            raise ValueError(f"[Evaluator.{op}] target is not on this chain")
+        return target
+
+    @staticmethod
+    def _check_scale_bound(scale: float, target: ContextData, op: str):
+        """(ref: evaluator_utils.h:307 is_scale_within_bounds)."""
+        if target.parms.scheme == SchemeType.CKKS:
+            bound = target.base_q.prod.bit_length()
+        else:
+            bound = target.parms.plain_modulus.value.bit_length()
+        if scale <= 0 or math.log2(scale) >= bound:
+            raise ValueError(f"[Evaluator.{op}] scale out of bounds for the "
+                             f"target level (2^{bound})")
+
+    def mod_switch_drop_to(self, ct: Ciphertext, parms_id: ParmsID) -> Ciphertext:
+        """Drop limbs down to parms_id without scaling (CKKS mod switch;
+        ref: evaluator_modswitch.cu:173)."""
+        cd = self._cd(ct)
+        if self._ckks() and not ct.is_ntt_form:
+            raise ValueError("[Evaluator.mod_switch_drop_to] CKKS ct must be in NTT form")
+        target = self._check_drop_target(cd, parms_id, "mod_switch_drop_to")
+        if self._ckks():
+            self._check_scale_bound(ct.scale, target, "mod_switch_drop_to")
+        out = ct.clone()
+        out.data = ct.data[..., : target.base_q.size, :]
+        out.parms_id = parms_id
         return out
 
     def mod_switch_to(self, ct: Ciphertext, parms_id: ParmsID) -> Ciphertext:
@@ -355,14 +468,15 @@ class Evaluator:
 
     def transform_plain_to_ntt(self, plain: Plaintext, parms_id: ParmsID) -> Plaintext:
         """Mod-t plaintext -> its centred lift in NTT form at a level; an
-        RNS-form plaintext is transformed as it is."""
+        RNS-form (or CKKS) plaintext is transformed as it is, its scale
+        kept."""
         if plain.is_ntt_form:
             raise ValueError("[Evaluator.transform_plain_to_ntt] already NTT")
         cd = self.context.get_context_data(parms_id)
-        data = plain.data if self._is_rns_plain(plain) else \
+        data = plain.data if self._ckks() or self._is_rns_plain(plain) else \
             cd.scaler.centralize(plain.data[0])
         return Plaintext(NTT.ntt_forward(data, cd.qtab()), parms_id=parms_id,
-                         is_ntt_form=True)
+                         is_ntt_form=True, scale=plain.scale)
 
     def bfv_scale_up(self, plain: Plaintext, parms_id: ParmsID) -> Plaintext:
         """Mod-t plaintext -> RNS scale-up form round(m Q / t)."""

@@ -6,6 +6,12 @@ single-special-prime layout: key i of the (decomp, 2, L_key, n) switching
 key is Enc_s(0) + (q_special mod q_i) * target in RNS limb i only.  The
 targets are s^k (relinearization keys), s(x^g) (Galois keys) or another
 secret (keyswitching keys).
+
+Randomness comes from a torch.Generator or a RandomGenerator (prng=; its
+"aes" mode draws the JAX package's bits), in the JAX package's order: the
+secret key's ternary polynomial, then per switching key a (decomp, L_key, n)
+then e (decomp, n).  With neither, a context created with a seed gives
+RandomGenerator(context.seed, "aes", domain="keygen").
 """
 
 from __future__ import annotations
@@ -18,18 +24,18 @@ from .ciphertext import Ciphertext
 from .rlwe import encrypt_zero_symmetric
 from ..ops import ntt as NTT, poly as P, u32 as U
 from ..ops.galois import GaloisTool
-from ..utils.random import sample_uniform, sample_ternary, sample_cbd
+from ..utils.random import RandomGenerator, sample_uniform, sample_ternary, sample_cbd, stream
 
 
 class KeyGenerator:
-    def __init__(self, context: HeContext, generator: torch.Generator,
-                 sk: SecretKey | None = None):
+    def __init__(self, context: HeContext, generator: torch.Generator | None = None,
+                 sk: SecretKey | None = None, prng: RandomGenerator | None = None):
         self.context = context
-        self.generator = generator
+        self.generator = stream(context.seed, generator, prng, "keygen", "KeyGenerator")
         cd = context.key_context_data()
         if sk is None:
             qtab = cd.qtab()
-            s = sample_ternary((cd.parms.poly_modulus_degree,), qtab, generator)
+            s = sample_ternary((cd.parms.poly_modulus_degree,), qtab, self.generator)
             sk = SecretKey(NTT.ntt_forward(s, qtab), cd.parms_id)
         self._sk = sk
         self._sk_powers: dict[int, torch.Tensor] = {1: sk.data}

@@ -73,6 +73,25 @@
 // (3, L) u32 = q, n^-1, n^-1 Shoup.  The forward transform accepts lazy
 // input in [0, 2q); the inverse takes [0, 2q) too and scales by n^-1.
 // Kernels never allocate.
+//
+// Degrees above 32768 (to the reference's 131072) do not fit one CTA, so
+// they take two launches of the same stage sequence over n = n1 n2,
+// n1 = 2^split (ops/ntt.py:default_split; n2 = 4096):
+//   * the column kernel (ntt_columns_kernel) runs the first log2 n1 forward
+//     stages on every column x[i n2 + j], i < n1: they are one size-n1
+//     transform of root 1 per column, so a thread holds the columns j, j + 1
+//     of one polynomial in registers, 2^split 16-byte loads (adjacent
+//     threads read adjacent columns), and stores them reduced to [0, q);
+//   * the block kernel (ntt_block_kernel) runs the remaining stages on each
+//     contiguous block b of n2 values: those are the sub-transforms of root
+//     v = n1 + b, so it is the one-polynomial kernel above on a polynomial of
+//     n2 values whose twiddle table is block b's own slice of the heap
+//     (NTTTables.kernel_phases, split per block by ops/ntt.py:phase_rows).
+// The inverse mirrors it: the block kernel first (scaled by 1, that is
+// reduced to [0, q), from the block scalars q, 1, floor(2^32 / q)), then the
+// column kernel, which scales by n^-1.  Each launch reads and writes the
+// whole polynomial, so the pair moves twice the bytes of one pass: at most
+// half of the one-pass bound.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -214,6 +233,148 @@ int launch_radix2(Kernel kernel, const void* in, void* out, const void* rows,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- Degrees above 32768: the block and column kernels ---------------------
+
+// ntt_kernel on block b of 2^log_b values of a polynomial of 2^(log_b +
+// split) (blockIdx.x = polynomial row << split | b), with block b's table:
+// phases (2, L, 2^split, 2 E) u32 pairs.  The inverse's scalars are the
+// block scalars, so its store scales by 1.
+template <bool kInverse>
+__global__ void __launch_bounds__(kThreads)
+    ntt_block_kernel(const int64_t* __restrict__ in, int64_t* __restrict__ out,
+                     const uint32_t* __restrict__ phases,
+                     const uint32_t* __restrict__ scalars, int L, int log_b,
+                     int split, int plan, int entries) {
+  extern __shared__ uint32_t s[];
+  const int limb = (blockIdx.x >> split) % L;
+  const int block = blockIdx.x & ((1 << split) - 1);
+  const uint32_t q = scalars[limb];
+  const uint32_t n_inv = scalars[L + limb];
+  const uint32_t n_inv_sh = scalars[2 * L + limb];
+  const uint32_t* table =
+      phases + ((static_cast<size_t>((kInverse ? L : 0) + limb) << split) + block) *
+                   2 * entries;
+  const uint2* tw = stage_twiddles(s + data_words(log_b), table, entries);
+  const size_t base = static_cast<size_t>(blockIdx.x) << log_b;
+  const int count = phase_count(plan);
+  const bool fused = kInverse && count > 1;
+
+  load_values(s, in + base, log_b);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  smem_phases<kInverse>(s, log_b, plan, count, fused, tw, q);
+
+  if (fused) {
+    run_store_phase(plan & 15, s, out + base, log_b, tw + kConstantSlots, q,
+                    n_inv, n_inv_sh);
+    return;
+  }
+  store_values<kInverse>(s, out + base, log_b, q, n_inv, n_inv_sh);
+}
+
+constexpr int kColumnThreads = 128;
+
+// The K = split stages over the columns of polynomials of 2^(log_b + K)
+// values: the forward's first K stages, or the inverse's last K and the
+// n^-1 scale.  Thread i takes the columns 2j, 2j + 1 (j = i mod 2^(log_b-1))
+// of polynomial i >> (log_b - 1): 2^K values each, x[e 2^log_b + 2j (+1)],
+// loaded as 2^K 16-byte pairs, then the root-1 sub-transform of each in
+// registers (columns: its 2^K (w, w') slots, ops/ntt.py:column_rows, read
+// from device memory, where every thread of the launch reads the same
+// ones).  Out in [0, q).
+template <int K, bool kInverse>
+__global__ void __launch_bounds__(kColumnThreads)
+    ntt_columns_kernel(const int64_t* __restrict__ in, int64_t* __restrict__ out,
+                       const uint32_t* __restrict__ columns,
+                       const uint32_t* __restrict__ scalars, int L, int log_b,
+                       long long pairs) {
+  constexpr int E = 1 << K;
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= pairs) return;
+  const int log_half = log_b - 1;
+  const long long row = i >> log_half;
+  const int limb = static_cast<int>(row % L);
+  const uint32_t q = scalars[limb];
+  const uint4* t4 = reinterpret_cast<const uint4*>(columns) +
+                    (static_cast<size_t>((kInverse ? L : 0) + limb) << (K - 1));
+  const size_t first = (static_cast<size_t>(row) << (log_half + K)) +
+                       static_cast<size_t>(i & ((1LL << log_half) - 1));
+  const longlong2* src = reinterpret_cast<const longlong2*>(in) + first;
+  longlong2 v[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) v[e] = __ldg(src + (static_cast<size_t>(e) << log_half));
+  uint32_t a[E], b[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    a[e] = static_cast<uint32_t>(v[e].x);
+    b[e] = static_cast<uint32_t>(v[e].y);
+  }
+  radix_stages<K, kInverse, false>(a, t4, nullptr, q);
+  radix_stages<K, kInverse, false>(b, t4, nullptr, q);
+  longlong2* dst = reinterpret_cast<longlong2*>(out) + first;
+  const uint32_t n_inv = scalars[L + limb];
+  const uint32_t n_inv_sh = scalars[2 * L + limb];
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const uint32_t x = kInverse ? troy::scale_n_inv(a[e], n_inv, n_inv_sh, q)
+                                : troy::reduce_from_4q(a[e], q);
+    const uint32_t y = kInverse ? troy::scale_n_inv(b[e], n_inv, n_inv_sh, q)
+                                : troy::reduce_from_4q(b[e], q);
+    dst[static_cast<size_t>(e) << log_half] = make_longlong2(x, y);
+  }
+}
+
+template <bool kInverse>
+int launch_blocks(const void* in, void* out, const void* phases,
+                  const void* scalars, long long n_blocks, int L, int log_b,
+                  int split, int plan, int entries, void* stream) {
+  if (n_blocks <= 0) return 0;
+  const Shape shape = ntt_shape(log_b, entries);
+  if (shape.smem > kDefaultSmem) {
+    cudaError_t err = cudaFuncSetAttribute(
+        ntt_block_kernel<kInverse>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(shape.smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  ntt_block_kernel<kInverse><<<static_cast<unsigned int>(n_blocks), shape.threads,
+                               shape.smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int64_t*>(in), static_cast<int64_t*>(out),
+      static_cast<const uint32_t*>(phases),
+      static_cast<const uint32_t*>(scalars), L, log_b, split, plan, entries);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int K, bool kInverse>
+int launch_columns_k(const void* in, void* out, const void* columns,
+                     const void* scalars, long long pairs, int L, int log_b,
+                     void* stream) {
+  const long long grid = (pairs + kColumnThreads - 1) / kColumnThreads;
+  ntt_columns_kernel<K, kInverse><<<static_cast<unsigned int>(grid), kColumnThreads, 0,
+                                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int64_t*>(in), static_cast<int64_t*>(out),
+      static_cast<const uint32_t*>(columns),
+      static_cast<const uint32_t*>(scalars), L, log_b, pairs);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kInverse>
+int launch_columns(const void* in, void* out, const void* columns,
+                   const void* scalars, long long n_rows, int L, int log_b,
+                   int split, void* stream) {
+  if (n_rows <= 0) return 0;
+  if (log_b < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const long long pairs = n_rows << (log_b - 1);
+  switch (split) {
+    case 1: return launch_columns_k<1, kInverse>(in, out, columns, scalars, pairs, L, log_b, stream);
+    case 2: return launch_columns_k<2, kInverse>(in, out, columns, scalars, pairs, L, log_b, stream);
+    case 3: return launch_columns_k<3, kInverse>(in, out, columns, scalars, pairs, L, log_b, stream);
+    case 4: return launch_columns_k<4, kInverse>(in, out, columns, scalars, pairs, L, log_b, stream);
+    case 5: return launch_columns_k<5, kInverse>(in, out, columns, scalars, pairs, L, log_b, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 extern "C" int troy_ntt_forward(const void* in, void* out, const void* phases,
@@ -230,6 +391,41 @@ extern "C" int troy_ntt_inverse(const void* in, void* out, const void* phases,
                                 void* stream) {
   return launch_ntt<true>(in, out, phases, scalars, n_rows, L, log_n, plan,
                           entries, stream);
+}
+
+// n_blocks = polynomial rows << split; log_b: log2 of a block's values.
+extern "C" int troy_ntt_blocks_forward(const void* in, void* out,
+                                       const void* phases, const void* scalars,
+                                       long long n_blocks, int L, int log_b,
+                                       int split, int plan, int entries,
+                                       void* stream) {
+  return launch_blocks<false>(in, out, phases, scalars, n_blocks, L, log_b,
+                              split, plan, entries, stream);
+}
+
+extern "C" int troy_ntt_blocks_inverse(const void* in, void* out,
+                                       const void* phases, const void* scalars,
+                                       long long n_blocks, int L, int log_b,
+                                       int split, int plan, int entries,
+                                       void* stream) {
+  return launch_blocks<true>(in, out, phases, scalars, n_blocks, L, log_b,
+                             split, plan, entries, stream);
+}
+
+extern "C" int troy_ntt_columns_forward(const void* in, void* out,
+                                        const void* columns, const void* scalars,
+                                        long long n_rows, int L, int log_b,
+                                        int split, void* stream) {
+  return launch_columns<false>(in, out, columns, scalars, n_rows, L, log_b,
+                               split, stream);
+}
+
+extern "C" int troy_ntt_columns_inverse(const void* in, void* out,
+                                        const void* columns, const void* scalars,
+                                        long long n_rows, int L, int log_b,
+                                        int split, void* stream) {
+  return launch_columns<true>(in, out, columns, scalars, n_rows, L, log_b,
+                              split, stream);
 }
 
 extern "C" int troy_ntt_forward_radix2(const void* in, void* out,

@@ -3,9 +3,10 @@
 The JAX package holds residues as u32 arrays; the port as int64 tensors.
 These helpers take numpy arrays (np.asarray of a jax array) and return the
 port's objects on a device, and back.  Layouts are the same on both sides:
-ciphertexts (..., size, L, n), switching keys (decomp, 2, L_key, n), the
-secret key (L_key, n) and the public key (2, L_key, n) in NTT form.  No jax
-import is needed here.
+ciphertexts (..., size, L, n), plaintexts (1, n) mod t or (L, n) in RNS,
+switching keys (decomp, 2, L_key, n), the secret key (L_key, n) and the
+public key (2, L_key, n) in NTT form.  A CKKS plaintext or ciphertext
+carries its scale across.  No jax import is needed here.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from .core.ciphertext import Ciphertext
+from .core.plaintext import Plaintext
 from .core.keys import SecretKey, PublicKey, RelinKeys, GaloisKeys
 from .core.params import ParmsID
 
@@ -34,8 +36,14 @@ def to_numpy(x: torch.Tensor) -> np.ndarray:
     return a.astype(np.uint32)
 
 
-def ciphertext(data, parms_id: ParmsID, device, is_ntt_form: bool = False) -> Ciphertext:
-    return Ciphertext(to_tensor(data, device), parms_id, is_ntt_form)
+def ciphertext(data, parms_id: ParmsID, device, is_ntt_form: bool = False,
+               scale: float = 1.0) -> Ciphertext:
+    return Ciphertext(to_tensor(data, device), parms_id, is_ntt_form, scale)
+
+
+def plaintext(data, parms_id: ParmsID, device, is_ntt_form: bool = False,
+              scale: float = 1.0) -> Plaintext:
+    return Plaintext(to_tensor(data, device), parms_id, is_ntt_form, scale)
 
 
 def secret_key(data, parms_id: ParmsID, device) -> SecretKey:

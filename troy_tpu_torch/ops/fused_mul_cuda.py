@@ -6,8 +6,8 @@ The kernel is compiled at first use with the port's other kernels
 (ops/_cuda_build.py); a failed build or launch raises, and nothing falls back
 to the plain version.
 
-One route for every n from 2 to 32768: troy_fused_mul, a kernel
-instantiated per degree.  From n = 64 it is a thread-block cluster of four
+Two routes, chosen by the tables' split (ops/ntt.py:default_split).  For n
+from 2 to 32768 (split 0): troy_fused_mul, a kernel instantiated per degree.  From n = 64 it is a thread-block cluster of four
 CTAs per (batch, limb), one per operand polynomial, each running the NTT
 kernel's register-radix phases (csrc/ntt_phases.cuh) on
 NTTTables.kernel_phases; the products are formed across the cluster's shared
@@ -18,7 +18,16 @@ kernel (troy_fused_mul_radix2) stays in the library as a timing yardstick:
 run_radix2 launches it for chip_smoke.py's comparison, and no route of this
 wrapper takes it.
 
-LAUNCHES counts the kernel's launches.
+For n = 65536 and 131072 (a split), where one operand polynomial does not
+fit a CTA: the NTT kernels' two-launch forward of (a, b) as one (..., 4, L,
+n) call, the hand-written tensor-product kernel troy_tensor_product
+(csrc/tensor_product.cu: a0 b0, a0 b1 + a1 b0, a1 b1 mod q in the NTT
+domain), and the two-launch inverse: five launches, none of them a plain
+version.
+
+LAUNCHES counts the launches of the cluster kernel (fused_negacyclic_multiply)
+and of the tensor-product kernel (tensor_product), so it says which route
+ran; the NTT launches of the large route count in ntt_cuda.LAUNCHES.
 """
 
 from __future__ import annotations
@@ -29,14 +38,18 @@ import torch
 
 from . import _cuda_build
 from .ntt import NTTTables, kernel_phase_plan, phase_entries
-from .ntt_cuda import MAX_LOG_N, MODULUS_BOUND
+from .ntt import BLOCK_MAX_LOG_N, MAX_LOG_N
+from .ntt_cuda import MODULUS_BOUND
 
-LAUNCHES = {"fused_negacyclic_multiply": 0}
+LAUNCHES = {"fused_negacyclic_multiply": 0, "tensor_product": 0}
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_void_p]
+_PRODUCT_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                     ctypes.c_void_p]
 _RADIX2_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                     ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -56,7 +69,10 @@ def shared_bytes(log_n: int) -> int:
     return 4 * ((n + (n >> 5) + 3) & ~3) + 8 * phase_entries(log_n)
 
 
-def _check(a: torch.Tensor, b: torch.Tensor, t: NTTTables):
+def _check(a: torch.Tensor, b: torch.Tensor, t: NTTTables, polys: int = 2):
+    """a and b: contiguous, 16-byte aligned int64 CUDA tensors on the tables'
+    device, of one shape ending in (polys, L, n), at a degree and moduli the
+    kernels take."""
     for x in (a, b):
         if not x.is_cuda:
             raise ValueError("[fused_mul_cuda] inputs must be CUDA tensors")
@@ -72,13 +88,15 @@ def _check(a: torch.Tensor, b: torch.Tensor, t: NTTTables):
     if a.shape != b.shape:
         raise ValueError(f"[fused_mul_cuda] shapes differ: {tuple(a.shape)} "
                          f"and {tuple(b.shape)}")
-    if a.dim() < 3 or tuple(a.shape[-3:]) != (2, t.size, t.n):
+    if a.dim() < 3 or tuple(a.shape[-3:]) != (polys, t.size, t.n):
         raise ValueError(f"[fused_mul_cuda] shape {tuple(a.shape)} does not end "
-                         f"in (2, L, n) = (2, {t.size}, {t.n})")
+                         f"in ({polys}, L, n) = ({polys}, {t.size}, {t.n})")
     n = t.n
     if n & (n - 1) or n < 2 or n > (1 << MAX_LOG_N):
         raise ValueError(f"[fused_mul_cuda] n = {n} must be a power of two in "
                          f"[2, {1 << MAX_LOG_N}]")
+    if t.block_log_n > BLOCK_MAX_LOG_N:
+        raise ValueError(f"[fused_mul_cuda] n = {n} needs tables with a split")
     if t.max_modulus >= MODULUS_BOUND:
         raise ValueError(f"[fused_mul_cuda] modulus {t.max_modulus} >= 2^30")
 
@@ -104,9 +122,33 @@ def fused_negacyclic_multiply(a: torch.Tensor, b: torch.Tensor,
     """Kernel tensor product: a, b (..., 2, L, n) int64 residues in [0, 2q),
     coefficient domain -> (..., 3, L, n) in [0, q), coefficient domain."""
     _check(a, b, t)
+    if t.split:
+        from . import ntt_cuda
+
+        y = ntt_cuda.ntt_forward(torch.cat([a, b], dim=-3), t)
+        return ntt_cuda.ntt_inverse(tensor_product(y, t), t)
     out = _call("troy_fused_mul", _ARGTYPES, a, b, t, t.kernel_phases,
                 t.plan_code, t.kernel_phases.shape[-1] // 2)
     LAUNCHES["fused_negacyclic_multiply"] += 1
+    return out
+
+
+def tensor_product(y: torch.Tensor, t: NTTTables) -> torch.Tensor:
+    """One launch of the tensor-product kernel: y (..., 4, L, n) = NTT-domain
+    (a0, a1, b0, b1) in [0, q) -> (..., 3, L, n) = (a0 b0, a0 b1 + a1 b0,
+    a1 b1) mod q.  Its plain version is ops/dyadic.py:dyadic_convolute."""
+    _check(y, y, t, polys=4)
+    fn = _cuda_build.function("troy_tensor_product", _PRODUCT_ARGTYPES)
+    out = torch.empty((*y.shape[:-3], 3, t.size, t.n), dtype=torch.int64, device=y.device)
+    with torch.cuda.device(y.device):
+        stream = torch.cuda.current_stream(y.device).cuda_stream
+        err = fn(y.data_ptr(), out.data_ptr(), t.kernel_scalars.data_ptr(),
+                 t.barrett_ratio.data_ptr(), y.numel() // (4 * t.size * t.n), t.size,
+                 t.log_n, stream)
+    if err != 0:
+        raise RuntimeError(f"[fused_mul_cuda] troy_tensor_product launch failed: "
+                           f"CUDA error {err}")
+    LAUNCHES["tensor_product"] += 1
     return out
 
 
@@ -134,4 +176,5 @@ def kernel_info(which: int, log_n: int) -> dict:
 
 
 def reset_launches():
-    LAUNCHES["fused_negacyclic_multiply"] = 0
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0

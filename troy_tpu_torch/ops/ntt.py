@@ -11,9 +11,12 @@ Two implementations of one function:
   * ntt_forward_plain / ntt_inverse_plain: vectorised radix-2 in PyTorch over
     int64 with `%` (reshape-only Cooley-Tukey / Gentleman-Sande stages, as in
     the JAX radix-2 path).  It serves CPU tensors, and is the reference that
-    the CUDA kernel is held to.
-  * ops/ntt_cuda.py: the hand-written Hopper kernel pair (csrc/ntt.cu), which
-    serves CUDA tensors.
+    the CUDA kernel is held to.  forward_stages_plain / inverse_stages_plain
+    run a range of its stages: the plain versions of each launch of the
+    two-launch route below.
+  * ops/ntt_cuda.py: the hand-written Hopper kernels (csrc/ntt.cu), which
+    serve CUDA tensors: one launch up to n = 32768; above, a split
+    (NTTTables.split, default_split) into the column and block launches.
 
 ntt_forward / ntt_inverse dispatch on the tensor's device alone.  Callers use
 them through this module's attributes (NTT.ntt_forward), never by name import.
@@ -118,23 +121,57 @@ def phase_nodes(r: int, k: int, last: bool = False) -> np.ndarray:
     return nodes
 
 
-def phase_rows(row: np.ndarray, row_shoup: np.ndarray, log_n: int) -> np.ndarray:
+def phase_rows(row: np.ndarray, row_shoup: np.ndarray, log_n: int,
+               split: int = 0) -> np.ndarray:
     """One limb's kernel twiddles, as (w, floor(w 2^32 / q)) u32 pairs, so
     that a thread loads two slots as one 16-byte vector: CONSTANT_SLOTS
     factors psi_br[g] (zero where g >= n), then every phase of
-    kernel_phase_plan back to back (phase_nodes), padding (0, 0)."""
-    n = 1 << log_n
-    g = np.arange(min(CONSTANT_SLOTS, n))
-    parts = [np.stack([row[g], row_shoup[g]], axis=-1)]
-    parts[0][0] = 0
-    parts.append(np.zeros((CONSTANT_SLOTS - len(g), 2), np.uint32))
+    kernel_phase_plan back to back (phase_nodes), padding (0, 0).
+
+    With a split (the two-launch route, NTTTables.split), log_n is a block's
+    and the table repeats per block b < 2^split: the block kernel's phase
+    (r, k) runs global stages from split + r, where block b holds the roots
+    v = 2^(split+r) + b 2^r + u, u < 2^r, so block b's rows of
+    phase_nodes(split + r, k) are its own."""
+    n_blocks = 1 << split
+    g = np.arange(min(CONSTANT_SLOTS, 1 << log_n))
+    consts = np.zeros((CONSTANT_SLOTS, 2), np.uint32)
+    consts[1:len(g)] = np.stack([row[g], row_shoup[g]], axis=-1)[1:]
+    parts = [np.broadcast_to(consts, (n_blocks, CONSTANT_SLOTS, 2))]
     plan = kernel_phase_plan(log_n)
     for i, (r, k) in enumerate(plan):
-        nodes = phase_nodes(r, k, last=i == len(plan) - 1)
+        nodes = phase_nodes(split + r, k, last=i == len(plan) - 1)
         pair = np.stack([row[nodes], row_shoup[nodes]], axis=-1)
         pair[nodes == 0] = 0
-        parts.append(pair.reshape(-1, 2))
-    return np.concatenate(parts).reshape(-1).astype(np.uint32)
+        parts.append(pair.reshape(n_blocks, -1, 2))
+    return np.concatenate(parts, axis=1).reshape(-1).astype(np.uint32)
+
+
+def column_rows(row: np.ndarray, row_shoup: np.ndarray, split: int) -> np.ndarray:
+    """The column kernel's 2^split (w, w') slots: the heap subtree of root 1
+    (phase_nodes(0, split)), slot p = psi_br[p] for 0 < p < 2^split, slot 0
+    padding; empty without a split."""
+    if not split:
+        return np.zeros(0, np.uint32)
+    nodes = phase_nodes(0, split)[0]
+    pair = np.stack([row[nodes], row_shoup[nodes]], axis=-1)
+    pair[nodes == 0] = 0
+    return pair.reshape(-1).astype(np.uint32)
+
+
+MAX_LOG_N = 17        # the reference's largest degree, 131072
+BLOCK_MAX_LOG_N = 15  # a CTA holds at most 32768 values and their table
+LARGE_BLOCK_LOG_N = 12  # the block of the two-launch route (PERF.md, F3)
+
+
+def default_split(log_n: int) -> int:
+    """log2 n1 of the route NTTTables takes by default: 0 (one launch, a
+    polynomial a CTA) up to n = 32768, else n = n1 n2 with n2 = 4096 (the
+    faster of blocks of 4096, 8192 and 32768 on the H100, PERF.md), at most
+    5 (the kernels take no degree above 131072)."""
+    if log_n <= BLOCK_MAX_LOG_N:
+        return 0
+    return min(KERNEL_MAX_DEPTH, log_n - LARGE_BLOCK_LOG_N)
 
 
 class NTTTables:
@@ -150,15 +187,26 @@ class NTTTables:
         kernel's), then the fused tensor product's (csrc/fused_mul.cu):
         -q^-1 mod 2^32, n^-1 2^32 mod q and its Shoup companion;
       kernel_phases (2, L, 2 E): phase_rows of psi_br and of inv_psi_br per
-        limb, E entries each (the NTT kernel's twiddles);
-      phase_plan / plan_code: kernel_phase_plan(log_n) and its packed form.
+        limb, E entries each (the NTT kernel's twiddles); with a split,
+        (2, L, 2^split 2 E), E entries per block;
+      phase_plan / plan_code: kernel_phase_plan(block_log_n) and its packed
+        form;
+      column_phases (2, L, 2^(split+1)): column_rows of psi_br and of
+        inv_psi_br (the column kernel's twiddles; empty without a split);
+      block_scalars (3, L): q, 1 and floor(2^32 / q), the block kernel's
+        inverse scale (a reduction to [0, q));
+      barrett_ratio (L,) int64: floor((2^64 - 1) / q), for the tensor
+        product of csrc/tensor_product.cu.
+    split (log2 n1) picks the kernels' route: 0, one launch of a polynomial
+    a CTA; above, two launches over n = n1 n2, blocks of 2^block_log_n
+    values (csrc/ntt.cu).  default_split(log_n) unless given.
     """
 
-    _row_cache: dict = {}  # (log_n, q) -> per-modulus host rows
+    _row_cache: dict = {}  # (log_n, q, split) -> per-modulus host rows
 
     @classmethod
-    def _rows(cls, log_n: int, mod: Modulus) -> dict:
-        key = (log_n, mod.value)
+    def _rows(cls, log_n: int, mod: Modulus, split: int) -> dict:
+        key = (log_n, mod.value, split)
         if key in cls._row_cache:
             return cls._row_cache[key]
         n = 1 << log_n
@@ -185,19 +233,27 @@ class NTTTables:
                     n_inv=ninv, n_inv_shoup=(ninv << 32) // q,
                     q_inv_neg=(-pow(q, -1, 1 << 32)) % (1 << 32),
                     n_inv_mont=ninv_mont, n_inv_mont_shoup=(ninv_mont << 32) // q,
-                    phases=np.stack([phase_rows(fwd, fwd_sh, log_n),
-                                     phase_rows(inv, inv_sh, log_n)]))
+                    phases=np.stack([phase_rows(fwd, fwd_sh, log_n - split, split),
+                                     phase_rows(inv, inv_sh, log_n - split, split)]),
+                    columns=np.stack([column_rows(fwd, fwd_sh, split),
+                                      column_rows(inv, inv_sh, split)]))
         cls._row_cache[key] = rows
         return rows
 
-    def __init__(self, log_n: int, moduli: list[Modulus], device):
+    def __init__(self, log_n: int, moduli: list[Modulus], device,
+                 split: int | None = None):
         self.log_n = log_n
         self.n = 1 << log_n
         self.moduli = list(moduli)
         self.device = torch.device(device)
-        self.phase_plan = kernel_phase_plan(log_n)
+        self.split = default_split(log_n) if split is None else split
+        if self.split and not 1 <= self.split <= min(KERNEL_MAX_DEPTH, log_n - 1):
+            raise ValueError(f"[NTTTables] split {self.split} outside [1, 5] or "
+                             f"not below log2 n = {log_n}")
+        self.block_log_n = log_n - self.split
+        self.phase_plan = kernel_phase_plan(self.block_log_n)
         self.plan_code = kernel_plan_code(self.phase_plan)
-        rows = [self._rows(log_n, m) for m in moduli]
+        rows = [self._rows(log_n, m, self.split) for m in moduli]
         q = np.array([m.value for m in moduli], dtype=np.int64)
         kernel_rows = np.stack([
             np.stack([r[k] for r in rows])
@@ -215,6 +271,13 @@ class NTTTables:
             kernel_scalars=torch.from_numpy(kernel_scalars.view(np.int32)),
             kernel_phases=torch.from_numpy(
                 np.stack([r["phases"] for r in rows], axis=1).view(np.int32)),
+            column_phases=torch.from_numpy(
+                np.stack([r["columns"] for r in rows], axis=1).view(np.int32)),
+            block_scalars=torch.from_numpy(np.array(
+                [q, np.ones_like(q), (1 << 32) // q], dtype=np.uint64
+            ).astype(np.uint32).view(np.int32)),
+            barrett_ratio=torch.tensor([((1 << 64) - 1) // int(v) for v in q],
+                                       dtype=torch.int64),
         )
 
     def _set(self, **tensors):
@@ -229,11 +292,17 @@ class NTTTables:
     def max_modulus(self) -> int:
         return max(m.value for m in self.moduli)
 
+    @property
+    def entries(self) -> int:
+        """Table pairs of one limb (of one block, with a split)."""
+        return phase_entries(self.block_log_n)
+
     def take(self, idx: list[int]) -> "NTTTables":
         """Tables for the limb rows idx (e.g. a level's moduli plus the
         special prime, for the keyswitch output base)."""
         out = object.__new__(NTTTables)
         out.log_n, out.n, out.device = self.log_n, self.n, self.device
+        out.split, out.block_log_n = self.split, self.block_log_n
         out.phase_plan, out.plan_code = self.phase_plan, self.plan_code
         out.moduli = [self.moduli[i] for i in idx]
         ix = torch.tensor(idx, dtype=torch.int64, device=self.device)
@@ -241,7 +310,10 @@ class NTTTables:
                  inv_psi_br=self.inv_psi_br[ix], n_inv=self.n_inv[ix],
                  kernel_rows=self.kernel_rows[:, ix],
                  kernel_scalars=self.kernel_scalars[:, ix],
-                 kernel_phases=self.kernel_phases[:, ix])
+                 kernel_phases=self.kernel_phases[:, ix],
+                 column_phases=self.column_phases[:, ix],
+                 block_scalars=self.block_scalars[:, ix],
+                 barrett_ratio=self.barrett_ratio[ix])
         return out
 
 
@@ -249,19 +321,20 @@ class NTTTables:
 # Plain PyTorch versions.  x has shape (..., L, n); t is an NTTTables.
 # ---------------------------------------------------------------------------
 
-def ntt_forward_plain(x: torch.Tensor, t: NTTTables) -> torch.Tensor:
-    """Forward negacyclic NTT along the last axis: Cooley-Tukey stages with
-    m groups each, the flat (..., n) axis viewed as (..., m, 2, n/2m).
-    In: [0, 2q) natural order, the kernel's contract: one conditional
+def forward_stages_plain(x: torch.Tensor, t: NTTTables, first: int,
+                         stop: int) -> torch.Tensor:
+    """The forward stages m = 2^first .. 2^(stop-1) along the last axis:
+    Cooley-Tukey stages with m groups each, the flat (..., n) axis viewed as
+    (..., m, 2, n/2m).  In: [0, 2q), the kernel's contract: one conditional
     subtract brings it to [0, q), so input of 2q or more comes out wrong here
-    as it may on the card.  Out: [0, q) NTT order."""
+    as it may on the card.  Out: [0, q)."""
     n, L = x.shape[-1], x.shape[-2]
     lead = x.shape[:-2]
     q = t.q.view(L, 1, 1)
     x = torch.where(x >= t.q.view(L, 1), x - t.q.view(L, 1), x)
-    m, tt = 1, n // 2
-    while m < n:
-        xr = x.reshape(*lead, L, m, 2, tt)
+    for r in range(first, stop):
+        m = 1 << r
+        xr = x.reshape(*lead, L, m, 2, n // (2 * m))
         u, v = xr[..., 0, :], xr[..., 1, :]
         tv = v * t.psi_br[:, m:2 * m, None] % q
         x0 = u + tv
@@ -269,28 +342,38 @@ def ntt_forward_plain(x: torch.Tensor, t: NTTTables) -> torch.Tensor:
         x1 = u - tv
         x1 = torch.where(x1 < 0, x1 + q, x1)
         x = torch.stack([x0, x1], dim=-2).reshape(*lead, L, n)
-        m *= 2
-        tt //= 2
     return x
 
 
-def ntt_inverse_plain(x: torch.Tensor, t: NTTTables) -> torch.Tensor:
-    """Inverse negacyclic NTT along the last axis (Gentleman-Sande stages),
-    scaled by n^-1.  In: [0, q) NTT order; out: [0, q) natural order."""
+def inverse_stages_plain(x: torch.Tensor, t: NTTTables, first: int, stop: int,
+                         scale: bool) -> torch.Tensor:
+    """The inverse (Gentleman-Sande) stages m = 2^(stop-1) down to 2^first
+    along the last axis, then the n^-1 scale if `scale`.  In: [0, q); out:
+    [0, q)."""
     n, L = x.shape[-1], x.shape[-2]
     lead = x.shape[:-2]
     q = t.q.view(L, 1, 1)
-    m, tt = n // 2, 1
-    while m >= 1:
-        xr = x.reshape(*lead, L, m, 2, tt)
+    for r in reversed(range(first, stop)):
+        m = 1 << r
+        xr = x.reshape(*lead, L, m, 2, n // (2 * m))
         u, v = xr[..., 0, :], xr[..., 1, :]
         x0 = u + v
         x0 = torch.where(x0 >= q, x0 - q, x0)
         x1 = (u + q - v) * t.inv_psi_br[:, m:2 * m, None] % q
         x = torch.stack([x0, x1], dim=-2).reshape(*lead, L, n)
-        m //= 2
-        tt *= 2
-    return x * t.n_inv.view(L, 1) % t.q.view(L, 1)
+    return x * t.n_inv.view(L, 1) % t.q.view(L, 1) if scale else x
+
+
+def ntt_forward_plain(x: torch.Tensor, t: NTTTables) -> torch.Tensor:
+    """Forward negacyclic NTT along the last axis, every stage.  In: [0, 2q)
+    natural order; out: [0, q) NTT order."""
+    return forward_stages_plain(x, t, 0, t.log_n)
+
+
+def ntt_inverse_plain(x: torch.Tensor, t: NTTTables) -> torch.Tensor:
+    """Inverse negacyclic NTT along the last axis, scaled by n^-1.  In:
+    [0, q) NTT order; out: [0, q) natural order."""
+    return inverse_stages_plain(x, t, 0, t.log_n, scale=True)
 
 
 # ---------------------------------------------------------------------------

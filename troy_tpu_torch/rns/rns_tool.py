@@ -1,6 +1,16 @@
-"""Per-level BFV RNS toolbox, on int64 residue tensors.
+"""Per-level RNS toolboxes, on int64 residue tensors.
 
-Counterpart of troy_tpu/rns/rns_tool.py, for the BFV multiply and decrypt:
+Counterpart of troy_tpu/rns/rns_tool.py.  LastPrimeTool holds what every
+scheme needs at a level, the division by its last prime:
+
+  * divide_and_round_q_last: round(x / q_last) into the next level's base,
+    for the BFV mod switch and special-prime encryption;
+  * divide_and_round_q_last_ntt: the same in the NTT domain, for the CKKS
+    rescale and CKKS special-prime encryption; its two NTTs (the last
+    limb's inverse, the other limbs' forward) go through the NTT dispatch,
+    so on the card they run the NTT kernel.
+
+RNSTool adds the BFV multiply and decrypt:
 
   * fast_b_conv_hps: the HPS lift of base q to the auxiliary base Bsk, with
     the q-overflow count alpha estimated in float32 (the default lift);
@@ -8,9 +18,7 @@ Counterpart of troy_tpu/rns/rns_tool.py, for the BFV multiply and decrypt:
     conversion to Bsk u {m~} of m~ x, then Montgomery's small reduction by m~;
   * fast_floor_scale_fast_b_conv_sk: floor(t * d / Q) with the x t scale
     folded into the tables, then the Shenoy-Kumaresan conversion back to q;
-  * decrypt_scale_and_round: the exact {t, gamma} rounding of t * phase / Q;
-  * divide_and_round_q_last: round(x / q_last) into the next level's base,
-    for the BFV mod switch and special-prime encryption.
+  * decrypt_scale_and_round: the exact {t, gamma} rounding of t * phase / Q.
 
 Every base conversion goes through ops/bconv.base_convert (the Hopper kernel
 on a CUDA tensor).  The JAX package's unfused floor, fast_floor_fast_b_conv_sk
@@ -27,7 +35,7 @@ import torch
 
 from ..core.modulus import Modulus
 from ..utils import numth
-from ..ops import bconv as BC, u32 as U
+from ..ops import bconv as BC, ntt as NTT, u32 as U
 from ..ops.ntt import NTTTables
 from .rns_base import RNSBase, BaseConverter
 
@@ -51,15 +59,64 @@ def _aux_primes(n: int, exclude: set[int], count: int, need_ntt: bool = True) ->
     return out
 
 
-class RNSTool:
+def _col(values, dev) -> torch.Tensor:
+    return torch.tensor(values, dtype=torch.int64, device=dev).view(-1, 1)
+
+
+class LastPrimeTool:
+    """The division by a level's last prime, for every scheme (the per-level
+    constants of troy_tpu/rns/rns_tool.py's q_last division, without the
+    BFV-only parts)."""
+
+    def __init__(self, log_n: int, base_q: RNSBase):
+        self.log_n = log_n
+        self.n = 1 << log_n
+        self.base_q = base_q
+        self.device = base_q.device
+        q_values = base_q.values
+        if len(q_values) > 1:
+            q_last = q_values[-1]
+            rest = q_values[:-1]
+            self.q_last_half = q_last >> 1
+            self.q_last_half_mod_q = _col([(q_last >> 1) % q for q in rest], self.device)
+            self.inv_q_last_mod_q = _col([numth.invert_mod(q_last % q, q) for q in rest],
+                                         self.device)
+        self._ntt_split = None
+
+    def divide_and_round_q_last(self, x: torch.Tensor) -> torch.Tensor:
+        """(..., L, n) coefficient domain -> (..., L-1, n) = round(x / q_last):
+        (x_i - ([x_last + q_last/2]_{q_last} - q_last/2)) q_last^-1 mod q_i."""
+        q_last = self.base_q.values[-1]
+        q = self.base_q.q[:-1].view(-1, 1)
+        last_plus = U.add_mod(x[..., -1:, :], self.q_last_half, q_last)
+        tmp = U.sub_mod(U.barrett_reduce(last_plus, q), self.q_last_half_mod_q, q)
+        return U.mul_mod(U.sub_mod(x[..., :-1, :], tmp, q), self.inv_q_last_mod_q, q)
+
+    def divide_and_round_q_last_ntt(self, x: torch.Tensor, qtab: NTTTables) -> torch.Tensor:
+        """NTT-domain variant (the CKKS rescale): qtab is the level's NTT
+        tables (L limbs); (..., L, n) -> (..., L-1, n), NTT domain.  The last
+        limb goes to the coefficient domain, is centred and reduced per
+        limb, and comes back through the forward NTT of the other limbs."""
+        L = self.base_q.size
+        if self._ntt_split is None or self._ntt_split[0] is not qtab:
+            self._ntt_split = (qtab, qtab.take(list(range(L - 1))), qtab.take([L - 1]))
+        _, down_tab, last_tab = self._ntt_split
+        last = NTT.ntt_inverse(x[..., -1:, :].contiguous(), last_tab)
+        last_plus = U.add_mod(last, self.q_last_half, self.base_q.values[-1])
+        q = self.base_q.q[:-1].view(-1, 1)
+        tmp = U.sub_mod(U.barrett_reduce(last_plus, q), self.q_last_half_mod_q, q)
+        tmp = NTT.ntt_forward(tmp, down_tab)
+        return U.mul_mod(U.sub_mod(x[..., :-1, :], tmp, q), self.inv_q_last_mod_q, q)
+
+
+class RNSTool(LastPrimeTool):
     """BFV toolbox for one modulus-chain level, tables on base_q.device."""
 
     def __init__(self, log_n: int, base_q: RNSBase, t: Modulus):
-        self.log_n = log_n
-        self.n = n = 1 << log_n
-        self.base_q = base_q
+        super().__init__(log_n, base_q)
+        n = self.n
         self.t = t
-        self.device = dev = base_q.device
+        dev = self.device
         L = base_q.size
         q_values = base_q.values
         Q = base_q.prod
@@ -67,7 +124,7 @@ class RNSTool:
         used.add(t.value)
 
         def col(values):
-            return torch.tensor(values, dtype=torch.int64, device=dev).view(-1, 1)
+            return _col(values, dev)
 
         # ---- aux base sizing: prod(B) must exceed the post-floor bound
         # ~ t * n * Q * (L+3) with margin (BEHZ §4) -------------------------
@@ -130,14 +187,6 @@ class RNSTool:
             dev)
         self.ff_t_qinv_mod_Bsk = col([(tv * numth.invert_mod(Q % b, b)) % b
                                       for b in bsk_vals])
-
-        # ---- q_last division (mod switch) ------------------------------------
-        if L > 1:
-            q_last = q_values[-1]
-            rest = q_values[:-1]
-            self.q_last_half = q_last >> 1
-            self.q_last_half_mod_q = col([(q_last >> 1) % q for q in rest])
-            self.inv_q_last_mod_q = col([numth.invert_mod(q_last % q, q) for q in rest])
 
         # ---- {t, gamma} decrypt ---------------------------------------------
         gamma = _aux_primes(n, used, 1, need_ntt=False)[0]
@@ -236,15 +285,3 @@ class RNSTool:
             U.add_mod(s_t, U.sub_mod(gv % tv, s_g_mod_t, tv), tv),
             U.sub_mod(s_t, s_g_mod_t, tv))
         return U.mul_mod(corrected, self.inv_gamma_mod_t, tv)
-
-    # ------------------------------------------------------------------
-    # mod switch (ref: rns_tool.cu divide_and_round_q_last:421)
-    # ------------------------------------------------------------------
-    def divide_and_round_q_last(self, x: torch.Tensor) -> torch.Tensor:
-        """(..., L, n) coefficient domain -> (..., L-1, n) = round(x / q_last):
-        (x_i - ([x_last + q_last/2]_{q_last} - q_last/2)) q_last^-1 mod q_i."""
-        q_last = self.base_q.values[-1]
-        q = self.base_q.q[:-1].view(-1, 1)
-        last_plus = U.add_mod(x[..., -1:, :], self.q_last_half, q_last)
-        tmp = U.sub_mod(U.barrett_reduce(last_plus, q), self.q_last_half_mod_q, q)
-        return U.mul_mod(U.sub_mod(x[..., :-1, :], tmp, q), self.inv_q_last_mod_q, q)
