@@ -11,7 +11,10 @@ default HPS lift and the reference-exact BEHZ lift, Evaluator(ctx,
 lift="behz")), the batched Galois rotations and the mod switch; the client
 flow of examples/99_quickstart.py; bench.py's CKKS configuration (the same
 chain, scale 2^25, batch 16: multiply + relinearize, rescale, rotate_vector
-and complex_conjugate); and a BFV multiply + relinearize at n = 65536, where
+and complex_conjugate); the same chain under BGV (multiply and square +
+relinearize, rotate_rows, rotate_columns, the mod switch, the flow of
+examples/4_bgv_basics.py, exponentiate and, in BFV, multiply_plain_contract);
+and a BFV multiply + relinearize at n = 65536, where
 the NTT and the fused tensor product take their two-launch routes.  In
 phases:
 
@@ -71,7 +74,25 @@ phases:
               each printed beside the error); then its chained time, the profiler's launches,
               device time and busy share, and the NTT kernels' share of
               their bound;
-  9. large_n  BFV multiply + relinearize at n = 65536 (9 x 30-bit primes, t =
+  9. bgv      bench.py's chain under SchemeType.BGV (t as above, seed
+              0xBEEF, batch 16, messages uniform in [0, t) from numpy seed 7):
+              keys and symmetric encryptions from RandomGenerator(seed,
+              mode="aes") streams, in NTT form; the batched multiply +
+              relinearize, square + relinearize, rotate_rows(1),
+              rotate_columns and the mod switch L = 6 -> 5 (the division by
+              the last prime that keeps the payload mod t).  Each must launch
+              the NTT kernels, equal its all-plain run, decrypt through the
+              BGV decrypt (the exact centred phase mod t, times cf^-1) to the
+              expected slots with its correction factor (q_last^-1 mod t
+              after the mod switch) and keep a positive noise budget; row 0
+              equals the Evaluator's.  Then examples/4_bgv_basics.py's flow
+              with special-prime encryption (factor q_sp^-1 mod t), square,
+              relinearize, mod switch and an add of unequal factors;
+              exponentiate(ct, 3) and a 2 x 2 BFV multiply_plain_contract,
+              each equal to its all-plain run and decrypting right; then
+              each step's chained time, profiler launches, device time, busy
+              share and NTT share of its bound;
+ 10. large_n  BFV multiply + relinearize at n = 65536 (9 x 30-bit primes, t =
               PlainModulus.batching(65536, 20), batch 2): it must launch the
               column and block NTT kernels and K3, equal its all-plain run
               and decrypt right; K4 at its entry point at the step's q and
@@ -80,7 +101,7 @@ phases:
               beside its bound at (3, 2, n) for n = 65536 and 131072, and the
               two-launch NTT with blocks of 4096, 8192 and 32768 in turns, at
               (3, 2, 65536) and at the step's keyswitch digits;
- 10. times    CUDA-event times of the chained steps against their all-plain
+ 11. times    CUDA-event times of the chained steps against their all-plain
               versions (multiply + relinearize, the three rotations, the mod
               switch), the profiler's launches, device time, NTT kernel time
               and busy share of the HPS step and of one rotate_rows(1) and
@@ -1022,17 +1043,24 @@ def phase_ckks(dev, gpu: str) -> dict:
     log("[ckks] row 0 of the batched rotate_vector(1) and complex_conjugate equals "
         "Evaluator.rotate_vector / complex_conjugate")
 
-    steps = {  # label: (one step, chained call, chained)
-        "multiply + relinearize": (lambda: mul(d1, d2, rlk), lambda d: mul(d, d2, rlk)),
-        "rescale": (lambda: rescale(out["mul"]), None),
-        "rotate_vector(1)": (lambda: rot(dc, rot_keys), lambda d: rot(d, rot_keys)),
-        "complex_conjugate": (lambda: conj(dc, conj_keys), lambda d: conj(d, conj_keys)),
-    }
+    profiles = time_steps("ckks", gpu, {  # label: (one step, chained call, first input)
+        "multiply + relinearize": (lambda: mul(d1, d2, rlk), lambda d: mul(d, d2, rlk), d1),
+        "rescale": (lambda: rescale(out["mul"]), None, None),
+        "rotate_vector(1)": (lambda: rot(dc, rot_keys), lambda d: rot(d, rot_keys), dc),
+        "complex_conjugate": (lambda: conj(dc, conj_keys), lambda d: conj(d, conj_keys), dc),
+    })
+    return dict(launches=launches, profiles=profiles)
+
+
+def time_steps(phase: str, gpu: str, steps: dict) -> dict:
+    """Each step's event-timed ms, chained (each output the next input) or,
+    without a chained call, repeated on one input, and its step_report;
+    steps: {label: (one step, chained call or None, first input)}."""
     profiles = {}
-    for label, (fn, chain) in steps.items():
+    for label, (fn, chain, first) in steps.items():
         for _ in range(3):
             fn()
-        state = {"cur": d1 if label.startswith("multiply") else dc}
+        state = {"cur": first}
 
         def call(fn=fn, chain=chain):
             if chain is None:
@@ -1041,9 +1069,196 @@ def phase_ckks(dev, gpu: str) -> dict:
                 state["cur"] = chain(state["cur"])
 
         ms = cuda_ms(call, REPS)
-        profiles[label] = (ms, step_report("ckks", gpu, f"{label} step, batch {BATCH}"
+        profiles[label] = (ms, step_report(phase, gpu, f"{label} step, batch {BATCH}"
                                            + ("" if chain else " (repeated on one input)"),
                                            fn, ms, PROFILE_STEPS))
+    return profiles
+
+
+def check_bgv(label: str, out: torch.Tensor, parms_id, cf: int, expected, encoder,
+              decryptor, n: int | None = None) -> int:
+    """Every ciphertext of the batch out (NTT form, correction factor cf)
+    decrypts through the BGV decrypt to its row of expected, launching the
+    inverse NTT kernel at least once each; ciphertext 0 keeps a positive
+    noise budget.  Returns the budget."""
+    from troy_tpu_torch.core.ciphertext import Ciphertext
+
+    reset_launch_counts()
+    for b in range(out.shape[0]):
+        got = encoder.decode(decryptor.decrypt(Ciphertext(out[b], parms_id, True,
+                                                          correction_factor=cf)))
+        got = got.cpu().numpy()
+        if got.shape != (n or N,) or not np.array_equal(got, np.asarray(expected[b], np.int64)):
+            raise AssertionError(f"[bgv] {label}: ciphertext {b} decrypts wrong")
+    inv = launch_counts()["ntt_inverse"]
+    if inv < out.shape[0]:
+        raise AssertionError(f"[bgv] {label}: decrypt launched ntt_inverse {inv} times")
+    budget = decryptor.invariant_noise_budget(Ciphertext(out[0], parms_id, True,
+                                                         correction_factor=cf))
+    log(f"[bgv] {label}: all {out.shape[0]} ciphertexts decrypt right with correction "
+        f"factor {cf} (decrypt launched ntt_inverse {inv} times); noise budget of "
+        f"ciphertext 0: {budget} bits")
+    if budget <= 0:
+        raise AssertionError(f"[bgv] {label}: no noise budget left")
+    return budget
+
+
+def phase_bgv(dev, gpu: str, bfv: dict) -> dict:
+    """bench.py's chain under SchemeType.BGV: AES-keyed keys and encryptions,
+    the batched multiply + relinearize, square + relinearize, rotate_rows(1),
+    rotate_columns and the mod switch, each checked, then timed; the
+    object-API flow of examples/4_bgv_basics.py with special-prime
+    encryption; exponentiate in BGV and a 2 x 2 multiply_plain_contract in
+    BFV (bfv: the main path's BFV context, encryptor, encoder, decryptor)."""
+    from troy_tpu_torch.core.params import EncryptionParameters, SchemeType
+    from troy_tpu_torch.core.coeff_modulus import CoeffModulus, PlainModulus, SecurityLevel
+    from troy_tpu_torch.core.context import HeContext
+    from troy_tpu_torch.core.keygen import KeyGenerator
+    from troy_tpu_torch.core.encryptor import Encryptor
+    from troy_tpu_torch.core.decryptor import Decryptor
+    from troy_tpu_torch.core.evaluator import Evaluator
+    from troy_tpu_torch.core.batch_encoder import BatchEncoder
+    from troy_tpu_torch.core.ciphertext import Ciphertext
+    from troy_tpu_torch.ops.galois import GaloisTool
+    from troy_tpu_torch.parallel.batched import BatchedEvaluator
+    from troy_tpu_torch.utils.random import RandomGenerator
+
+    def bgv_parms(special: bool):
+        parms = EncryptionParameters(SchemeType.BGV)
+        parms.set_poly_modulus_degree(N)
+        parms.set_coeff_modulus(CoeffModulus.create(N, Q_BITS))
+        parms.set_plain_modulus(PlainModulus.batching(N, LOG_T))
+        parms.set_use_special_prime_for_encryption(special)
+        return parms
+
+    t0 = time.perf_counter()
+    ctx = HeContext.create(bgv_parms(False), dev, SecurityLevel.Nil, seed=KEY_SEED)
+    keygen = KeyGenerator(ctx, prng=RandomGenerator(KEY_SEED, "aes", "keygen"))
+    rlk_obj = keygen.create_relin_keys()
+    rlk = rlk_obj.key(2)
+    glk = keygen.create_galois_keys_from_elements(sorted(
+        {GaloisTool.get_element_from_step(1, N), GaloisTool.conjugate_element(N)}))
+    encoder = BatchEncoder(ctx)
+    encryptor = Encryptor(ctx, sk=keygen.secret_key,
+                          prng=RandomGenerator(KEY_SEED, "aes", "encryptor"))
+    decryptor = Decryptor(ctx, keygen.secret_key)
+    evaluator = Evaluator(ctx)
+    t_val = encoder.t.value
+    rng = np.random.default_rng(MSG_SEED)
+    m1, m2, m3 = (rng.integers(0, t_val, (BATCH, N), dtype=np.int64) for _ in range(3))
+
+    def encrypt(msgs):
+        return torch.stack([encryptor.encrypt_symmetric(encoder.encode(m)).data for m in msgs])
+
+    d1, d2, d3 = encrypt(m1), encrypt(m2), encrypt(m3)
+    torch.cuda.synchronize()
+    cd = ctx.first_context_data()
+    log(f"[bgv] context n={N}, {len(Q_BITS)} x 30-bit primes, t={t_val}, seed {KEY_SEED:#x}: "
+        f"secret, relin and 2 Galois keys from RandomGenerator(mode='aes', 'keygen') "
+        f"({keygen.generator.counter} AES blocks), {3 * BATCH} symmetric encryptions "
+        f"{tuple(d1.shape)} in NTT form from its 'encryptor' stream "
+        f"({encryptor.generator.counter} blocks) in {time.perf_counter() - t0:.3f} s")
+    batched = BatchedEvaluator(evaluator, cd)
+    mul, sq = batched.build_mul_relin_step(rlk), batched.build_square_relin_step(rlk)
+    rot, rot_elts = batched.build_rotate_rows_step(1)
+    cols, cols_elts = batched.build_rotate_columns_step()
+    down = batched.build_mod_switch_step()
+    rot_keys = tuple(glk.key(e) for e in rot_elts)
+    cols_keys = tuple(glk.key(e) for e in cols_elts)
+    need = ("ntt_forward", "ntt_inverse")
+    t = t_val
+    q_last = cd.parms.coeff_modulus[-1].value
+    cf_down = pow(q_last, -1, t)
+    prod = (m1.astype(object) * m2 % t).astype(np.int64)
+    cases = {  # label: (one step, chained call or None, parms_id, cf, expected)
+        "multiply + relinearize": (lambda: mul(d1, d2, rlk), lambda d: mul(d, d2, rlk),
+                                   cd.parms_id, 1, prod),
+        "square + relinearize": (lambda: sq(d3, rlk), lambda d: sq(d, rlk), cd.parms_id, 1,
+                                 (m3.astype(object) ** 2 % t).astype(np.int64)),
+        "rotate_rows(1)": (lambda: rot(d1, rot_keys), lambda d: rot(d, rot_keys),
+                           cd.parms_id, 1, rotated(m1, 1)),
+        "rotate_columns": (lambda: cols(d1, cols_keys), lambda d: cols(d, cols_keys),
+                           cd.parms_id, 1, rotated(m1, None)),
+    }
+    out, launches = {}, {}
+
+    def check_step(label):
+        fn, _, pid, cf, want = cases[label]
+        out[label], launches[label] = run_step("bgv", f"{label} step {tuple(d1.shape)}", fn, need)
+        check_bgv(label, out[label], pid, cf, want, encoder, decryptor)
+
+    for label in list(cases):
+        check_step(label)
+    mul_out = out["multiply + relinearize"]
+    # the products, L = 6 -> 5
+    cases["mod switch"] = (lambda: down(mul_out), None, cd.next.parms_id, cf_down, prod)
+    check_step("mod switch")
+    ct0 = Ciphertext(d1[0], cd.parms_id, True)
+    obj = {"rotate_rows(1)": evaluator.rotate_rows(ct0, 1, glk),
+           "rotate_columns": evaluator.rotate_columns(ct0, glk),
+           "mod switch": evaluator.mod_switch_to_next(Ciphertext(mul_out[0], cd.parms_id, True))}
+    for label, ct in obj.items():
+        if not torch.equal(ct.data, out[label][0]):
+            raise AssertionError(f"[bgv] row 0 of the batched {label} != the Evaluator's")
+    if obj["mod switch"].correction_factor != cf_down:
+        raise AssertionError("[bgv] Evaluator.mod_switch_to_next's factor != q_last^-1 mod t")
+    log(f"[bgv] row 0 of the batched rotate_rows(1), rotate_columns and mod switch equals "
+        f"the Evaluator's; its mod switch's correction factor is q_last^-1 mod t = {cf_down}")
+
+    # ---- the object-API flow of examples/4_bgv_basics.py, special prime on
+    sp_ctx = HeContext.create(bgv_parms(True), dev, SecurityLevel.Nil, seed=KEY_SEED)
+    sp_keygen = KeyGenerator(sp_ctx)
+    sp_ev = Evaluator(sp_ctx)
+    sp_dec = Decryptor(sp_ctx, sp_keygen.secret_key)
+    sp_rlk = sp_keygen.create_relin_keys()
+    m = np.arange(N, dtype=np.int64)
+    reset_launch_counts()
+    ct = Encryptor(sp_ctx, pk=sp_keygen.create_public_key()).encrypt_asymmetric(encoder.encode(m))
+    sq_ct = sp_ev.relinearize(sp_ev.square(ct), sp_rlk)
+    low = sp_ev.mod_switch_to_next(sq_ct)
+    mixed = sp_ev.add(sq_ct, ct)
+    flow = {"x^2 after relinearize + mod switch": (low, m * m % t),
+            "x^2 + x (unequal factors)": (mixed, (m * m + m) % t)}
+    for label, (c, want) in flow.items():
+        got = encoder.decode(sp_dec.decrypt(c)).cpu().numpy()
+        if not np.array_equal(got, want):
+            raise AssertionError(f"[bgv] 4_bgv_basics: {label} decrypts wrong")
+    torch.cuda.synchronize()
+    flow_launches = launch_counts()
+    if not (ct.is_ntt_form and ct.correction_factor != 1
+            and sq_ct.correction_factor != ct.correction_factor):
+        raise AssertionError("[bgv] 4_bgv_basics: special-prime encryption left factor 1")
+    for name in need:
+        if flow_launches[name] == 0:
+            raise AssertionError(f"[bgv] 4_bgv_basics did not launch {name}")
+    log(f"[bgv] 4_bgv_basics at n={N}, special-prime encryption: public-key ct "
+        f"(factor {ct.correction_factor}), square + relinearize (factor "
+        f"{sq_ct.correction_factor}), mod switch (factor {low.correction_factor}), add of "
+        f"factors {sq_ct.correction_factor} and {ct.correction_factor} -> "
+        f"{mixed.correction_factor}; all decrypt right; kernel launches {flow_launches}")
+
+    # ---- surface: exponentiate in BGV, a 2 x 2 multiply_plain_contract in BFV
+    cube, _ = run_step("bgv", "exponentiate(ct, 3) on ciphertext 0",
+                       lambda: evaluator.exponentiate(ct0, 3, rlk_obj).data[None], need)
+    check_bgv("exponentiate(ct, 3)", cube, cd.parms_id, 1,
+              (m1[:1].astype(object) ** 3 % t).astype(np.int64), encoder, decryptor)
+    ev_b, enc_b = Evaluator(bfv["ctx"]), bfv["encoder"]
+    pid_b = bfv["ctx"].first_parms_id
+    xs = rng.integers(0, t, (2, 2, N), dtype=np.int64)
+    ws = rng.integers(0, t, (2, 2, N), dtype=np.int64)
+    grid = [[bfv["encryptor"].encrypt_symmetric(enc_b.encode(x)) for x in row] for row in xs]
+    plains = [[enc_b.encode(w) for w in row] for row in ws]
+    contract, _ = run_step("bgv", "BFV multiply_plain_contract, 2 x 2 blocks",
+                           lambda: torch.stack([o.data for row in ev_b.multiply_plain_contract(
+                               grid, plains) for o in row]), need)
+    want = np.stack([sum(xs[b, i].astype(object) * ws[i, j] for i in range(2)) % t
+                     for b in range(2) for j in range(2)]).astype(np.int64)
+    check_decrypts("bgv", "BFV multiply_plain_contract out[b][j] = sum_i x[b][i] w[i][j]",
+                   contract, pid_b, want, enc_b, bfv["decryptor"])
+
+    profiles = time_steps("bgv", gpu, {
+        label: (fn, chain, d3 if label.startswith("square") else d1)
+        for label, (fn, chain, _, _, _) in cases.items()})
     return dict(launches=launches, profiles=profiles)
 
 
@@ -1348,11 +1563,13 @@ def main() -> int:
     modswitch = phase_modswitch(ctx, evs["hps"], rot, encoder, decryptor)
     phase_client(dev, gen)
 
-    # ---- 8. ckks, 9. large_n -------------------------------------------------
+    # ---- 8. ckks, 9. bgv, 10. large_n ---------------------------------------
     ckks = phase_ckks(dev, gpu)
+    bgv = phase_bgv(dev, gpu, dict(ctx=ctx, encryptor=encryptor, encoder=encoder,
+                                   decryptor=decryptor))
     large = phase_large_n(dev, gpu, degrees)
 
-    # ---- 10. times ---------------------------------------------------------
+    # ---- 11. times ---------------------------------------------------------
     def batch_ms(label: str, step, first, chain: bool = True):
         """Event-timed ms per call of step, with the kernels and all plain:
         chained (each output the next input) or repeated on first."""
@@ -1469,11 +1686,12 @@ def main() -> int:
             f"path (NTT kernel, torch dyadic_convolute, NTT kernel) {unfused_ms:.5f} ms "
             f"(device time per call, CUDA graph); kernel / unfused {ms / unfused_ms:.3f}")
 
-    # ---- 11. results ---------------------------------------------------------
+    # ---- 12. results ---------------------------------------------------------
     paths = {  # each main path's launch counts, read just after its run
         "hps": {**launches["hps"], "fused_negacyclic_multiply":
                 launches["fused"]["fused_negacyclic_multiply"]},
         "ckks": {k: sum(c[k] for c in ckks["launches"].values()) for k in KERNELS},
+        "bgv": {k: sum(c[k] for c in bgv["launches"].values()) for k in KERNELS},
         "large_n": {k: large["launches"][k] + large["k4"][k] for k in KERNELS}}
     floor_tabs = tool.ff_tables
     timed = {  # the work each kernel's "ms" times, for its bound

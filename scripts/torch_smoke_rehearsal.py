@@ -12,10 +12,10 @@ kernels), ptxas and the build.  Each kernel's C call is routed to its plain
 version (the wrappers' own routing and launch counting stay real, and every
 kernel input must be a contiguous int64 tensor, as the kernels need); the
 dispatch functions to the wrappers; the refusal phase is skipped.  Sizes: n
-= 1024, batch 2, the large-n phase at n = 4096 with blocks of 1024 (the
+= 1024 (the BFV, CKKS and BGV phases), batch 2, the large-n phase at n = 4096 with blocks of 1024 (the
 tables' route switches at 2048 here), the security bound lifted for the
 quickstart's Classical128.  Times it prints are the CPU's and mean nothing.
-Takes about 35 s.
+Takes about 40 s.
 """
 import contextlib
 import sys

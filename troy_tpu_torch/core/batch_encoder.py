@@ -1,4 +1,7 @@
-"""BFV SIMD batch encoder (counterpart of troy_tpu/core/batch_encoder.py).
+"""BFV and BGV SIMD batch encoder (counterpart of
+troy_tpu/core/batch_encoder.py).  It keys on simd_supported only (t prime,
+t = 1 mod 2n), so it serves BGV unchanged: a BGV plaintext is the same mod-t
+coefficient polynomial, which the encryptor lifts centred.
 
 Slots form a 2 x (n/2) matrix; slot (r, c) is the evaluation of the
 plaintext polynomial at psi_t^e with e = (+-1) * 3^c mod 2n.  The NTT puts

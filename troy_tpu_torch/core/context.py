@@ -1,8 +1,9 @@
 """Modulus-switching chain: ContextData + HeContext, with tables on a device.
 
-Counterpart of troy_tpu/core/context.py, for BFV and CKKS.  Each
+Counterpart of troy_tpu/core/context.py, for BFV, CKKS and BGV.  Each
 ContextData bundles one level's tables (NTT tables, the RNS tool: the BFV
-toolbox, or for CKKS only the division by the last prime; the BFV scaler),
+and BGV toolbox, or for CKKS only the division by the last prime; the
+scaler, whose centred lift BGV uses too),
 built on the host with Python ints on first use and moved to the context's
 device.  The
 chain runs key level -> first -> ... -> last, each level dropping the
@@ -45,7 +46,8 @@ class ContextData:
             if m.value % (2 * n) != 1:
                 raise ValueError(f"[ContextData] modulus {m.value} is not NTT-friendly")
         t = parms.plain_modulus
-        if t.value and any(m.value == t.value for m in moduli):
+        if t.value and parms.scheme in (SchemeType.BFV, SchemeType.BGV) \
+                and any(m.value == t.value for m in moduli):
             raise ValueError("[ContextData] plain modulus equals a coeff modulus")
         self.base_q = RNSBase(moduli, self.device)
         self.total_coeff_modulus: int = self.base_q.prod
@@ -63,10 +65,10 @@ class ContextData:
 
     @property
     def rns_tool(self) -> LastPrimeTool:
-        """RNSTool for BFV; for CKKS (no plain modulus) the last-prime
-        division alone."""
+        """RNSTool (with t) for BFV and BGV; for CKKS (no plain modulus)
+        the last-prime division alone."""
         if self._rns_tool is None:
-            if self.parms.scheme == SchemeType.BFV:
+            if self.parms.scheme != SchemeType.CKKS and self.parms.plain_modulus.value:
                 self._rns_tool = RNSTool(self.log_n, self.base_q, self.parms.plain_modulus)
             else:
                 self._rns_tool = LastPrimeTool(self.log_n, self.base_q)
@@ -114,8 +116,6 @@ class HeContext:
         """The chain for parms on device.  seed keys the default samplers of
         the objects made from the context (utils/random.py:stream), as in
         the JAX package's HeContext.create(..., seed)."""
-        if parms.scheme not in (SchemeType.BFV, SchemeType.CKKS):
-            raise ValueError("[HeContext.create] the port supports BFV and CKKS")
         ctx = HeContext()
         ctx.seed = seed
         n = parms.poly_modulus_degree

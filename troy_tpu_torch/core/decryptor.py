@@ -17,7 +17,8 @@ from .params import SchemeType
 from .plaintext import Plaintext
 from .ciphertext import Ciphertext
 from .keys import SecretKey
-from ..ops import ntt as NTT, poly as P
+from ..ops import ntt as NTT, poly as P, u32 as U
+from ..utils import numth
 
 
 class Decryptor:
@@ -52,13 +53,25 @@ class Decryptor:
             acc = P.add(acc, P.dyadic_product(data[i], self._power(i)[:L], qtab), qtab)
         return acc
 
+    def phase_coeff(self, cd: ContextData, ct: Ciphertext) -> torch.Tensor:
+        """Coefficient-form phase of a ciphertext in either form."""
+        if ct.is_ntt_form:
+            return NTT.ntt_inverse(self.phase_ntt(cd, ct.data), cd.qtab())
+        return self.phase(cd, ct.data)
+
     def decrypt(self, ct: Ciphertext) -> Plaintext:
         cd = self.context.get_context_data(ct.parms_id)
-        if cd.parms.scheme == SchemeType.CKKS:
+        scheme = cd.parms.scheme
+        if scheme == SchemeType.CKKS:
             # the CKKS plaintext contract is NTT form (ref: decryptor.cu)
             ph = (self.phase_ntt(cd, ct.data) if ct.is_ntt_form
                   else NTT.ntt_forward(self.phase(cd, ct.data), cd.qtab()))
             return Plaintext(ph, parms_id=ct.parms_id, is_ntt_form=True, scale=ct.scale)
+        if scheme == SchemeType.BGV:
+            t = cd.parms.plain_modulus.value
+            m = cd.rns_tool.decrypt_mod_t(self.phase_coeff(cd, ct))
+            m = U.mul_mod(m, numth.invert_mod(ct.correction_factor % t, t), t)
+            return Plaintext(m[None, :], parms_id=ct.parms_id)
         if ct.is_ntt_form:
             raise ValueError("[Decryptor] BFV ciphertexts are coefficient form")
         m = cd.rns_tool.decrypt_scale_and_round(self.phase(cd, ct.data))
@@ -67,14 +80,14 @@ class Decryptor:
     def invariant_noise_budget(self, ct: Ciphertext) -> int:
         """log2(Q / 2 ||t * phase mod Q||) in bits, from a host-side CRT
         compose of the phase: a check for tests and users, not a device op."""
-        if ct.is_ntt_form:
-            raise ValueError("[Decryptor] BFV ciphertexts are coefficient form")
         cd = self.context.get_context_data(ct.parms_id)
+        if ct.is_ntt_form and cd.parms.scheme != SchemeType.BGV:
+            raise ValueError("[Decryptor] BFV ciphertexts are coefficient form")
         t = cd.parms.plain_modulus.value
         if not t:
             raise ValueError("[Decryptor] noise budget needs a plain modulus")
         Q = cd.base_q.prod
-        ph = self.phase(cd, ct.data).cpu().numpy()
+        ph = self.phase_coeff(cd, ct).cpu().numpy()
         w = np.array(cd.base_q.compose_array_host(ph), dtype=object) * t % Q
         norm = int(np.where(w > Q // 2, Q - w, w).max())
         if norm == 0:

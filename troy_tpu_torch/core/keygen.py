@@ -10,7 +10,7 @@ secret (keyswitching keys).
 Randomness comes from a torch.Generator or a RandomGenerator (prng=; its
 "aes" mode draws the JAX package's bits), in the JAX package's order: the
 secret key's ternary polynomial, then per switching key a (decomp, L_key, n)
-then e (decomp, n).  With neither, a context created with a seed gives
+then e (decomp, n), times t for BGV.  With neither, a context created with a seed gives
 RandomGenerator(context.seed, "aes", domain="keygen").
 """
 
@@ -21,10 +21,10 @@ import torch
 from .context import HeContext, ContextData
 from .keys import SecretKey, PublicKey, KSwitchKeys, RelinKeys, GaloisKeys
 from .ciphertext import Ciphertext
-from .rlwe import encrypt_zero_symmetric
+from .rlwe import encrypt_zero_symmetric, _noise
 from ..ops import ntt as NTT, poly as P, u32 as U
 from ..ops.galois import GaloisTool
-from ..utils.random import RandomGenerator, sample_uniform, sample_ternary, sample_cbd, stream
+from ..utils.random import RandomGenerator, sample_uniform, sample_ternary, stream
 
 
 class KeyGenerator:
@@ -65,7 +65,7 @@ class KeyGenerator:
         n = cd.parms.poly_modulus_degree
         decomp = cd.coeff_modulus_size - 1
         a = sample_uniform((decomp, cd.coeff_modulus_size, n), qtab, self.generator)
-        e = sample_cbd((decomp, n), qtab, self.generator)
+        e = _noise(cd, (decomp, n), qtab, self.generator)
         return self._kswitch_combine(cd, target_ntt, a, e, self._sk.data)
 
     @staticmethod

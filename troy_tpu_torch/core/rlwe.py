@@ -3,8 +3,10 @@
   symmetric : c = (-(a*s + e), a), a uniform (sampled in NTT form);
   asymmetric: c = (pk0*u + e0, pk1*u + e1), u ternary;
 
-e, e0, e1 centered binomial noise.  BFV ciphertexts are returned in the
-coefficient domain.
+e, e0, e1 centered binomial noise, times t for BGV (ref: rlwe.cu noise
+sampling), drawn first and then scaled so that the streams match the JAX
+package's.  The caller picks the domain: the coefficient domain for BFV, the
+NTT domain for CKKS and BGV.
 """
 
 from __future__ import annotations
@@ -12,8 +14,17 @@ from __future__ import annotations
 import torch
 
 from .context import ContextData
+from .params import SchemeType
 from ..ops import ntt as NTT, poly as P
 from ..utils.random import sample_uniform, sample_cbd, sample_ternary
+
+
+def _noise(cd: ContextData, shape_n, qtab, generator) -> torch.Tensor:
+    """CBD noise of shape (..., n) lifted to (..., L, n); BGV scales it by t."""
+    e = sample_cbd(shape_n, qtab, generator)
+    if cd.parms.scheme == SchemeType.BGV:
+        e = P.multiply_scalar(e, cd.parms.plain_modulus.value, qtab)
+    return e
 
 
 def _symmetric_combine(cd: ContextData, sk_data: torch.Tensor, a_ntt: torch.Tensor,
@@ -51,7 +62,7 @@ def encrypt_zero_symmetric(cd: ContextData, sk_data: torch.Tensor,
     qtab = cd.qtab()
     n = cd.parms.poly_modulus_degree
     a_ntt = sample_uniform((cd.coeff_modulus_size, n), qtab, generator)
-    e = sample_cbd((n,), qtab, generator)
+    e = _noise(cd, (n,), qtab, generator)
     return _symmetric_combine(cd, sk_data, a_ntt, e, ntt_form)
 
 
@@ -62,6 +73,6 @@ def encrypt_zero_asymmetric(cd: ContextData, pk_data: torch.Tensor,
     qtab = cd.qtab()
     n = cd.parms.poly_modulus_degree
     u = sample_ternary((n,), qtab, generator)
-    e0 = sample_cbd((n,), qtab, generator)
-    e1 = sample_cbd((n,), qtab, generator)
+    e0 = _noise(cd, (n,), qtab, generator)
+    e1 = _noise(cd, (n,), qtab, generator)
     return _asymmetric_combine(cd, pk_data, u, e0, e1, ntt_form)

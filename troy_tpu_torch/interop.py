@@ -6,7 +6,7 @@ port's objects on a device, and back.  Layouts are the same on both sides:
 ciphertexts (..., size, L, n), plaintexts (1, n) mod t or (L, n) in RNS,
 switching keys (decomp, 2, L_key, n), the secret key (L_key, n) and the
 public key (2, L_key, n) in NTT form.  A CKKS plaintext or ciphertext
-carries its scale across.  No jax import is needed here.
+carries its scale across, a BGV ciphertext its correction factor.  No jax import is needed here.
 """
 
 from __future__ import annotations
@@ -37,8 +37,9 @@ def to_numpy(x: torch.Tensor) -> np.ndarray:
 
 
 def ciphertext(data, parms_id: ParmsID, device, is_ntt_form: bool = False,
-               scale: float = 1.0) -> Ciphertext:
-    return Ciphertext(to_tensor(data, device), parms_id, is_ntt_form, scale)
+               scale: float = 1.0, correction_factor: int = 1) -> Ciphertext:
+    return Ciphertext(to_tensor(data, device), parms_id, is_ntt_form, scale,
+                      correction_factor)
 
 
 def plaintext(data, parms_id: ParmsID, device, is_ntt_form: bool = False,

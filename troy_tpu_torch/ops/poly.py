@@ -30,8 +30,10 @@ def negate(x, t):
     return U.neg_mod(x, _bq(t))
 
 
-def multiply_scalar(x, scalar: int, t):
-    """x * scalar mod q for a host integer scalar."""
+def multiply_scalar(x, scalar, t):
+    """x * scalar mod q for a host integer scalar, or for a tensor of
+    non-negative scalars that broadcasts against x (one per batch element:
+    shape (B, 1, 1, 1) against (B, size, L, n))."""
     q = _bq(t)
     return U.mul_mod(x, scalar % q, q)
 

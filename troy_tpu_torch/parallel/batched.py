@@ -1,14 +1,15 @@
-"""Batched BFV and CKKS operations on stacked tensors (counterpart of
+"""Batched BFV, CKKS and BGV operations on stacked tensors (counterpart of
 troy_tpu/parallel/batched.py).
 
 A batch of ciphertexts is one (B, size, L, n) int64 tensor and every op
 broadcasts over the leading axis.  The step builders return plain functions
 of tensors: multiply + relinearize, square + relinearize, Galois rotations
 (one keyswitch round per Galois element), the mod switch and the CKKS
-rescale.  CKKS steps stay in the NTT domain: the multiply is the dyadic
-product, relinearization and the Galois rounds keyswitch with NTT-form
-output, the mod switch drops the last limb.  Scales and levels are the
-object API's concern; the steps return raw residues.
+rescale.  CKKS and BGV steps stay in the NTT domain: the multiply is the
+dyadic product, relinearization and the Galois rounds keyswitch with
+NTT-form output; the CKKS mod switch drops the last limb, the BGV one
+divides by it keeping the payload mod t.  Scales, correction factors and
+levels are the object API's concern; the steps return raw residues.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ class BatchedEvaluator:
     def __init__(self, evaluator: Evaluator, cd: ContextData):
         self.ev = evaluator
         self.cd = cd
-        self.ntt_form = cd.parms.scheme == SchemeType.CKKS
+        self.ntt_form = cd.parms.scheme in (SchemeType.CKKS, SchemeType.BGV)
         # build the level's tables now, outside any timed step
         cd.qtab()
         cd.rns_tool
@@ -102,7 +103,7 @@ class BatchedEvaluator:
         return step
 
     def build_rotate_rows_step(self, steps: int):
-        """(step, elts): batched rotate_rows(steps) (BFV) or
+        """(step, elts): batched rotate_rows(steps) (BFV, BGV) or
         rotate_vector(steps) (CKKS); pass keys = tuple(glk.key(e) for e in elts)."""
         elts = self.galois_elements_for_steps(steps)
         return self.build_galois_step(elts), elts
@@ -117,7 +118,7 @@ class BatchedEvaluator:
     def build_rescale_step(self):
         """Returns fn d -> d at the next level: the CKKS divide and round by
         the last prime in the NTT domain (ref: evaluator_modswitch.cu:445)."""
-        if not self.ntt_form:
+        if self.cd.parms.scheme != SchemeType.CKKS:
             raise ValueError("[BatchedEvaluator.build_rescale_step] CKKS only")
         if self.cd.is_last():
             raise ValueError("[BatchedEvaluator.build_rescale_step] last level")
@@ -126,9 +127,15 @@ class BatchedEvaluator:
 
     def build_mod_switch_step(self):
         """Returns fn d -> d at the next level (ref: evaluator_modswitch.cu:14):
-        BFV divides and rounds by the last prime, CKKS drops the last limb."""
+        BFV divides and rounds by the last prime, CKKS drops the last limb,
+        BGV divides by it keeping the payload mod t (the correction factor's
+        q_last^-1 stays with the object API)."""
         if self.cd.is_last():
             raise ValueError("[BatchedEvaluator.build_mod_switch_step] last level")
-        if self.ntt_form:
+        scheme, cd = self.cd.parms.scheme, self.cd
+        if scheme == SchemeType.CKKS:
             return lambda d: d[..., :-1, :]
-        return self.cd.rns_tool.divide_and_round_q_last
+        if scheme == SchemeType.BGV:
+            qtab = cd.qtab()
+            return lambda d: cd.rns_tool.mod_t_and_divide_q_last_ntt(d, qtab)
+        return cd.rns_tool.divide_and_round_q_last

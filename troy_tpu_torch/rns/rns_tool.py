@@ -10,7 +10,7 @@ scheme needs at a level, the division by its last prime:
     limb's inverse, the other limbs' forward) go through the NTT dispatch,
     so on the card they run the NTT kernel.
 
-RNSTool adds the BFV multiply and decrypt:
+RNSTool adds the BFV multiply and decrypt, and what BGV needs of t:
 
   * fast_b_conv_hps: the HPS lift of base q to the auxiliary base Bsk, with
     the q-overflow count alpha estimated in float32 (the default lift);
@@ -18,7 +18,12 @@ RNSTool adds the BFV multiply and decrypt:
     conversion to Bsk u {m~} of m~ x, then Montgomery's small reduction by m~;
   * fast_floor_scale_fast_b_conv_sk: floor(t * d / Q) with the x t scale
     folded into the tables, then the Shenoy-Kumaresan conversion back to q;
-  * decrypt_scale_and_round: the exact {t, gamma} rounding of t * phase / Q.
+  * decrypt_scale_and_round: the exact {t, gamma} rounding of t * phase / Q;
+  * mod_t_and_divide_q_last_ntt: the BGV mod switch, a division by the last
+    prime that keeps the payload mod t (NTT domain);
+  * decrypt_mod_t: the BGV decrypt, the centred phase mod t by an exact
+    base conversion whose overflow count alpha is rounded in 96-bit fixed
+    point (_exact_alpha: the JAX package's integer, in int64 word columns).
 
 Every base conversion goes through ops/bconv.base_convert (the Hopper kernel
 on a CUDA tensor).  The JAX package's unfused floor, fast_floor_fast_b_conv_sk
@@ -92,15 +97,20 @@ class LastPrimeTool:
         tmp = U.sub_mod(U.barrett_reduce(last_plus, q), self.q_last_half_mod_q, q)
         return U.mul_mod(U.sub_mod(x[..., :-1, :], tmp, q), self.inv_q_last_mod_q, q)
 
+    def _split_tables(self, qtab: NTTTables) -> tuple[NTTTables, NTTTables]:
+        """The level's NTT tables cut into the first L-1 limbs and the last
+        (cached for the last qtab seen)."""
+        if self._ntt_split is None or self._ntt_split[0] is not qtab:
+            L = self.base_q.size
+            self._ntt_split = (qtab, qtab.take(list(range(L - 1))), qtab.take([L - 1]))
+        return self._ntt_split[1:]
+
     def divide_and_round_q_last_ntt(self, x: torch.Tensor, qtab: NTTTables) -> torch.Tensor:
         """NTT-domain variant (the CKKS rescale): qtab is the level's NTT
         tables (L limbs); (..., L, n) -> (..., L-1, n), NTT domain.  The last
         limb goes to the coefficient domain, is centred and reduced per
         limb, and comes back through the forward NTT of the other limbs."""
-        L = self.base_q.size
-        if self._ntt_split is None or self._ntt_split[0] is not qtab:
-            self._ntt_split = (qtab, qtab.take(list(range(L - 1))), qtab.take([L - 1]))
-        _, down_tab, last_tab = self._ntt_split
+        down_tab, last_tab = self._split_tables(qtab)
         last = NTT.ntt_inverse(x[..., -1:, :].contiguous(), last_tab)
         last_plus = U.add_mod(last, self.q_last_half, self.base_q.values[-1])
         q = self.base_q.q[:-1].view(-1, 1)
@@ -200,6 +210,18 @@ class RNSTool(LastPrimeTool):
             [(-numth.invert_mod(Q % m, m)) % m for m in (tv, gamma)])
         self.inv_gamma_mod_t = numth.invert_mod(gamma % tv, tv)
 
+        # ---- BGV: the exact conversion q -> t, floor(2^96 / q_i) in three
+        # 32-bit words, and the t-corrected division by q_last ----------------
+        self.inv_punctured_q = col(base_q.inv_punctured)
+        self.conv_matrix_q_to_t = [p % tv for p in base_q.punctured]
+        self.q_mod_t = Q % tv
+        self.r96_words = [col([((1 << 96) // q >> (32 * w)) & 0xFFFFFFFF
+                               for q in q_values]) for w in range(3)]
+        if L > 1:
+            q_last = q_values[-1]
+            self.inv_t_mod_q_last = numth.invert_mod(tv % q_last, q_last)
+            self.q_last_mod_q = col([q_last % q for q in q_values[:-1]])
+
     # ------------------------------------------------------------------
     # BFV multiply, HPS-style lift of base q to Bsk
     # ------------------------------------------------------------------
@@ -285,3 +307,50 @@ class RNSTool(LastPrimeTool):
             U.add_mod(s_t, U.sub_mod(gv % tv, s_g_mod_t, tv), tv),
             U.sub_mod(s_t, s_g_mod_t, tv))
         return U.mul_mod(corrected, self.inv_gamma_mod_t, tv)
+
+    # ------------------------------------------------------------------
+    # BGV mod switch and decrypt
+    # ------------------------------------------------------------------
+    def mod_t_and_divide_q_last_ntt(self, x: torch.Tensor, qtab: NTTTables) -> torch.Tensor:
+        """(..., L, n) NTT domain -> (..., L-1, n): (x - delta) / q_last with
+        delta = t [r t^-1]_{q_last}, centred, for r = [x]_{q_last}: delta is
+        r mod q_last and 0 mod t, so the payload mod t survives the division
+        (ref: rns_tool.cu mod_t_and_divide_q_last_ntt)."""
+        down_tab, last_tab = self._split_tables(qtab)
+        q_last = self.base_q.values[-1]
+        last = NTT.ntt_inverse(x[..., -1:, :].contiguous(), last_tab)
+        h = U.mul_mod(last, self.inv_t_mod_q_last, q_last)
+        q = self.base_q.q[:-1].view(-1, 1)
+        h_mod = U.barrett_reduce(h, q)
+        h_c = torch.where(h > (q_last >> 1), U.sub_mod(h_mod, self.q_last_mod_q, q), h_mod)
+        delta = NTT.ntt_forward(U.mul_mod(h_c, self.t.value, q), down_tab)
+        return U.mul_mod(U.sub_mod(x[..., :-1, :], delta, q), self.inv_q_last_mod_q, q)
+
+    def _exact_alpha(self, v: torch.Tensor) -> torch.Tensor:
+        """round(sum_i v_i / q_i) for v (..., L, n) with v_i in [0, q_i): the
+        96-bit fixed-point sum S = sum_i v_i floor(2^96 / q_i), rounded at
+        bit 96 (ref: rns_base.cu exact_convey_array).  Each product of v_i
+        and a 32-bit word of the reciprocal is below 2^62; its halves are
+        summed by word column (at most 2L terms of 32 bits each), the carries
+        propagated once, and alpha = word 3 + bit 95: the integer the JAX
+        package forms with u32 words and wrap-around carries."""
+        cols = [0, 0, 0, 0]
+        for w, word in enumerate(self.r96_words):
+            p = v * word                       # (..., L, n), each < 2^62
+            cols[w] = cols[w] + (p & 0xFFFFFFFF).sum(dim=-2)
+            cols[w + 1] = cols[w + 1] + (p >> 32).sum(dim=-2)
+        for w in range(3):
+            cols[w + 1] = cols[w + 1] + (cols[w] >> 32)
+        return cols[3] + ((cols[2] & 0xFFFFFFFF) >> 31)
+
+    def decrypt_mod_t(self, phase: torch.Tensor) -> torch.Tensor:
+        """phase (..., L, n), coefficient domain -> (..., n): the centred
+        phase mod t, sum_i [phase_i (Q/q_i)^-1]_{q_i} (Q/q_i) - alpha Q."""
+        tv = self.t.value
+        q = self.base_q.q.view(-1, 1)
+        v = U.mul_mod(phase, self.inv_punctured_q, q)
+        acc = None
+        for i, c in enumerate(self.conv_matrix_q_to_t):
+            term = U.mul_mod(v[..., i, :], c, tv)
+            acc = term if acc is None else U.add_mod(acc, term, tv)
+        return U.sub_mod(acc, U.mul_mod(self._exact_alpha(v), self.q_mod_t, tv), tv)
