@@ -14,9 +14,10 @@ chain, scale 2^25, batch 16: multiply + relinearize, rescale, rotate_vector
 and complex_conjugate); the same chain under BGV (multiply and square +
 relinearize, rotate_rows, rotate_columns, the mod switch, the flow of
 examples/4_bgv_basics.py, exponentiate and, in BFV, multiply_plain_contract);
-and a BFV multiply + relinearize at n = 65536, where
-the NTT and the fused tensor product take their two-launch routes.  In
-phases:
+a BFV multiply + relinearize at n = 65536, where
+the NTT and the fused tensor product take their two-launch routes; LWE
+extraction and packing on the BFV chain; and the app layer's matmul and
+conv2d at the reference's app-bench sizes.  In phases:
 
   1. device   the card's name and power limit (fails without CUDA);
   2. build    nvcc builds every csrc/*.cu into one library under
@@ -101,7 +102,30 @@ phases:
               beside its bound at (3, 2, n) for n = 65536 and 131072, and the
               two-launch NTT with blocks of 4096, 8192 and 32768 in turns, at
               (3, 2, 65536) and at the step's keyswitch digits;
- 11. times    CUDA-event times of the chained steps against their all-plain
+ 11. lwe      bench.py's BFV chain (seed 0xBEEF, AES streams): the 13
+              automorphism keys (2^j + 1), one public-key encryption of
+              coefficients uniform in [0, t) (numpy seed 7); extract_lwe of 64
+              coefficients and pack_lwe_ciphertexts (63 merges, 7 trace
+              rounds), then pack_lwe_ciphertexts_batched over 4 groups of 64
+              as one stacked (4, 2, L, n) tree.  Each must launch the NTT
+              kernels and equal its all-plain run; group 0 of the batched
+              pack equals the sequential pack; every packed ciphertext
+              decrypts to its coefficients at stride n/64 with a positive
+              noise budget;
+ 12. app      the reference's app-bench sizes (scripts/matmul_bench.py,
+              scripts/app_bench.py) on n = 8192, 4 x 30-bit primes, seed
+              0xBEEF, EncryptLeft: the BFV matmul 100 x 105 x 110 with
+              pack_lwe (one multiply_plain_contract, then pack_outputs over the
+              stacked groups), decrypting to x @ w mod t exactly; the same
+              matmul in CKKS at scale 2^25, decoding within the noise-derived
+              tolerance of app_ckks_rms; the BFV conv2d of the CIFAR-like layer
+              (4 x 3 x 32 x 32 -> 16 channels, 3 x 3), decrypting to the valid
+              convolution mod t.  Each must launch the NTT kernels and equal
+              its all-plain run.  Both phases print each flow's block choice,
+              the wall time of its kernel run and all-plain twin, and its
+              time a call, profiler launches, device time, NTT launches and
+              busy share beside the card's name and power limit;
+ 13. times    CUDA-event times of the chained steps against their all-plain
               versions (multiply + relinearize, the three rotations, the mod
               switch), the profiler's launches, device time, NTT kernel time
               and busy share of the HPS step and of one rotate_rows(1) and
@@ -158,6 +182,10 @@ N_LARGE = 65536
 LARGE_BITS = [30] * 9             # 8 data primes + the special prime
 LARGE_BATCH = 2
 SPLIT_BLOCKS = (12, 13, 15)       # log2 n2 of the two-launch NTT, timed at N_LARGE
+LWE_COUNT, LWE_GROUPS = 64, 4        # [lwe]: LWEs packed, and groups of them batched
+APP_BITS = [30] * 4                   # [app]: the reference's app-bench chain
+APP_MATMUL = (100, 105, 110)          # batch x input x output (matmul_bench.py)
+APP_CONV = (4, 3, 16, 32, 32, 3, 3)   # B, Ci, Co, H, W, kh, kw (app_bench.py)
 _FWD = "troy_tpu/ops/ntt_pallas.py:74, troy_tpu/ops/ntt_pallas.py:206"
 _INV = "troy_tpu/ops/ntt_pallas.py:89, troy_tpu/ops/ntt_pallas.py:228"
 KERNELS = {  # name: (source, the TPU kernels it replaces: K1 and K2 for the NTT)
@@ -512,8 +540,10 @@ def run_step(phase: str, label: str, fn, required) -> tuple[torch.Tensor, dict]:
     after; it must launch every kernel named in required and equal the same
     call with every kernel dispatch patched to its plain version."""
     reset_launch_counts()
+    t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
+    t1 = time.perf_counter()
     launches = launch_counts()
     log(f"[{phase}] {label} -> {tuple(out.shape)}; kernel launches {launches}")
     for name in required:
@@ -522,12 +552,14 @@ def run_step(phase: str, label: str, fn, required) -> tuple[torch.Tensor, dict]:
     with all_plain():
         ref = fn()
     torch.cuda.synchronize()
+    t2 = time.perf_counter()
     if launch_counts() != launches:
         raise AssertionError(f"[{phase}] the plain run of {label} launched a kernel")
     if not torch.equal(out, ref):
         bad = int((out != ref).sum())
         raise AssertionError(f"[{phase}] {label}: kernel run != plain run at {bad} residues")
-    log(f"[{phase}] {label} equals the all-plain run bit for bit")
+    log(f"[{phase}] {label} equals the all-plain run bit for bit (first kernel run "
+        f"{t1 - t0:.3f} s, all-plain twin {t2 - t1:.3f} s of wall time)")
     return out, launches
 
 
@@ -1416,6 +1448,246 @@ def phase_large_n(dev, gpu: str, degrees: dict) -> dict:
     return dict(launches=launches, k4=k4, times=times, profile=profile, calls=calls)
 
 
+def aes_context(dev, scheme: str, bits):
+    """A context at N on `bits` under `scheme` (t = PlainModulus.batching(N,
+    20) but for CKKS), seed KEY_SEED, with its keygen and encryptor drawn
+    from the RandomGenerator(KEY_SEED, mode="aes") streams."""
+    from troy_tpu_torch.core.params import EncryptionParameters, SchemeType
+    from troy_tpu_torch.core.coeff_modulus import CoeffModulus, PlainModulus, SecurityLevel
+    from troy_tpu_torch.core.context import HeContext
+    from troy_tpu_torch.core.keygen import KeyGenerator
+    from troy_tpu_torch.core.encryptor import Encryptor
+    from troy_tpu_torch.core.decryptor import Decryptor
+    from troy_tpu_torch.core.evaluator import Evaluator
+    from troy_tpu_torch.utils.random import RandomGenerator
+
+    parms = EncryptionParameters(SchemeType[scheme])
+    parms.set_poly_modulus_degree(N)
+    parms.set_coeff_modulus(CoeffModulus.create(N, bits))
+    if scheme != "CKKS":
+        parms.set_plain_modulus(PlainModulus.batching(N, LOG_T))
+    ctx = HeContext.create(parms, dev, SecurityLevel.Nil, seed=KEY_SEED)
+    keygen = KeyGenerator(ctx, prng=RandomGenerator(KEY_SEED, "aes", "keygen"))
+    encryptor = Encryptor(ctx, sk=keygen.secret_key, pk=keygen.create_public_key(),
+                          prng=RandomGenerator(KEY_SEED, "aes", "encryptor"))
+    return dict(ctx=ctx, keygen=keygen, encryptor=encryptor,
+                decryptor=Decryptor(ctx, keygen.secret_key), ev=Evaluator(ctx))
+
+
+def mib(tensors) -> float:
+    return sum(t.numel() * t.element_size() for t in tensors) / 2 ** 20
+
+
+def flow_report(phase: str, gpu: str, label: str, fn, reps: int = 3) -> dict:
+    """A flow's event-timed ms per call (repeated on one input) and its
+    step_report: profiler launches, device ms, busy share, NTT launches."""
+    fn()
+    ms = cuda_ms(fn, reps)
+    return dict(ms=ms, prof=step_report(phase, gpu, f"{label} (repeated on one input)", fn,
+                                        ms, 1))
+
+
+def phase_lwe(dev, gpu: str) -> dict:
+    """bench.py's BFV chain: extract LWE_COUNT coefficients of one encryption
+    and pack them, then LWE_GROUPS groups of them as one stacked tree."""
+    from troy_tpu_torch.core.batch_encoder import BatchEncoder
+    from troy_tpu_torch.core.ciphertext import Ciphertext
+
+    t0 = time.perf_counter()
+    s = aes_context(dev, "BFV", Q_BITS)
+    ctx, ev, decryptor = s["ctx"], s["ev"], s["decryptor"]
+    glk = s["keygen"].create_automorphism_keys()
+    encoder = BatchEncoder(ctx)
+    t_val = encoder.t.value
+    coeffs = np.random.default_rng(MSG_SEED).integers(0, t_val, N, dtype=np.uint64)
+    ct = s["encryptor"].encrypt_asymmetric(encoder.encode_polynomial(coeffs))
+    pid = ctx.first_parms_id
+    torch.cuda.synchronize()
+    keys = list(glk.keys.values())
+    log(f"[lwe] context n={N}, {len(Q_BITS)} x 30-bit primes, t={t_val}, seed {KEY_SEED:#x}: "
+        f"{len(keys)} automorphism keys (elements {sorted(glk.keys)}) of "
+        f"{tuple(keys[0].shape)} int64, {mib(keys):.1f} MiB on the card, and one public-key "
+        f"encryption of {N} coefficients in {time.perf_counter() - t0:.3f} s")
+
+    def extract(g):
+        return [ev.extract_lwe(ct, g * LWE_COUNT + i) for i in range(LWE_COUNT)]
+
+    need = ("ntt_forward", "ntt_inverse")
+    seq, seq_launches = run_step(
+        "lwe", f"extract_lwe x {LWE_COUNT} + pack_lwe_ciphertexts ({LWE_COUNT - 1} merges, "
+        f"{N.bit_length() - 1 - (LWE_COUNT - 1).bit_length()} trace rounds)",
+        lambda: ev.pack_lwe_ciphertexts(extract(0), glk).data[None], need)
+    bat, bat_launches = run_step(
+        "lwe", f"pack_lwe_ciphertexts_batched, {LWE_GROUPS} groups of {LWE_COUNT} stacked",
+        lambda: torch.stack([o.data for o in ev.pack_lwe_ciphertexts_batched(
+            [extract(g) for g in range(LWE_GROUPS)], glk)]), need)
+    if not torch.equal(bat[0], seq[0]):
+        raise AssertionError("[lwe] group 0 of the batched pack != the sequential pack")
+    log("[lwe] group 0 of the batched pack equals the sequential pack bit for bit")
+    stride = N // LWE_COUNT
+    budgets = []
+    for label, out in (("sequential", seq), ("batched", bat)):
+        for g in range(out.shape[0]):
+            packed = Ciphertext(out[g], pid)
+            got = encoder.decode_polynomial(decryptor.decrypt(packed))
+            want = coeffs[g * LWE_COUNT:(g + 1) * LWE_COUNT]
+            if not np.array_equal(got[::stride], want):
+                raise AssertionError(f"[lwe] {label} pack {g} decrypts wrong")
+            budgets.append(decryptor.invariant_noise_budget(packed))
+    log(f"[lwe] every packed ciphertext decrypts to its {LWE_COUNT} extracted coefficients "
+        f"at stride {stride}; noise budgets {budgets} bits")
+    if min(budgets) <= 0:
+        raise AssertionError("[lwe] a packed ciphertext has no noise budget left")
+    flows = {
+        "pack_lwe_ciphertexts": flow_report(
+            "lwe", gpu, f"extract + pack of {LWE_COUNT} LWEs",
+            lambda: ev.pack_lwe_ciphertexts(extract(0), glk)),
+        "pack_lwe_ciphertexts_batched": flow_report(
+            "lwe", gpu, f"extract + batched pack, {LWE_GROUPS} x {LWE_COUNT} LWEs",
+            lambda: ev.pack_lwe_ciphertexts_batched([extract(g) for g in range(LWE_GROUPS)],
+                                                    glk))}
+    return dict(launches={"seq": seq_launches, "batched": bat_launches}, flows=flows)
+
+
+def app_ckks_rms(inputs: int, out_block: int) -> float:
+    """Expected rms of one decoded CKKS matmul output (at scale^2) after the
+    pack: the fresh noise e of each input block (deviation NOISE_SIGMA) times
+    the weight polynomials, whose inputs x out_block nonzero coefficients in
+    an output's column are uniform(-1, 1) at CKKS_SCALE (variance 1/3), plus
+    the rounding of the encodings (1/12 a coefficient, on at most as many
+    terms); the packing's keyswitches add about 2^8 at scale 2^50 a round,
+    below 2^-40 in the output, and its division by the input block is undone
+    exactly on the payload.  At n = 8192, 105 inputs and output blocks of 5
+    this is 43 / 2^25 = 1.3e-6."""
+    terms = inputs * out_block
+    return (NOISE_SIGMA ** 2 * terms / 3 + 2 * terms / 36) ** 0.5 / CKKS_SCALE
+
+
+def phase_app(dev, gpu: str) -> dict:
+    """The reference's app-bench sizes on a 4 x 30-bit chain: the BFV and
+    CKKS BumbleBee matmul 100 x 105 x 110 with pack_lwe (EncryptLeft), and
+    the BFV Cheetah conv2d of the CIFAR-like layer."""
+    from troy_tpu_torch.app.cipher2d import Cipher2d
+    from troy_tpu_torch.app.conv2d import Conv2dHelper
+    from troy_tpu_torch.app.encoder_adapter import BatchEncoderAdapter, CKKSEncoderAdapter
+    from troy_tpu_torch.app.matmul import MatmulHelper, MatmulObjective
+    from troy_tpu_torch.core.batch_encoder import BatchEncoder
+    from troy_tpu_torch.core.ciphertext import Ciphertext
+    from troy_tpu_torch.core.ckks_encoder import CKKSEncoder
+
+    need = ("ntt_forward", "ntt_inverse")
+    rng = np.random.default_rng(MSG_SEED)
+    launches, flows = {}, {}
+    B, I, O = APP_MATMUL
+    t0 = time.perf_counter()
+    bfv = aes_context(dev, "BFV", APP_BITS)
+    bfv_glk = bfv["keygen"].create_automorphism_keys()
+    encoder = BatchEncoder(bfv["ctx"])
+    t_val = encoder.t.value
+    adapter = BatchEncoderAdapter(encoder)
+    ev, pid = bfv["ev"], bfv["ctx"].first_parms_id
+    torch.cuda.synchronize()
+    keys = list(bfv_glk.keys.values())
+    log(f"[app] BFV context n={N}, {len(APP_BITS)} x 30-bit primes, t={t_val}, seed "
+        f"{KEY_SEED:#x}: {len(keys)} automorphism keys of {tuple(keys[0].shape)} int64, "
+        f"{mib(keys):.1f} MiB, in {time.perf_counter() - t0:.3f} s")
+
+    def packed_matmul(helper, x_enc, w_enc, glk, ev):
+        return torch.stack([c.data for c in helper.pack_outputs(
+            ev, glk, helper.matmul(ev, x_enc, w_enc))[0]])
+
+    # ---- 1. BFV matmul, pack_lwe
+    helper = MatmulHelper(B, I, O, N, MatmulObjective.EncryptLeft, pack_lwe=True)
+    x = rng.integers(0, t_val, (B, I), dtype=np.int64)
+    w = rng.integers(0, t_val, (I, O), dtype=np.int64)
+    x_enc = helper.encrypt_inputs(bfv["encryptor"], adapter, x)
+    w_enc = helper.encode_weights(adapter, w)
+    bs, is_, os_ = helper._counts()
+    groups = [min(helper.input_block, bs * os_ - g) for g in range(0, bs * os_, helper.input_block)]
+    log(f"[app] BFV matmul {B} x {I} x {O}, pack_lwe: blocks (batch, input, output) = "
+        f"({helper.batch_block}, {helper.input_block}, {helper.output_block}); "
+        f"multiply_plain_contract of {bs} x {is_} input ciphertexts by {is_} x {os_} weight "
+        f"plaintexts ({mib(c.data for row in x_enc.data for c in row):.1f} MiB and "
+        f"{mib(p.data for row in w_enc.data for p in row):.1f} MiB on the card), then "
+        f"pack_outputs of {bs * os_} outputs in groups {groups}")
+    label = f"BFV matmul {B} x {I} x {O} + pack_outputs"
+    out, launches["bfv_matmul"] = run_step(
+        "app", label, lambda: packed_matmul(helper, x_enc, w_enc, bfv_glk, ev), need)
+    packed = Cipher2d([[Ciphertext(o, pid) for o in out]])
+    dec = helper.decrypt_outputs(adapter, bfv["decryptor"], packed)
+    if not np.array_equal(dec.astype(np.int64), (x @ w) % t_val):
+        raise AssertionError(f"[app] {label} decrypts wrong")
+    budgets = [bfv["decryptor"].invariant_noise_budget(c) for c in packed[0]]
+    log(f"[app] {label}: decrypts to x @ w mod t exactly; noise budgets {budgets} bits")
+    if min(budgets) <= 0:
+        raise AssertionError(f"[app] {label}: no noise budget left")
+    flows["bfv_matmul"] = flow_report(
+        "app", gpu, label, lambda: packed_matmul(helper, x_enc, w_enc, bfv_glk, ev))
+
+    # ---- 2. CKKS matmul, pack_lwe (from NTT form, merge, back to NTT form)
+    t0 = time.perf_counter()
+    ckks = aes_context(dev, "CKKS", APP_BITS)
+    ckks_glk = ckks["keygen"].create_automorphism_keys()
+    cenc = CKKSEncoder(ckks["ctx"])
+    cad = CKKSEncoderAdapter(cenc, CKKS_SCALE)
+    xf, wf = rng.uniform(-1, 1, (B, I)), rng.uniform(-1, 1, (I, O))
+    cx_enc = helper.encrypt_inputs(ckks["encryptor"], cad, xf)
+    cw_enc = helper.encode_weights(cad, wf)
+    torch.cuda.synchronize()
+    log(f"[app] CKKS context (the same chain, scale 2^25): keys and {bs * is_} encryptions "
+        f"in {time.perf_counter() - t0:.3f} s; weights {mib(p.data for row in cw_enc.data for p in row):.1f} "
+        f"MiB in NTT form")
+    label = f"CKKS matmul {B} x {I} x {O} + pack_outputs"
+    out, launches["ckks_matmul"] = run_step(
+        "app", label, lambda: packed_matmul(helper, cx_enc, cw_enc, ckks_glk, ckks["ev"]), need)
+    cpid = ckks["ctx"].first_parms_id
+    cpacked = Cipher2d([[Ciphertext(o, cpid, True, CKKS_SCALE ** 2) for o in out]])
+    if not all(c.is_ntt_form for c in cpacked[0]):
+        raise AssertionError(f"[app] {label}: packed outputs left the NTT form")
+    got = helper.decrypt_outputs(CKKSEncoderAdapter(cenc, CKKS_SCALE ** 2), ckks["decryptor"],
+                                 cpacked)
+    err = np.abs(got - xf @ wf)
+    rms = app_ckks_rms(I, helper.output_block)
+    got_rms, worst = float(np.sqrt((err ** 2).mean())), float(err.max())
+    log(f"[app] {label}: decodes (scale 2^50) with rms error {got_rms:.3e} against the "
+        f"tolerance {4 * rms:.3e} (4 x the expected rms {rms:.3e}) and max |err| {worst:.3e} "
+        f"against {32 * rms:.3e} (32 x)")
+    if not (got_rms < 4 * rms and worst < 32 * rms):
+        raise AssertionError(f"[app] {label}: decodes off")
+    flows["ckks_matmul"] = flow_report(
+        "app", gpu, label, lambda: packed_matmul(helper, cx_enc, cw_enc, ckks_glk, ckks["ev"]))
+
+    # ---- 3. BFV conv2d, the CIFAR-like layer
+    Bc, Ci, Co, H, W, kh, kw = APP_CONV
+    conv = Conv2dHelper(Bc, Ci, Co, H, W, kh, kw, N, MatmulObjective.EncryptLeft)
+    xc = rng.integers(0, t_val, (Bc, Ci, H, W), dtype=np.int64)
+    kc = rng.integers(0, t_val, (Co, Ci, kh, kw), dtype=np.int64)
+    xc_enc = conv.encrypt_inputs(bfv["encryptor"], adapter, xc)
+    kc_enc = conv.encode_weights(adapter, kc)
+    total, ocg, icg = conv._groups()
+    log(f"[app] BFV conv2d B={Bc} {Ci} -> {Co} channels, {H} x {W}, {kh} x {kw} kernels: blocks "
+        f"(batch, height, width, in, out) = ({conv.batch_block}, {conv.image_height_block}, "
+        f"{conv.image_width_block}, {conv.input_channel_block}, {conv.output_channel_block}), "
+        f"{total} batch tile(s); multiply_plain_contract of {total} x {icg} inputs by "
+        f"{icg} x {ocg} weights")
+    label = f"BFV conv2d {Bc} x {Ci} x {H} x {W} -> {Co}"
+    out, launches["bfv_conv2d"] = run_step(
+        "app", label, lambda: torch.stack([c.data for row in conv.conv2d(ev, xc_enc, kc_enc).data
+                                           for c in row]), need)
+    convolved = Cipher2d([[Ciphertext(out[e * ocg + j], pid) for j in range(ocg)]
+                          for e in range(total)])
+    dec = conv.decrypt_outputs(adapter, bfv["decryptor"], convolved)
+    windows = np.lib.stride_tricks.sliding_window_view(xc, (kh, kw), axis=(2, 3))
+    want = np.einsum("bchwij,ocij->bohw", windows, kc) % t_val
+    if not np.array_equal(dec.astype(np.int64), want):
+        raise AssertionError(f"[app] {label} decrypts wrong")
+    log(f"[app] {label}: decrypts to the valid convolution mod t exactly, "
+        f"{dec.shape} outputs")
+    flows["bfv_conv2d"] = flow_report(
+        "app", gpu, label, lambda: conv.conv2d(ev, xc_enc, kc_enc))
+    return dict(launches=launches, flows=flows)
+
+
 def main() -> int:
     # ---- 1. device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1569,7 +1841,11 @@ def main() -> int:
                                    decryptor=decryptor))
     large = phase_large_n(dev, gpu, degrees)
 
-    # ---- 11. times ---------------------------------------------------------
+    # ---- 11. lwe, 12. app ---------------------------------------------------
+    lwe = phase_lwe(dev, gpu)
+    app = phase_app(dev, gpu)
+
+    # ---- 13. times ---------------------------------------------------------
     def batch_ms(label: str, step, first, chain: bool = True):
         """Event-timed ms per call of step, with the kernels and all plain:
         chained (each output the next input) or repeated on first."""
@@ -1686,13 +1962,15 @@ def main() -> int:
             f"path (NTT kernel, torch dyadic_convolute, NTT kernel) {unfused_ms:.5f} ms "
             f"(device time per call, CUDA graph); kernel / unfused {ms / unfused_ms:.3f}")
 
-    # ---- 12. results ---------------------------------------------------------
+    # ---- 14. results ---------------------------------------------------------
     paths = {  # each main path's launch counts, read just after its run
         "hps": {**launches["hps"], "fused_negacyclic_multiply":
                 launches["fused"]["fused_negacyclic_multiply"]},
         "ckks": {k: sum(c[k] for c in ckks["launches"].values()) for k in KERNELS},
         "bgv": {k: sum(c[k] for c in bgv["launches"].values()) for k in KERNELS},
-        "large_n": {k: large["launches"][k] + large["k4"][k] for k in KERNELS}}
+        "large_n": {k: large["launches"][k] + large["k4"][k] for k in KERNELS},
+        "lwe": {k: sum(c[k] for c in lwe["launches"].values()) for k in KERNELS},
+        "app": {k: sum(c[k] for c in app["launches"].values()) for k in KERNELS}}
     floor_tabs = tool.ff_tables
     timed = {  # the work each kernel's "ms" times, for its bound
         "ntt_forward": ntt_bound(tuple(xq.shape)), "ntt_inverse": ntt_bound(tuple(xq.shape)),

@@ -21,6 +21,7 @@ from troy_tpu.core.lwe_ops import LweOpsMixin
 from troy_tpu.ops.galois import GaloisTool as JGalois
 from troy_tpu.utils.random import RandomGenerator as JRandom
 from troy_tpu_torch.core.evaluator import Evaluator
+from troy_tpu_torch.core.lwe_ops import LweOpsMixin as TLweOpsMixin
 from troy_tpu_torch.core.keygen import KeyGenerator
 from troy_tpu_torch.utils.random import RandomGenerator
 
@@ -275,12 +276,14 @@ def test_batched_transforms_and_mod_switch(S):
 
 
 def test_surface_and_aliases_match_jax():
-    """Every public Evaluator name of the JAX package, but the LWE mixin's,
-    is on the port; each *_new alias names the same operation as there."""
+    """Every public Evaluator name of the JAX package, its LWE mixin's
+    included, is on the port, and no other; each *_new alias names the same
+    operation as there."""
     def public(cls):
         return {n for n in dir(cls) if not n.startswith("_")}
 
-    assert public(JEvaluator) - public(LweOpsMixin) == public(Evaluator)
+    assert public(JEvaluator) == public(Evaluator)
+    assert public(LweOpsMixin) == public(TLweOpsMixin) <= public(Evaluator)
     for name in public(Evaluator):
         jfn, tfn = getattr(JEvaluator, name), getattr(Evaluator, name)
         if "_new" in name or name in ("complex_conjugate_batched", "translate_batched"):

@@ -30,6 +30,12 @@ def test_module_list_covers_the_ckks_slice():
         assert "troy_tpu_torch." + m in MODULES
 
 
+def test_module_list_covers_the_app_slice():
+    for m in ("core.lwe", "core.lwe_ops", "app", "app.cipher2d", "app.encoder_adapter",
+              "app.matmul", "app.conv2d"):
+        assert "troy_tpu_torch." + m in MODULES
+
+
 def test_import_leaves_jax_out():
     code = (
         "import sys, importlib\n"

@@ -1,7 +1,9 @@
 """Ciphertext object (counterpart of troy_tpu/core/ciphertext.py).
 
 data is one int64 tensor shaped (size, L, n): poly index, RNS limb,
-coefficient.  BFV ciphertexts live in the coefficient domain, CKKS
+coefficient.  Leading batch axes may stand in front, (..., size, L, n), as in
+the batched LWE packer's (G, 2, L, n) stacks: size reads the poly axis from
+the end.  BFV ciphertexts live in the coefficient domain, CKKS
 ciphertexts in the NTT domain with their scale, BGV ciphertexts in the NTT
 domain with their correction factor (the plaintext is m * cf^-1 mod t).
 """
@@ -25,7 +27,7 @@ class Ciphertext:
 
     @property
     def size(self) -> int:
-        return self.data.shape[0]
+        return self.data.shape[-3]
 
     def clone(self) -> "Ciphertext":
         return Ciphertext(self.data, self.parms_id, self.is_ntt_form, self.scale,

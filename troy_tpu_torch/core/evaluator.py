@@ -15,7 +15,8 @@ troy_tpu/core/evaluator.py).
     switches, multiply_plain_accumulate and the stacked
     multiply_plain_contract, exponentiate, negacyclic_shift, and the
     *_batched forms, which stack a list into one (B, size, L, n) tensor and
-    run one pass where the JAX package does (and loop where it loops).
+    run one pass where the JAX package does (and loop where it loops);
+  * LWE extraction and packing (core/lwe_ops.py, mixed in).
 
 CKKS ciphertexts live in the NTT domain and carry a scale, with the JAX
 package's rules: add / sub need equal scales (to 1e-9 relative), multiply,
@@ -46,6 +47,7 @@ from .params import ParmsID, SchemeType, PARMS_ID_ZERO
 from .plaintext import Plaintext
 from .ciphertext import Ciphertext
 from .keys import KSwitchKeys, RelinKeys, GaloisKeys
+from .lwe_ops import LweOpsMixin
 from ..ops import ntt as NTT, poly as P, u32 as U, dyadic as D
 from ..ops.galois import GaloisTool
 from ..rns.rns_base import RNSBase
@@ -55,7 +57,7 @@ from ..utils import numth
 LIFTS = ("hps", "behz")
 
 
-class Evaluator:
+class Evaluator(LweOpsMixin):
     def __init__(self, context: HeContext, lift: str = "hps"):
         if context.scheme not in (SchemeType.BFV, SchemeType.CKKS, SchemeType.BGV):
             raise ValueError("[Evaluator] the port supports BFV, CKKS and BGV")
@@ -148,9 +150,10 @@ class Evaluator:
         big, small = (ct1, ct2) if ct1.size >= ct2.size else (ct2, ct1)
         pad = big.size - small.size
         small_data = small.data
-        if pad:
+        if pad:  # zero polys on the poly axis, behind any leading batch axes
+            shape = small_data.shape
             small_data = torch.cat([small_data, small_data.new_zeros(
-                (pad, *small_data.shape[1:]))])
+                (*shape[:-3], pad, *shape[-2:]))], dim=-3)
         out = big.clone()
         out.data = P.add(big.data, small_data, cd.qtab())
         return out

@@ -118,6 +118,13 @@ class KeyGenerator:
             elems.add(GaloisTool.conjugate_element(n))
         return self.create_galois_keys_from_elements(sorted(elems))
 
+    def create_automorphism_keys(self) -> GaloisKeys:
+        """Keys for the LWE packing tree and field trace: the elements
+        2^j + 1, 1 <= j <= log2 n, drawn in that order."""
+        n = self.context.key_context_data().parms.poly_modulus_degree
+        return self.create_galois_keys_from_elements(
+            [(1 << j) + 1 for j in range(1, n.bit_length())])
+
     def create_keyswitching_key(self, new_key: SecretKey) -> KSwitchKeys:
         """Key that switches ciphertexts under this generator's secret to
         new_key: made by new_key's holder over the old secret (ref:

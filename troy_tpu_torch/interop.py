@@ -5,8 +5,9 @@ These helpers take numpy arrays (np.asarray of a jax array) and return the
 port's objects on a device, and back.  Layouts are the same on both sides:
 ciphertexts (..., size, L, n), plaintexts (1, n) mod t or (L, n) in RNS,
 switching keys (decomp, 2, L_key, n), the secret key (L_key, n) and the
-public key (2, L_key, n) in NTT form.  A CKKS plaintext or ciphertext
-carries its scale across, a BGV ciphertext its correction factor.  No jax import is needed here.
+public key (2, L_key, n) in NTT form, an LWE sample's c0 (L,) and c1 (L, n).
+A CKKS plaintext, ciphertext or LWE sample carries its scale across, a BGV
+one its correction factor; to_numpy takes each tensor back.  No jax import is needed here.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 
 from .core.ciphertext import Ciphertext
 from .core.plaintext import Plaintext
+from .core.lwe import LWECiphertext
 from .core.keys import SecretKey, PublicKey, RelinKeys, GaloisKeys
 from .core.params import ParmsID
 
@@ -67,3 +69,11 @@ def galois_keys(keys: dict, parms_id: ParmsID, device) -> GaloisKeys:
     """keys: {galois element: (decomp, 2, L_key, n) u32 array}, as in the
     JAX package's GaloisKeys.keys."""
     return GaloisKeys({g: to_tensor(v, device) for g, v in keys.items()}, parms_id)
+
+
+def lwe_ciphertext(c0, c1, parms_id: ParmsID, device, scale: float = 1.0,
+                   correction_factor: int = 1) -> LWECiphertext:
+    """c0: (L,) and c1: (L, n) u32 arrays, as in the JAX package's
+    LWECiphertext."""
+    return LWECiphertext(to_tensor(c0, device), to_tensor(c1, device), parms_id, scale,
+                         correction_factor)
