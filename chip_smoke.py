@@ -16,8 +16,10 @@ relinearize, rotate_rows, rotate_columns, the mod switch, the flow of
 examples/4_bgv_basics.py, exponentiate and, in BFV, multiply_plain_contract);
 a BFV multiply + relinearize at n = 65536, where
 the NTT and the fused tensor product take their two-launch routes; LWE
-extraction and packing on the BFV chain; and the app layer's matmul and
-conv2d at the reference's app-bench sizes.  In phases:
+extraction and packing on the BFV chain; the app layer's matmul and
+conv2d at the reference's app-bench sizes; the client's batched steps and
+the device CKKS encoder at bench.py's chain; and the client and the server
+over bytes (seed-compressed inputs, the helpers' wire format).  In phases:
 
   1. device   the card's name and power limit (fails without CUDA);
   2. build    nvcc builds every csrc/*.cu into one library under
@@ -58,7 +60,7 @@ conv2d at the reference's app-bench sizes.  In phases:
   6. modswitch the batched mod switch from L = 6 to L = 5, then
               rotate_rows(1) at L = 5: equal to the all-plain run, decrypting
               right, with K3 launched by decrypt at (5, 8192);
-  7. client   examples/99_quickstart.py's flow (public key,
+  7. quickstart examples/99_quickstart.py's flow (public key,
               encrypt_asymmetric, add, decrypt, decode), multiply_plain in
               coefficient and NTT form, add_plain, and one special-prime
               encryption, each decrypting right;
@@ -125,7 +127,36 @@ conv2d at the reference's app-bench sizes.  In phases:
               the wall time of its kernel run and all-plain twin, and its
               time a call, profiler launches, device time, NTT launches and
               busy share beside the card's name and power limit;
- 13. times    CUDA-event times of the chained steps against their all-plain
+ 13. client   bench.py's chain (n = 8192, 7 x 30-bit primes, seed 0xBEEF,
+              batch 16), every key from the context's default threefry
+              stream: threefry2x32's known answers on the card and its bits
+              at (2, 16, 6, 8192) against the CPU's; BatchedClient's batch
+              encode and decode (an NTT mod t), its symmetric and asymmetric
+              encrypt steps, 3 calls chained through the state's probe, and
+              its decrypt step, each equal to its all-plain run, every
+              chained batch decrypting to its message; each step's time,
+              launches, device time and busy share, and threefry's alone.
+              Then the device CKKS encoder at the CKKS configuration (16 x
+              4096 complex slots, scale 2^25): encode_device equal to its
+              all-plain run, decoding through the host decode within 1e-5,
+              its coefficients those of the host encode but fewer than n/64
+              one unit off; decode_device (at 4 primes, margin 95 bits) within
+              1e-5, and of a multiply + relinearize + rescale + mod switch
+              within 2^-38 of the host decode;
+ 14. wire     the app-bench sizes (4 x 30-bit primes, seed 0xBEEF, EncryptLeft),
+              each protocol run whole: the client encrypts seed-compressed
+              inputs under the context's default stream and saves Zstd
+              frames, the server loads them (c1 expanded from each seed on
+              the card), computes and sends its outputs back by the helpers'
+              wire format, the client loads and decrypts: the BFV matmul 100
+              x 105 x 110 with pack_lwe (examples/10_bfv_matmul.py's protocol)
+              and with its outputs as sparse terms, both x @ w mod t exactly;
+              the CKKS matmul's terms in NTT form (K1 on both ends), within
+              app_ckks_rms; the BFV conv2d.  Each run equals its all-plain run,
+              frames byte for byte; the bytes on the wire, seeded against not,
+              and each frame's mode byte; the automorphism keys and a seeded
+              public key through the wire; threefry's time for one seed;
+ 15. times    CUDA-event times of the chained steps against their all-plain
               versions (multiply + relinearize, the three rotations, the mod
               switch), the profiler's launches, device time, NTT kernel time
               and busy share of the HPS step and of one rotate_rows(1) and
@@ -667,7 +698,7 @@ def phase_modswitch(ctx, evaluator, rot: dict, encoder, decryptor) -> dict:
     return dict(step=ms, launches=launches, rot1=rot1, keys=keys)
 
 
-def phase_client(dev, gen) -> dict:
+def phase_quickstart(dev, gen) -> dict:
     """examples/99_quickstart.py's flow on the card, the plaintext ops and a
     special-prime encryption, at the example's parameters."""
     from troy_tpu_torch.core.params import EncryptionParameters, SchemeType
@@ -700,13 +731,13 @@ def phase_client(dev, gen) -> dict:
     torch.cuda.synchronize()
     launches = launch_counts()
     if not np.array_equal(result, ((x + y) % t).astype(np.int64)):
-        raise AssertionError("[client] the quickstart sum decrypts wrong")
-    log(f"[client] quickstart flow (n={N}, {QUICKSTART_BITS} bits, Classical128): public "
+        raise AssertionError("[quickstart] the quickstart sum decrypts wrong")
+    log(f"[quickstart] quickstart flow (n={N}, {QUICKSTART_BITS} bits, Classical128): public "
         f"key, encrypt_asymmetric x2, add, decrypt, decode = (x + y) mod t; slots 0..3 "
         f"{result[:4].tolist()}; kernel launches {launches}")
     for name in ("ntt_forward", "ntt_inverse", "base_convert"):
         if launches[name] == 0:
-            raise AssertionError(f"[client] the quickstart flow did not launch {name}")
+            raise AssertionError(f"[quickstart] the quickstart flow did not launch {name}")
 
     pid = context.first_parms_id
     p_y = encoder.encode(y)
@@ -726,8 +757,8 @@ def phase_client(dev, gen) -> dict:
     for label, (ct, want) in cases.items():
         got = encoder.decode(decryptor.decrypt(ct)).cpu().numpy()
         if not np.array_equal(got, want):
-            raise AssertionError(f"[client] {label} decrypts wrong")
-        log(f"[client] {label}: decrypts right (noise budget "
+            raise AssertionError(f"[quickstart] {label} decrypts wrong")
+        log(f"[quickstart] {label}: decrypts right (noise budget "
             f"{decryptor.invariant_noise_budget(ct)} bits)")
     return dict(launches=launches)
 
@@ -776,14 +807,23 @@ def profile_step(fn, calls: int) -> dict:
     """Per call of fn, from the profiler's device events: kernel launches,
     device milliseconds, and each port kernel's launches and milliseconds."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(calls):
-            fn()
+    for attempt in range(1, 4):
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
-    if not kernels:
+        with torch.profiler.profile(activities=acts) as prof:
+            # the profiler at times drops a session's first kernel: let that be
+            # this spin_kernel, which is not counted either way
+            torch.cuda._sleep(1000)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation
+                   and "spin_kernel" not in e.key]
+        if kernels:
+            break
+        # and at times a short session's every kernel
+        log(f"[times] the profiler recorded no device kernels (attempt {attempt} of 3)")
+    else:
         raise AssertionError("[times] the profiler recorded no device kernels")
     out = {"launches": sum(e.count for e in kernels) / calls,
            "ms": sum(e.self_device_time_total for e in kernels) / 1e3 / calls}
@@ -919,11 +959,12 @@ def step_report(phase: str, gpu: str, label: str, fn, chained_ms: float, calls: 
     ntt_n, ntt_ms = ntt_totals(prof)
     bound_ms = sum(ntt_bound(shape)[0] for name, shape, _ in record_launches(fn)
                    if name != "base_convert") / 1e3
+    share = f"{100 * bound_ms / ntt_ms:.1f}%" if ntt_ms else "no NTT kernel in the profile"
     log(f"[{phase}] {gpu}: {label}: chained {chained_ms:.4f} ms a step; profiler, {calls} "
         f"steps: {prof['launches']:.0f} kernel launches and {prof['ms']:.4f} ms of device "
         f"kernel time a step, busy share {100 * prof['ms'] / chained_ms:.1f}%; NTT kernels "
         f"{ntt_n:.0f} launches {ntt_ms:.4f} ms against a bound of {bound_ms:.4f} ms "
-        f"({100 * bound_ms / ntt_ms:.1f}%); K3 {prof['base_convert'][0]:.0f} launches "
+        f"({share}); K3 {prof['base_convert'][0]:.0f} launches "
         f"{prof['base_convert'][1]:.4f} ms")
     return prof
 
@@ -1084,10 +1125,11 @@ def phase_ckks(dev, gpu: str) -> dict:
     return dict(launches=launches, profiles=profiles)
 
 
-def time_steps(phase: str, gpu: str, steps: dict) -> dict:
+def time_steps(phase: str, gpu: str, steps: dict, calls: int = PROFILE_STEPS) -> dict:
     """Each step's event-timed ms, chained (each output the next input) or,
-    without a chained call, repeated on one input, and its step_report;
-    steps: {label: (one step, chained call or None, first input)}."""
+    without a chained call, repeated on one input, and its step_report over
+    `calls` profiled calls; steps: {label: (one step, chained call or None,
+    first input)}."""
     profiles = {}
     for label, (fn, chain, first) in steps.items():
         for _ in range(3):
@@ -1103,7 +1145,7 @@ def time_steps(phase: str, gpu: str, steps: dict) -> dict:
         ms = cuda_ms(call, REPS)
         profiles[label] = (ms, step_report(phase, gpu, f"{label} step, batch {BATCH}"
                                            + ("" if chain else " (repeated on one input)"),
-                                           fn, ms, PROFILE_STEPS))
+                                           fn, ms, calls))
     return profiles
 
 
@@ -1239,13 +1281,15 @@ def phase_bgv(dev, gpu: str, bfv: dict) -> dict:
 
     # ---- the object-API flow of examples/4_bgv_basics.py, special prime on
     sp_ctx = HeContext.create(bgv_parms(True), dev, SecurityLevel.Nil, seed=KEY_SEED)
-    sp_keygen = KeyGenerator(sp_ctx)
+    sp_keygen = KeyGenerator(sp_ctx, prng=RandomGenerator(KEY_SEED, "aes", "keygen"))
     sp_ev = Evaluator(sp_ctx)
     sp_dec = Decryptor(sp_ctx, sp_keygen.secret_key)
     sp_rlk = sp_keygen.create_relin_keys()
     m = np.arange(N, dtype=np.int64)
     reset_launch_counts()
-    ct = Encryptor(sp_ctx, pk=sp_keygen.create_public_key()).encrypt_asymmetric(encoder.encode(m))
+    ct = Encryptor(sp_ctx, pk=sp_keygen.create_public_key(),
+                   prng=RandomGenerator(KEY_SEED, "aes", "encryptor")).encrypt_asymmetric(
+        encoder.encode(m))
     sq_ct = sp_ev.relinearize(sp_ev.square(ct), sp_rlk)
     low = sp_ev.mod_switch_to_next(sq_ct)
     mixed = sp_ev.add(sq_ct, ct)
@@ -1688,6 +1732,391 @@ def phase_app(dev, gpu: str) -> dict:
     return dict(launches=launches, flows=flows)
 
 
+CLIENT_STEPS = 3                      # [client]: chained calls of each BatchedClient step
+THREEFRY_KNOWN = [  # (key, counter) -> output of Threefry-2x32-20, as jax.random's tests hold it
+    ((0x13198a2e, 0x03707344), (0x243f6a88, 0x85a308d3), (0xc4923a9c, 0x483df7a0)),
+    ((0, 0), (0, 0), (0x6b200159, 0x99ba4efe)),
+    ((0xFFFFFFFF,) * 2, (0xFFFFFFFF,) * 2, (0x1cb996fc, 0xbb002be7))]
+
+
+def seeded_context(dev, scheme: str, bits) -> dict:
+    """A context at N on `bits` under `scheme` (t = PlainModulus.batching(N,
+    20) but for CKKS), seed KEY_SEED; its keygen, and every encryptor made
+    from it, draw from the context's default threefry streams."""
+    from troy_tpu_torch.core.params import EncryptionParameters, SchemeType
+    from troy_tpu_torch.core.coeff_modulus import CoeffModulus, PlainModulus, SecurityLevel
+    from troy_tpu_torch.core.context import HeContext
+    from troy_tpu_torch.core.keygen import KeyGenerator
+    from troy_tpu_torch.core.decryptor import Decryptor
+    from troy_tpu_torch.core.evaluator import Evaluator
+
+    parms = EncryptionParameters(SchemeType[scheme])
+    parms.set_poly_modulus_degree(N)
+    parms.set_coeff_modulus(CoeffModulus.create(N, bits))
+    if scheme != "CKKS":
+        parms.set_plain_modulus(PlainModulus.batching(N, LOG_T))
+    ctx = HeContext.create(parms, dev, SecurityLevel.Nil, seed=KEY_SEED)
+    keygen = KeyGenerator(ctx)
+    return dict(ctx=ctx, keygen=keygen, decryptor=Decryptor(ctx, keygen.secret_key),
+                ev=Evaluator(ctx))
+
+
+def threefry_report(phase: str, gpu: str, label: str, fn) -> dict:
+    """Threefry alone (fn draws the words a path draws): event-timed ms a
+    call, the profiler's launches and device time, and the busy share."""
+    fn()
+    ms = cuda_ms(fn, 3)
+    prof = profile_step(fn, 2)
+    log(f"[{phase}] {gpu}: threefry, {label}: {ms:.4f} ms a call; profiler: "
+        f"{prof['launches']:.0f} launches and {prof['ms']:.4f} ms of device time a call, "
+        f"busy {100 * prof['ms'] / ms:.1f}%")
+    return dict(ms=ms, launches=prof["launches"], device_ms=prof["ms"])
+
+
+def centred_coeffs(pt, cd) -> np.ndarray:
+    """A plaintext's integer coefficients, centred (host CRT)."""
+    from troy_tpu_torch.ops import ntt as NTT
+
+    arr = NTT.ntt_inverse(pt.data.contiguous(), cd.qtab()).cpu().numpy()
+    comp = np.array(cd.base_q.compose_array_host(arr), dtype=object)
+    return np.where(comp > cd.base_q.prod // 2, comp - cd.base_q.prod, comp)
+
+
+def phase_client(dev, gpu: str) -> dict:
+    """Threefry on the card; BatchedClient's steps at bench.py's BFV chain,
+    chained; the device CKKS encoder at bench.py's CKKS configuration."""
+    from troy_tpu_torch.core.batch_encoder import BatchEncoder
+    from troy_tpu_torch.core.ckks_encoder import CKKSEncoder
+    from troy_tpu_torch.core.encryptor import Encryptor
+    from troy_tpu_torch.core.plaintext import Plaintext
+    from troy_tpu_torch.parallel.batched import BatchedClient
+    from troy_tpu_torch.utils import random as R
+
+    # ---- threefry's known answers and the card's bits against the CPU's
+    for k, x, y in THREEFRY_KNOWN:
+        got = R.threefry2x32(*(torch.tensor(v, device=dev) for v in (*k, *x)))
+        if tuple(int(v) for v in got) != y:
+            raise AssertionError(f"[client] threefry2x32{k}{x} = {got} on the card, not {y}")
+    shape = (2, BATCH, L_DATA, N)
+    key = R.fold_in(R.key(KEY_SEED), torch.tensor(7, device=dev))
+    card = R.bits(key, shape, dev)
+    host = R.bits(tuple(int(v) for v in key), shape, "cpu")
+    if not torch.equal(card.cpu(), host):
+        raise AssertionError(f"[client] threefry bits at {shape}: the card's != the CPU's")
+    log(f"[client] threefry2x32's three known answers on the card; bits {shape} under a key "
+        f"folded with a device counter equal the CPU's ({card.numel()} words)")
+
+    # ---- BatchedClient at bench.py's BFV chain
+    rng = np.random.default_rng(MSG_SEED + 2)
+    t0 = time.perf_counter()
+    s = seeded_context(dev, "BFV", Q_BITS)
+    ctx, keygen = s["ctx"], s["keygen"]
+    cd = ctx.first_context_data()
+    encoder = BatchEncoder(ctx)
+    pk = keygen.create_public_key()
+    client = BatchedClient(ctx, cd)
+    base_keys = R.RandomGenerator(KEY_SEED, domain="bench").base_keys
+    t_val = encoder.t.value
+    vals = torch.from_numpy(rng.integers(0, t_val, (BATCH, N), dtype=np.int64)).to(dev)
+    torch.cuda.synchronize()
+    log(f"[client] BFV context n={N}, {len(Q_BITS)} x 30-bit primes, seed {KEY_SEED:#x}: secret "
+        f"and public key from the context's threefry stream ({keygen.generator.counter} draws) "
+        f"in {time.perf_counter() - t0:.3f} s")
+    launches = {}
+    encode, decode = client.build_batch_encode_step(encoder), client.build_batch_decode_step(encoder)
+    coeffs, launches["encode"] = run_step(
+        "client", f"batch encode step {tuple(vals.shape)} (inverse NTT mod t)",
+        lambda: encode(vals), ("ntt_inverse",))
+    back, launches["decode"] = run_step(
+        "client", f"batch decode step {tuple(coeffs.shape)} (forward NTT mod t)",
+        lambda: decode(coeffs), ("ntt_forward",))
+    if not torch.equal(back, vals):
+        raise AssertionError("[client] batch decode(encode(v)) != v")
+    plain = coeffs[:1]  # the steps add one message to every ciphertext, as the JAX steps do
+    steps = {"symmetric": (client.build_encrypt_symmetric_step(base_keys, plain),
+                           keygen.secret_key.data, ("ntt_inverse",)),
+             "asymmetric": (client.build_encrypt_asymmetric_step(base_keys, plain),
+                            pk.data(), ("ntt_forward", "ntt_inverse"))}
+    start = residues((BATCH, 2, L_DATA, N), cd.qtab().q, torch.Generator(device=dev).manual_seed(3))
+    decrypt = client.build_decrypt_step([keygen.secret_key.data])
+
+    def chain(step, arg):
+        cur, outs = start, []
+        for _ in range(CLIENT_STEPS):
+            cur = step(cur, arg)
+            outs.append(cur)
+        return torch.stack(outs)
+
+    for label, (step, arg, need) in steps.items():
+        outs, launches[label] = run_step(
+            "client", f"encrypt_{label} step, {CLIENT_STEPS} chained calls of batch {BATCH}",
+            lambda: chain(step, arg), need)
+        for i in range(CLIENT_STEPS):
+            m = decrypt(outs[i])
+            got = decode(m)
+            if not (torch.equal(m, plain.expand_as(m)) and torch.equal(got, vals[:1].expand_as(got))):
+                raise AssertionError(f"[client] chained {label} batch {i} decrypts wrong")
+        if any(torch.equal(outs[i][:, 1], outs[i + 1][:, 1]) for i in range(CLIENT_STEPS - 1)):
+            raise AssertionError(f"[client] chained {label} batches share their c1")
+        log(f"[client] every one of the {CLIENT_STEPS} chained {label} batches decrypts to the "
+            f"message and decodes to its slots; no two share a c1")
+    m, launches["decrypt"] = run_step(
+        "client", f"decrypt step {tuple(start.shape)}", lambda: decrypt(outs[-1]),
+        ("ntt_forward", "ntt_inverse", "base_convert"))
+    timed = time_steps("client", gpu, {
+        "encrypt_symmetric": (lambda: steps["symmetric"][0](start, keygen.secret_key.data),
+                              lambda d: steps["symmetric"][0](d, keygen.secret_key.data), start),
+        "encrypt_asymmetric": (lambda: steps["asymmetric"][0](start, pk.data()),
+                               lambda d: steps["asymmetric"][0](d, pk.data()), start),
+        "decrypt": (lambda: decrypt(outs[-1]), None, None),
+        "batch encode": (lambda: encode(vals), None, None),
+        "batch decode": (lambda: decode(coeffs), None, None)},
+        calls=1)  # an encrypt step makes 1800-2600 launches: one call profiles enough
+    threefry = {"encrypt_symmetric draws": threefry_report(
+        "client", gpu, f"the symmetric step's draws, uniform {(2, BATCH, L_DATA, N)} and CBD "
+        f"{(2, BATCH, N)} words, two keys each",
+        lambda: (R._bits2(base_keys, (2, BATCH, L_DATA, N), dev),
+                 R._bits2(base_keys, (2, BATCH, N), dev)))}
+
+    # ---- the device CKKS encoder at bench.py's CKKS configuration
+    t0 = time.perf_counter()
+    c = seeded_context(dev, "CKKS", Q_BITS)
+    cctx, cdec, cev = c["ctx"], c["decryptor"], c["ev"]
+    ccd = cctx.first_context_data()
+    cenc = CKKSEncoder(cctx)
+    slots = cenc.slot_count
+    v = rng.uniform(-1, 1, (BATCH, slots)) + 1j * rng.uniform(-1, 1, (BATCH, slots))
+    data, launches["encode_device"] = run_step(
+        "client", f"encode_device of {BATCH} x {slots} complex slots, scale 2^25",
+        lambda: cenc.encode_device(v, scale=CKKS_SCALE).data, ("ntt_forward",))
+    pt = Plaintext(data, ccd.parms_id, True, CKKS_SCALE)
+    worst, moved = 0.0, []
+    for b in range(BATCH):
+        row = Plaintext(data[b], ccd.parms_id, True, CKKS_SCALE)
+        worst = max(worst, float(np.abs(cenc.decode(row) - v[b]).max()))
+        if b < 2:
+            diff = np.abs((centred_coeffs(row, ccd) - centred_coeffs(
+                cenc.encode(v[b], scale=CKKS_SCALE), ccd)).astype(np.int64))
+            moved.append(int((diff != 0).sum()))
+            if diff.max() > 1 or moved[-1] >= N // 64:
+                raise AssertionError(f"[client] encode_device row {b}: {moved[-1]} coefficients "
+                                     f"off the host encode's, by up to {diff.max()}")
+    if worst >= 1e-5:
+        raise AssertionError(f"[client] encode_device decodes (host) off by {worst:.3e}")
+    log(f"[client] encode_device: every row decodes through the host decode within {worst:.3e} "
+        f"(tolerance 1e-5); rows 0-1 differ from the host encode at {moved} of {N} coefficients, "
+        f"by one unit (tolerance {N // 64})")
+    # decode_device needs log2(Q / scale) <= 120: the encodings with their limbs
+    # dropped to 4 primes (a CKKS mod switch), margin 120 - 25
+    low = ccd
+    while low.coeff_modulus_size > 4:
+        low = low.next
+    pt = Plaintext(data[..., :low.coeff_modulus_size, :].contiguous(), low.parms_id, True,
+                   CKKS_SCALE)
+    got, launches["decode_device"] = run_step(
+        "client", f"decode_device of the {BATCH} encodings at {low.coeff_modulus_size} primes",
+        lambda: torch.from_numpy(cenc.decode_device(pt)), ("ntt_inverse",))
+    err = float(np.abs(got.numpy() - v).max())
+    if err >= 1e-5:
+        raise AssertionError(f"[client] decode_device off by {err:.3e}")
+    encr = Encryptor(cctx, sk=c["keygen"].secret_key)
+    cts = [encr.encrypt_symmetric(Plaintext(data[b], ccd.parms_id, True, CKKS_SCALE))
+           for b in range(2)]
+    prod = cev.mod_switch_to_next(cev.rescale_to_next(cev.relinearize(
+        cev.multiply(cts[0], cts[1]), c["keygen"].create_relin_keys())))
+    plain_prod = cdec.decrypt(prod)
+    dev_dec, host_dec = cenc.decode_device(plain_prod), cenc.decode(plain_prod)
+    rel = float(np.abs(dev_dec - host_dec).max() / np.abs(host_dec).max())
+    prod_err = float(np.abs(dev_dec - v[0] * v[1]).max())
+    # the product's noise as [ckks] rescale's, twice the multiply's share:
+    # complex messages carry noise in both parts
+    q = [m.value for m in ccd.parms.coeff_modulus]
+    L = ccd.coeff_modulus_size
+    noise = ckks_noise(N, L, max(q[:L]), q[-1])
+    after = CKKS_SCALE ** 2 / q[L - 1]
+    prod_tol = 32 * (2 * noise["mul"] ** 2 + (noise["rounding"] / after) ** 2) ** 0.5
+    if rel >= 2.0 ** -38 or prod_err >= prod_tol:
+        raise AssertionError(f"[client] decode_device of multiply + rescale: {rel:.3e} off the "
+                             f"host decode, {prod_err:.3e} off the product")
+    pcd = cctx.get_context_data(plain_prod.parms_id)
+    log(f"[client] decode_device: {err:.3e} off the values; of a multiply + relinearize + "
+        f"rescale + mod switch (scale 2^{np.log2(plain_prod.scale):.2f}, {pcd.coeff_modulus_size} "
+        f"primes) 2^{np.log2(max(rel, 2.0 ** -60)):.1f} relative off the host decode (tolerance "
+        f"2^-38) and {prod_err:.3e} off v0 * v1 (tolerance {prod_tol:.3e}, 32 x the noise's rms); "
+        f"context and keys in {time.perf_counter() - t0:.3f} s")
+    flows = {"encode_device": flow_report("client", gpu, f"encode_device, {BATCH} x {slots} slots",
+                                          lambda: cenc.encode_device(v, scale=CKKS_SCALE)),
+             "decode_device": flow_report("client", gpu, f"decode_device, {BATCH} x {slots} slots",
+                                          lambda: cenc.decode_device(pt))}
+    return dict(launches=launches, timed=timed, flows=flows, threefry=threefry)
+
+
+def run_protocol(phase: str, label: str, fn, required) -> tuple[torch.Tensor, dict, list]:
+    """run_step of fn() -> (frames, tensor): the frames of the kernel run
+    must equal the all-plain run's byte for byte too."""
+    frames = []
+
+    def call():
+        f, out = fn()
+        frames.append(f)
+        return out
+
+    out, launches = run_step(phase, label, call, required)
+    if frames[0] != frames[1]:
+        raise AssertionError(f"[{phase}] {label}: the frames differ from the all-plain run's")
+    log(f"[{phase}] {label}: its frames equal the all-plain run's byte for byte")
+    return out, launches, frames[0]
+
+
+def frame_modes(frames) -> list:
+    """The mode byte of each frame (0 raw, 1 zstd, 2 zlib), once each."""
+    return sorted({f[0] for f in frames})
+
+
+def phase_wire(dev, gpu: str) -> dict:
+    """The client and the server over bytes at the app-bench sizes: the
+    BumbleBee matmul of examples/10_bfv_matmul.py (packed and as sparse
+    terms), the CKKS matmul's terms, the conv2d, and the keys."""
+    from troy_tpu_torch.app.cipher2d import Cipher2d
+    from troy_tpu_torch.app.conv2d import Conv2dHelper
+    from troy_tpu_torch.app.encoder_adapter import BatchEncoderAdapter, CKKSEncoderAdapter
+    from troy_tpu_torch.app.matmul import MatmulHelper, MatmulObjective
+    from troy_tpu_torch.core.batch_encoder import BatchEncoder
+    from troy_tpu_torch.core.ckks_encoder import CKKSEncoder
+    from troy_tpu_torch.core.encryptor import Encryptor
+    from troy_tpu_torch.utils import random as R, serialize as S
+
+    zstd = S.CompressionMode.Zstd
+    need = ("ntt_forward", "ntt_inverse")
+    rng = np.random.default_rng(MSG_SEED + 3)
+    B, I, O = APP_MATMUL
+    launches, flows, wire_bytes = {}, {}, {}
+    t0 = time.perf_counter()
+    bfv = seeded_context(dev, "BFV", APP_BITS)
+    ckks = seeded_context(dev, "CKKS", APP_BITS)
+    torch.cuda.synchronize()
+    log(f"[wire] BFV and CKKS contexts n={N}, {len(APP_BITS)} x 30-bit primes, seed {KEY_SEED:#x}, "
+        f"keys from the contexts' threefry streams, in {time.perf_counter() - t0:.3f} s")
+
+    def send(s, helper, adapter, x, seeded=True) -> list:
+        """The client: encode, encrypt_symmetric under the context's default
+        stream (a fresh Encryptor a call, so a rerun draws the same bits),
+        one Zstd frame a ciphertext."""
+        encr = Encryptor(s["ctx"], sk=s["keygen"].secret_key)
+        cts = helper.encode_inputs(adapter, x).encrypt_symmetric(encr, save_seed=seeded)
+        return [[S.save_ciphertext(c, s["ctx"], zstd) for c in row] for row in cts.data]
+
+    def serve(s, helper, frames, weights, glk=None) -> list:
+        """The server: load (c1 expanded from each seed on the card),
+        multiply, pack with pack_lwe, frames back."""
+        x = Cipher2d([[S.load_ciphertext(b, s["ctx"]) for b in row] for row in frames])
+        y = (helper.matmul(s["ev"], x, weights) if isinstance(helper, MatmulHelper)
+             else helper.conv2d(s["ev"], x, weights))
+        if getattr(helper, "pack_lwe", False):
+            y = helper.pack_outputs(s["ev"], glk, y)
+        return helper.serialize_outputs(s["ctx"], y, zstd)
+
+    def protocol(s, helper, adapter, x, weights, glk=None):
+        frames_in = send(s, helper, adapter, x)
+        frames_out = serve(s, helper, frames_in, weights, glk)
+        y = helper.deserialize_outputs(s["ctx"], frames_out)
+        return (frames_in, frames_out), torch.stack([c.data for row in y.data for c in row])
+
+    def report(key, label, s, helper, adapter, x, weights, glk=None):
+        _, launches[key], frames = run_protocol(
+            "wire", label, lambda: protocol(s, helper, adapter, x, weights, glk), need)
+        frames_in, frames_out = frames
+        flat_in = [b for row in frames_in for b in row]
+        whole = sum(len(b) for b in (S.save_ciphertext(c, s["ctx"], zstd) for row in
+                    helper.deserialize_outputs(s["ctx"], frames_out).data for c in row))
+        unseeded = sum(len(b) for row in send(s, helper, adapter, x, seeded=False) for b in row)
+        wire_bytes[key] = dict(inputs=sum(map(len, flat_in)), inputs_unseeded=unseeded,
+                               outputs=sum(map(len, frames_out)), outputs_whole=whole,
+                               modes_in=frame_modes(flat_in), modes_out=frame_modes(frames_out))
+        w = wire_bytes[key]
+        log(f"[wire] {label}: {len(flat_in)} input frames {w['inputs']} bytes seeded against "
+            f"{w['inputs_unseeded']} unseeded (mode bytes {w['modes_in']}); {len(frames_out)} "
+            f"output frames {w['outputs']} bytes against {w['outputs_whole']} whole (mode bytes "
+            f"{w['modes_out']})")
+        flows[key] = flow_report("wire", gpu, label,
+                                 lambda: protocol(s, helper, adapter, x, weights, glk))
+        return helper.deserialize_outputs(s["ctx"], frames_out)
+
+    # ---- 1. BFV matmul, examples/10_bfv_matmul.py's protocol, packed and as terms
+    encoder = BatchEncoder(bfv["ctx"])
+    t_val = encoder.t.value
+    adapter = BatchEncoderAdapter(encoder)
+    glk = bfv["keygen"].create_automorphism_keys()
+    x = rng.integers(0, t_val, (B, I), dtype=np.int64)
+    w = rng.integers(0, t_val, (I, O), dtype=np.int64)
+    want = (x.astype(object) @ w.astype(object)) % t_val
+    for pack in (True, False):
+        helper = MatmulHelper(B, I, O, N, MatmulObjective.EncryptLeft, pack_lwe=pack)
+        label = f"BFV matmul {B} x {I} x {O}, " + ("pack_lwe" if pack else "outputs as terms")
+        y = report(f"bfv_matmul_{'packed' if pack else 'terms'}", label, bfv, helper, adapter,
+                   x, helper.encode_weights(adapter, w), glk)
+        dec = helper.decrypt_outputs(adapter, bfv["decryptor"], y)
+        if not np.array_equal(dec.astype(object) % t_val, want):
+            raise AssertionError(f"[wire] {label}: decrypts wrong")
+        log(f"[wire] {label}: the client decrypts x @ w mod t exactly")
+
+    # ---- 2. CKKS matmul, outputs as terms in NTT form (K1 on both ends)
+    cenc = CKKSEncoder(ckks["ctx"])
+    cad = CKKSEncoderAdapter(cenc, CKKS_SCALE)
+    xf, wf = rng.uniform(-1, 1, (B, I)), rng.uniform(-1, 1, (I, O))
+    helper = MatmulHelper(B, I, O, N, MatmulObjective.EncryptLeft, pack_lwe=False)
+    label = f"CKKS matmul {B} x {I} x {O}, outputs as terms (NTT form)"
+    y = report("ckks_matmul_terms", label, ckks, helper, cad, xf, helper.encode_weights(cad, wf))
+    if not all(c.is_ntt_form for row in y.data for c in row):
+        raise AssertionError(f"[wire] {label}: outputs left the NTT form")
+    err = np.abs(helper.decrypt_outputs(CKKSEncoderAdapter(cenc, CKKS_SCALE ** 2),
+                                        ckks["decryptor"], y) - xf @ wf)
+    rms, got_rms = app_ckks_rms(I, helper.output_block), float(np.sqrt((err ** 2).mean()))
+    if not (got_rms < 4 * rms and err.max() < 32 * rms):
+        raise AssertionError(f"[wire] {label}: decodes off: rms {got_rms:.3e}, max {err.max():.3e}")
+    log(f"[wire] {label}: decodes with rms error {got_rms:.3e} (tolerance {4 * rms:.3e}), max "
+        f"{err.max():.3e} (tolerance {32 * rms:.3e})")
+
+    # ---- 3. BFV conv2d, outputs as terms
+    Bc, Ci, Co, H, W, kh, kw = APP_CONV
+    conv = Conv2dHelper(Bc, Ci, Co, H, W, kh, kw, N, MatmulObjective.EncryptLeft)
+    xc = rng.integers(0, t_val, (Bc, Ci, H, W), dtype=np.int64)
+    kc = rng.integers(0, t_val, (Co, Ci, kh, kw), dtype=np.int64)
+    label = f"BFV conv2d {Bc} x {Ci} x {H} x {W} -> {Co}, outputs as terms"
+    y = report("bfv_conv2d", label, bfv, conv, adapter, xc, conv.encode_weights(adapter, kc))
+    windows = np.lib.stride_tricks.sliding_window_view(xc, (kh, kw), axis=(2, 3))
+    if not np.array_equal(conv.decrypt_outputs(adapter, bfv["decryptor"], y).astype(np.int64),
+                          np.einsum("bchwij,ocij->bohw", windows, kc) % t_val):
+        raise AssertionError(f"[wire] {label}: decrypts wrong")
+    log(f"[wire] {label}: the client decrypts the valid convolution mod t exactly")
+
+    # ---- 4. the keys: automorphism keys and a seeded public key
+    kg = bfv["keygen"]
+    for mode in (S.CompressionMode.Nil, zstd):
+        frame = S.save_kswitch_keys(glk, mode)
+        loaded = S.load_galois_keys(frame, bfv["ctx"])
+        if sorted(loaded.keys) != sorted(glk.keys) or not all(
+                torch.equal(loaded.keys[g], glk.keys[g]) for g in glk.keys):
+            raise AssertionError("[wire] the automorphism keys load different")
+        log(f"[wire] {len(glk.keys)} automorphism keys: {len(frame)} bytes (mode byte {frame[0]}), "
+            f"loaded onto {loaded.keys[3].device} equal")
+    pk = kg.create_public_key(save_seed=True)
+    frame = S.save_public_key(pk, bfv["ctx"], zstd)
+    loaded, launches["public_key"] = run_step(
+        "wire", "load of the seeded public key (c1 expanded from its seed)",
+        lambda: S.load_public_key(frame, bfv["ctx"]).data(), ())
+    if not torch.equal(loaded, pk.data()):
+        raise AssertionError("[wire] the seeded public key loads different")
+    whole = S.save_public_key(S.load_public_key(frame, bfv["ctx"]), bfv["ctx"], zstd)
+    wire_bytes["public_key"] = dict(seeded=len(frame), whole=len(whole))
+    log(f"[wire] seeded public key: {len(frame)} bytes (mode byte {frame[0]}) against {len(whole)} "
+        f"whole; it loads equal to the key")
+    threefry = {"seed expansion": threefry_report(
+        "wire", gpu, f"the expansion of one seed, {(2, len(APP_BITS) - 1, N)} words, one key",
+        lambda: R.bits(R.key(pk.ciphertext.seed), (2, len(APP_BITS) - 1, N), dev))}
+    return dict(launches=launches, flows=flows, bytes=wire_bytes, threefry=threefry)
+
+
 def main() -> int:
     # ---- 1. device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1830,10 +2259,10 @@ def main() -> int:
     log("[main] K4's stage equals the unfused stage (NTT kernel, dyadic_convolute, "
         "NTT kernel) over q and Bsk, and its floor equals the HPS multiply")
 
-    # ---- 5. rotate, 6. modswitch, 7. client ------------------------------------
+    # ---- 5. rotate, 6. modswitch, 7. quickstart --------------------------------
     rot = phase_rotate(ctx, keygen, gen, encoder, decryptor, batched["hps"])
     modswitch = phase_modswitch(ctx, evs["hps"], rot, encoder, decryptor)
-    phase_client(dev, gen)
+    phase_quickstart(dev, gen)
 
     # ---- 8. ckks, 9. bgv, 10. large_n ---------------------------------------
     ckks = phase_ckks(dev, gpu)
@@ -1845,7 +2274,11 @@ def main() -> int:
     lwe = phase_lwe(dev, gpu)
     app = phase_app(dev, gpu)
 
-    # ---- 13. times ---------------------------------------------------------
+    # ---- 13. client, 14. wire ------------------------------------------------
+    client = phase_client(dev, gpu)
+    wire = phase_wire(dev, gpu)
+
+    # ---- 15. times ---------------------------------------------------------
     def batch_ms(label: str, step, first, chain: bool = True):
         """Event-timed ms per call of step, with the kernels and all plain:
         chained (each output the next input) or repeated on first."""
@@ -1962,7 +2395,7 @@ def main() -> int:
             f"path (NTT kernel, torch dyadic_convolute, NTT kernel) {unfused_ms:.5f} ms "
             f"(device time per call, CUDA graph); kernel / unfused {ms / unfused_ms:.3f}")
 
-    # ---- 14. results ---------------------------------------------------------
+    # ---- 16. results -------------------------------------------------------
     paths = {  # each main path's launch counts, read just after its run
         "hps": {**launches["hps"], "fused_negacyclic_multiply":
                 launches["fused"]["fused_negacyclic_multiply"]},
@@ -1970,7 +2403,12 @@ def main() -> int:
         "bgv": {k: sum(c[k] for c in bgv["launches"].values()) for k in KERNELS},
         "large_n": {k: large["launches"][k] + large["k4"][k] for k in KERNELS},
         "lwe": {k: sum(c[k] for c in lwe["launches"].values()) for k in KERNELS},
-        "app": {k: sum(c[k] for c in app["launches"].values()) for k in KERNELS}}
+        "app": {k: sum(c[k] for c in app["launches"].values()) for k in KERNELS},
+        "client": {k: sum(c[k] for c in client["launches"].values()) for k in KERNELS},
+        "wire": {k: sum(c[k] for c in wire["launches"].values()) for k in KERNELS}}
+    for path in ("client", "wire"):
+        if not paths[path]["ntt_forward"] or not paths[path]["ntt_inverse"]:
+            raise AssertionError(f"[results] the {path} path launched no NTT kernel")
     floor_tabs = tool.ff_tables
     timed = {  # the work each kernel's "ms" times, for its bound
         "ntt_forward": ntt_bound(tuple(xq.shape)), "ntt_inverse": ntt_bound(tuple(xq.shape)),

@@ -86,9 +86,11 @@ def test_samplers_match_jax(seed, domain):
 
 
 def test_only_the_aes_mode():
-    """The JAX package's default mode, threefry, is not ported: refused."""
-    with pytest.raises(ValueError, match="threefry"):
-        RandomGenerator(5, "threefry")
+    """The modes are the JAX package's two, threefry (the default) and aes;
+    AES is opt-in, and any other mode is refused with the JAX message."""
+    assert RandomGenerator(5).mode == "threefry" and RandomGenerator(5, "aes").mode == "aes"
+    with pytest.raises(ValueError, match="unknown mode"):
+        RandomGenerator(5, "philox")
 
 
 def test_quickstart_keys_and_ciphertexts_match_jax():
@@ -104,7 +106,7 @@ def test_quickstart_keys_and_ciphertexts_match_jax():
         PlainModulus.batching(n, 20))
     tc = HeContext.create(tp, "cpu", SecurityLevel.Classical128, seed=seed)
     jkg = JKeyGen(jc, prng=JRandom(seed, mode="aes", domain="keygen"))
-    kg = KeyGenerator(tc)  # the context seed's AES stream, domain "keygen"
+    kg = KeyGenerator(tc, prng=RandomGenerator(seed, "aes", "keygen"))
     same(jkg.secret_key.data, kg.secret_key.data)
     jpk, pk = jkg.create_public_key(), kg.create_public_key()
     same(jpk.data(), pk.data())

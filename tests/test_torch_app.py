@@ -1,5 +1,6 @@
 """The port's app layer for BFV and CKKS (troy_tpu_torch/app: cipher2d,
-encoder_adapter, matmul, conv2d) against the JAX package's, bit for bit.
+encoder_adapter, matmul, conv2d) against the JAX package's, bit for bit;
+their wire format is tests/test_torch_wire.py's.
 
 Each scheme's pair is tests/test_torch_lwe.py's Pair at n = 64 on 4 x 30-bit
 primes, as tests/app/test_matmul.py and test_conv2d.py (t =
@@ -172,13 +173,13 @@ def test_conv2d_blocks_match_jax(objective):
 
 
 def test_helper_surfaces_match_jax():
-    """The helpers' public names equal the JAX package's but the wire-format
-    methods (ROADMAP A12)."""
+    """The helpers' public names equal the JAX package's, the wire-format
+    methods included (tests/test_torch_wire.py)."""
     def public(cls):
         return {n for n in dir(cls) if not n.startswith("_")}
 
-    assert public(MatmulHelper) == public(JMatmul) - SERIALIZATION
-    assert public(Conv2dHelper) == public(JConv2d) - SERIALIZATION
+    assert public(MatmulHelper) == public(JMatmul) and SERIALIZATION <= public(MatmulHelper)
+    assert public(Conv2dHelper) == public(JConv2d)
     j = JMatmul(4, 5, 6, 64, JObjective.EncryptLeft, pack_lwe=False)
     t = MatmulHelper(4, 5, 6, 64, MatmulObjective.EncryptLeft, pack_lwe=False)
     assert t._required_terms() == j._required_terms()
@@ -278,8 +279,11 @@ def test_cipher2d_ops_and_refusals(A):
     same_2d(js.mod_switch_to_next(p.jev), ts.mod_switch_to_next(p.ev))
     assert ts.size() == len(ts.data) and tpl.size() == len(tpl.data)
     assert Cipher2d().size() == 0 and Plain2d().size() == 0
-    with pytest.raises(NotImplementedError, match="A15"):
-        tpl.encrypt_symmetric(p.encr, save_seed=True)
+    jseeded = jpl.encrypt_symmetric(p.jencr, save_seed=True)
+    seeded = tpl.encrypt_symmetric(p.encr, save_seed=True)
+    same_2d(jseeded, seeded)
+    assert all(c.seed is not None and c.seed == j.seed
+               for row, jrow in zip(seeded.data, jseeded.data) for c, j in zip(row, jrow))
     with pytest.raises(NotImplementedError, match="mesh"):
         th.matmul(p.ev, ta, th.encode_weights(A.ad, A.values((5, 4))), mesh=object())
     with pytest.raises(ValueError, match="pack_lwe"):
@@ -377,8 +381,8 @@ def context(scheme: str, n: int, t_bits: int | None = 20):
 
 
 def test_example_10_bfv_matmul_flow():
-    """examples/10_bfv_matmul.py on the port, without its wire format
-    (ROADMAP A12): 8 x 32 x 16 at n = 4096."""
+    """examples/10_bfv_matmul.py on the port without its wire format (the
+    wire: tests/test_torch_wire.py): 8 x 32 x 16 at n = 4096."""
     n = 4096
     ctx, _, encryptor, decryptor, evaluator = context("BFV", n)
     adapter = BatchEncoderAdapter(BatchEncoder(ctx))

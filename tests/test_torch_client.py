@@ -40,6 +40,7 @@ from troy_tpu_torch.core.plaintext import Plaintext
 from troy_tpu_torch.core.evaluator import Evaluator
 from troy_tpu_torch.core.ciphertext import Ciphertext
 from troy_tpu_torch.core.rlwe import _symmetric_combine, _asymmetric_combine
+from troy_tpu_torch.utils.random import RandomGenerator
 
 N, BITS, LOG_T = 1024, [30, 30, 30, 30], 20
 RNG = np.random.default_rng(31)
@@ -251,8 +252,11 @@ def test_encryptor_needs_its_key(both):
         encr.encrypt_zero_asymmetric()
     with pytest.raises(ValueError, match="secret key"):
         encr.encrypt_zero_symmetric()
-    with pytest.raises(ValueError, match="Generator"):
-        Encryptor(both.tc, both.sk)
+    # without a generator or a context seed: a threefry stream under a
+    # fresh 128-bit seed, as the JAX package draws one
+    a, b = Encryptor(both.tc, both.sk).generator, Encryptor(both.tc, both.sk).generator
+    assert isinstance(a, RandomGenerator) and a.mode == "threefry" and a.domain == "encryptor"
+    assert a.seed != b.seed and max(a.seed, b.seed) < 1 << 128
 
 
 def test_quickstart_flow_on_port():

@@ -36,6 +36,12 @@ def test_module_list_covers_the_app_slice():
         assert "troy_tpu_torch." + m in MODULES
 
 
+def test_module_list_covers_the_wire_slice():
+    for m in ("utils.random", "utils.serialize", "core.ciphertext", "core.ckks_encoder",
+              "parallel.batched", "app.matmul", "app.conv2d", "app.cipher2d"):
+        assert "troy_tpu_torch." + m in MODULES
+
+
 def test_import_leaves_jax_out():
     code = (
         "import sys, importlib\n"

@@ -1,9 +1,8 @@
 """Plain2d and Cipher2d: matrices of plaintext and ciphertext blocks
 (counterpart of troy_tpu/app/cipher2d.py), the containers of the matmul and
 conv2d helpers, with their elementwise homomorphic operations.
-
-Seeded symmetric encryption (save_seed=True) waits for the threefry
-sampler (ROADMAP A15).
+encrypt_symmetric(save_seed=True) gives seed-compressed ciphertexts, which
+serialize as (c0, seed) (utils/serialize.py).
 """
 
 from __future__ import annotations
@@ -28,11 +27,8 @@ class Plain2d:
         return Cipher2d([[encryptor.encrypt_asymmetric(p) for p in row] for row in self.data])
 
     def encrypt_symmetric(self, encryptor: Encryptor, save_seed: bool = False) -> "Cipher2d":
-        if save_seed:
-            raise NotImplementedError("[Plain2d.encrypt_symmetric] save_seed=True needs "
-                                      "seeded ciphertexts, which wait for the threefry "
-                                      "sampler (ROADMAP A15)")
-        return Cipher2d([[encryptor.encrypt_symmetric(p) for p in row] for row in self.data])
+        return Cipher2d([[encryptor.encrypt_symmetric(p, save_seed=save_seed) for p in row]
+                         for row in self.data])
 
 
 class Cipher2d:

@@ -11,8 +11,9 @@ block - kernel + 1), in the reference's layout:
   output pixel (i, j) of tile: coeff[(b*ci*co + oc*ci + ci-1)*bs
                       + (kh-1+i)*w_blk + (kw-1+j)]
 
-The wire format (serialize_outputs / deserialize_outputs) waits for the port
-of utils/serialize.py (ROADMAP A12); mesh= is not ported.
+The wire format (ref: conv2d.h:113-114, conv2d.cu:719-803) ships only the
+coefficients that carry output pixels (sparse save_terms), as MatmulHelper
+does; mesh= is not ported.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from .matmul import MatmulObjective, ceil_div
 from ..core.encryptor import Encryptor
 from ..core.decryptor import Decryptor
 from ..core.evaluator import Evaluator
+from ..utils import serialize as S
 
 
 class Conv2dHelper:
@@ -236,6 +238,17 @@ class Conv2dHelper:
         for eb, jg, mi, _ in self._positions():
             terms[eb][jg].append(mi)
         return [[sorted(cell) for cell in row] for row in terms]
+
+    def serialize_outputs(self, context, outputs: Cipher2d, mode=None) -> list[bytes]:
+        mode = S.CompressionMode.Nil if mode is None else mode
+        terms = self._required_terms()
+        return [S.save_ciphertext(c, context, mode, terms=terms[eb][jg])
+                for eb, row in enumerate(outputs.data) for jg, c in enumerate(row)]
+
+    def deserialize_outputs(self, context, blobs: list[bytes]) -> Cipher2d:
+        cts = [S.load_ciphertext(b, context) for b in blobs]
+        ocg = ceil_div(self.output_channels, self.output_channel_block)
+        return Cipher2d([cts[i:i + ocg] for i in range(0, len(cts), ocg)])
 
     def decrypt_outputs(self, adapter, decryptor: Decryptor, outputs: Cipher2d) -> np.ndarray:
         oyh = self.image_height - self.kernel_height + 1

@@ -14,9 +14,11 @@ inherent shift 2n - (ib-1).
 Objectives (ref: matmul.h:18): EncryptLeft (x encrypted, w plain),
 EncryptRight (w encrypted, x plain), Crossed (both encrypted).
 
-The wire format (serialize_outputs, deserialize_outputs and the encoded
-weights' pair) waits for the port of utils/serialize.py (ROADMAP A12); the
-JAX package's mesh= sharding is not ported.
+The wire format (ref: matmul.cu serialize_outputs / deserialize_outputs):
+unpacked outputs travel as sparse terms (save_ciphertext(terms=), only the
+coefficients that carry outputs), packed ones whole; the encoded weights as
+plaintexts.  The bytes are the JAX package's.  Its mesh= sharding is not
+ported.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from ..core.encryptor import Encryptor
 from ..core.decryptor import Decryptor
 from ..core.evaluator import Evaluator
 from ..core.keys import GaloisKeys
+from ..utils import serialize as S
 
 
 def ceil_div(a: int, b: int) -> int:
@@ -280,6 +283,37 @@ class MatmulHelper:
                  for j in range(lj, min(lj + ob, self.output_dims))]
                 for li in range(0, self.batch_size, bb)
                 for lj in range(0, self.output_dims, ob)]
+
+    def serialize_outputs(self, context, outputs: Cipher2d, mode=None) -> list[bytes]:
+        """One frame per output ciphertext: whole when packed, else the terms
+        of its block."""
+        mode = S.CompressionMode.Nil if mode is None else mode
+        if self.pack_lwe:
+            return [S.save_ciphertext(c, context, mode) for c in outputs[0]]
+        flat = [c for row in outputs.data for c in row]
+        return [S.save_ciphertext(c, context, mode, terms=t)
+                for c, t in zip(flat, self._required_terms())]
+
+    def deserialize_outputs(self, context, blobs: list[bytes]) -> Cipher2d:
+        cts = [S.load_ciphertext(b, context) for b in blobs]
+        if self.pack_lwe:
+            return Cipher2d([cts])
+        obc = ceil_div(self.output_dims, self.output_block)
+        return Cipher2d([cts[i:i + obc] for i in range(0, len(cts), obc)])
+
+    def serialize_encoded_weights(self, w: Plain2d, mode=None) -> list[bytes]:
+        mode = S.CompressionMode.Nil if mode is None else mode
+        return [S.save_plaintext(p, mode) for row in w.data for p in row]
+
+    def deserialize_encoded_weights(self, blobs: list[bytes], device) -> Plain2d:
+        """device: a HeContext or a device, where the plaintexts land."""
+        pts = [S.load_plaintext(b, device) for b in blobs]
+        ibc = ceil_div(self.input_dims, self.input_block)
+        obc = ceil_div(self.output_dims, self.output_block)
+        if len(pts) != ibc * obc:
+            raise ValueError(f"[MatmulHelper.deserialize_encoded_weights] {len(pts)} "
+                             f"plaintexts, expected {ibc * obc}")
+        return Plain2d([pts[i:i + obc] for i in range(0, len(pts), obc)])
 
     def decrypt_outputs(self, adapter, decryptor: Decryptor, outputs: Cipher2d) -> np.ndarray:
         cache: dict = {}

@@ -8,10 +8,11 @@ targets are s^k (relinearization keys), s(x^g) (Galois keys) or another
 secret (keyswitching keys).
 
 Randomness comes from a torch.Generator or a RandomGenerator (prng=; its
-"aes" mode draws the JAX package's bits), in the JAX package's order: the
+"threefry" and "aes" modes draw the JAX package's bits), in the JAX package's order: the
 secret key's ternary polynomial, then per switching key a (decomp, L_key, n)
-then e (decomp, n), times t for BGV.  With neither, a context created with a seed gives
-RandomGenerator(context.seed, "aes", domain="keygen").
+then e (decomp, n), times t for BGV.  With neither, the context's seed
+gives RandomGenerator(context.seed, "threefry", domain="keygen"), the JAX
+package's default stream (a fresh seed when the context has none).
 """
 
 from __future__ import annotations
@@ -24,14 +25,14 @@ from .ciphertext import Ciphertext
 from .rlwe import encrypt_zero_symmetric, _noise
 from ..ops import ntt as NTT, poly as P, u32 as U
 from ..ops.galois import GaloisTool
-from ..utils.random import RandomGenerator, sample_uniform, sample_ternary, stream
+from ..utils.random import RandomGenerator, sample_uniform, sample_ternary, stream, new_seed
 
 
 class KeyGenerator:
     def __init__(self, context: HeContext, generator: torch.Generator | None = None,
                  sk: SecretKey | None = None, prng: RandomGenerator | None = None):
         self.context = context
-        self.generator = stream(context.seed, generator, prng, "keygen", "KeyGenerator")
+        self.generator = stream(context.seed, generator, prng, "keygen")
         cd = context.key_context_data()
         if sk is None:
             qtab = cd.qtab()
@@ -52,10 +53,14 @@ class KeyGenerator:
                 self.secret_key_power(k - 1), self._sk.data, qtab)
         return self._sk_powers[k]
 
-    def create_public_key(self) -> PublicKey:
+    def create_public_key(self, save_seed: bool = False) -> PublicKey:
+        """With save_seed, the key's c1 is regenerated from a seed it keeps,
+        so that it serializes as (c0, seed)."""
         cd = self.context.key_context_data()
-        data = encrypt_zero_symmetric(cd, self._sk.data, self.generator, ntt_form=True)
-        return PublicKey(Ciphertext(data, cd.parms_id, is_ntt_form=True))
+        seed = new_seed(self.generator) if save_seed else None
+        data = encrypt_zero_symmetric(cd, self._sk.data, self.generator, ntt_form=True,
+                                      seed=seed)
+        return PublicKey(Ciphertext(data, cd.parms_id, is_ntt_form=True, seed=seed))
 
     def _generate_one_kswitch_key(self, target_ntt: torch.Tensor) -> torch.Tensor:
         cd = self.context.key_context_data()

@@ -7,6 +7,12 @@ e, e0, e1 centered binomial noise, times t for BGV (ref: rlwe.cu noise
 sampling), drawn first and then scaled so that the streams match the JAX
 package's.  The caller picks the domain: the coefficient domain for BFV, the
 NTT domain for CKKS and BGV.
+
+Under a threefry RandomGenerator each draw takes the next counter, so the
+draws are those of the JAX package's fused kernels (troy_tpu/core/rlwe.py:
+91-173): a symmetric encryption takes a then e (2 counters), or e alone (1)
+when seeded, an asymmetric one u, e0, e1 (3).  A seeded symmetric
+encryption takes a = uniform_from_seed(seed) in NTT form, in every mode.
 """
 
 from __future__ import annotations
@@ -16,7 +22,7 @@ import torch
 from .context import ContextData
 from .params import SchemeType
 from ..ops import ntt as NTT, poly as P
-from ..utils.random import sample_uniform, sample_cbd, sample_ternary
+from ..utils.random import sample_uniform, sample_cbd, sample_ternary, uniform_from_seed
 
 
 def _noise(cd: ContextData, shape_n, qtab, generator) -> torch.Tensor:
@@ -47,8 +53,10 @@ def _asymmetric_combine(cd: ContextData, pk_data: torch.Tensor, u_coeff: torch.T
     """c = (pk0*u + e0, pk1*u + e1) from given u, e0, e1 (coefficient form);
     pk_data (2, L_key, n) in NTT form, cut to this level's limbs."""
     qtab = cd.qtab()
-    pk = pk_data[..., :cd.coeff_modulus_size, :]
+    L = cd.coeff_modulus_size
     u_ntt = NTT.ntt_forward(u_coeff, qtab)
+    # pk (2, L, n) against u's leading batch axes
+    pk = pk_data[..., :L, :].reshape(2, *(1,) * (u_ntt.dim() - 2), L, -1)
     c = P.dyadic_product(pk, u_ntt[None], qtab)
     e = torch.stack([e0, e1])
     if ntt_form:
@@ -56,18 +64,22 @@ def _asymmetric_combine(cd: ContextData, pk_data: torch.Tensor, u_coeff: torch.T
     return P.add(NTT.ntt_inverse(c, qtab), e, qtab)
 
 
-def encrypt_zero_symmetric(cd: ContextData, sk_data: torch.Tensor,
-                           generator: torch.Generator, ntt_form: bool) -> torch.Tensor:
-    """(2, L, n) encryption of zero under s at cd's level."""
+def encrypt_zero_symmetric(cd: ContextData, sk_data: torch.Tensor, generator,
+                           ntt_form: bool, seed: int | None = None) -> torch.Tensor:
+    """(2, L, n) encryption of zero under s at cd's level; with a seed, c1
+    is regenerated from it (the compressed-ciphertext contract,
+    ciphertext.h:255)."""
     qtab = cd.qtab()
     n = cd.parms.poly_modulus_degree
-    a_ntt = sample_uniform((cd.coeff_modulus_size, n), qtab, generator)
+    shape = (cd.coeff_modulus_size, n)
+    a_ntt = (sample_uniform(shape, qtab, generator) if seed is None
+             else uniform_from_seed(seed, shape, qtab))
     e = _noise(cd, (n,), qtab, generator)
     return _symmetric_combine(cd, sk_data, a_ntt, e, ntt_form)
 
 
-def encrypt_zero_asymmetric(cd: ContextData, pk_data: torch.Tensor,
-                            generator: torch.Generator, ntt_form: bool) -> torch.Tensor:
+def encrypt_zero_asymmetric(cd: ContextData, pk_data: torch.Tensor, generator,
+                            ntt_form: bool) -> torch.Tensor:
     """(2, L, n) encryption of zero under pk at cd's level; draws u, then e0,
     then e1, in the JAX package's order."""
     qtab = cd.qtab()

@@ -10,18 +10,26 @@ dyadic product, relinearization and the Galois rounds keyswitch with
 NTT-form output; the CKKS mod switch drops the last limb, the BGV one
 divides by it keeping the payload mod t.  Scales, correction factors and
 levels are the object API's concern; the steps return raw residues.
+
+BatchedClient builds the client's steps on the same layout: a batch of
+encryptions under the public or the secret key, a batch decrypt, and the
+BFV/BGV batch encode and decode (an NTT mod t).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..core.context import ContextData
+from ..core.context import ContextData, HeContext
+from ..core.encryptor import Encryptor
 from ..core.evaluator import Evaluator
 from ..core.params import SchemeType
-from ..ops import dyadic as D, ntt as NTT, poly as P
+from ..core.rlwe import _asymmetric_combine, _symmetric_combine
+from ..ops import dyadic as D, ntt as NTT, poly as P, u32 as U
 from ..ops.galois import GaloisTool
 from ..utils.numth import naf
+from ..utils.random import (cbd_from_keys, fold_in_keys, ternary_from_keys,
+                            uniform_from_keys)
 
 
 class BatchedEvaluator:
@@ -139,3 +147,140 @@ class BatchedEvaluator:
             qtab = cd.qtab()
             return lambda d: cd.rns_tool.mod_t_and_divide_q_last_ntt(d, qtab)
         return cd.rns_tool.divide_and_round_q_last
+
+
+class BatchedClient:
+    """The client's operations as step functions on stacked (B, ...)
+    tensors (counterpart of troy_tpu/parallel/batched.py:210-375; ref:
+    test/bench/he_operations.cu:15-50, rlwe.cu, batch_encoder.cu:169-228).
+
+    An encrypt step draws fresh randomness each call by folding a probe of
+    the chained state (its first word, read on the device: no host sync)
+    into the threefry base keys, then the counters 0, 1, 2 of that key pair,
+    as the JAX package's step does: so a chain of steps times fresh
+    encryptions and equals the JAX package's chain bit for bit."""
+
+    def __init__(self, context: HeContext, cd: ContextData):
+        self.context = context
+        self.cd = cd
+        self.ntt_form = cd.parms.scheme in (SchemeType.CKKS, SchemeType.BGV)
+        # build the level's tables now, outside any timed step
+        cd.qtab()
+        if cd.parms.scheme != SchemeType.CKKS:
+            cd.rns_tool
+            cd.scaler
+
+    @staticmethod
+    def _probe(cur: torch.Tensor) -> torch.Tensor:
+        """One 32-bit word of the chained state, a 0-d device tensor."""
+        return cur.reshape(-1)[0]
+
+    def _noise(self, keys, shape_n) -> torch.Tensor:
+        e = cbd_from_keys(keys, shape_n, self.cd.qtab())
+        if self.cd.parms.scheme == SchemeType.BGV:
+            e = P.multiply_scalar(e, self.cd.parms.plain_modulus.value, self.cd.qtab())
+        return e
+
+    def _payload(self, plain_data, plain_ntt: bool, is_rns: bool):
+        return (None if plain_data is None
+                else Encryptor.plain_payload(self.cd, plain_data, 1, is_rns, plain_ntt))
+
+    def _add_payload(self, out: torch.Tensor, m) -> torch.Tensor:
+        if m is None:
+            return out
+        return torch.stack([P.add(out[:, 0], m, self.cd.qtab()), out[:, 1]], dim=1)
+
+    def build_encrypt_asymmetric_step(self, base_keys, plain_data=None,
+                                      plain_ntt: bool = False, is_rns: bool = False):
+        """Returns fn (cur, pk_data) -> (B, 2, L, n): B = cur.shape[0] fresh
+        encryptions under the public key of plain_data (or of zero)."""
+        n = self.cd.parms.poly_modulus_degree
+        m = self._payload(plain_data, plain_ntt, is_rns)
+
+        def step(cur, pk):
+            B = cur.shape[0]
+            kc = fold_in_keys(base_keys, self._probe(cur))
+            u = ternary_from_keys(fold_in_keys(kc, 0), (B, n), self.cd.qtab())
+            e0 = self._noise(fold_in_keys(kc, 1), (B, n))
+            e1 = self._noise(fold_in_keys(kc, 2), (B, n))
+            out = _asymmetric_combine(self.cd, pk, u, e0, e1, self.ntt_form)
+            return self._add_payload(out.transpose(0, 1), m)
+
+        return step
+
+    def build_encrypt_symmetric_step(self, base_keys, plain_data=None,
+                                     plain_ntt: bool = False, is_rns: bool = False):
+        """Returns fn (cur, sk_data) -> (B, 2, L, n): fresh encryptions under
+        the secret key."""
+        L, n = self.cd.coeff_modulus_size, self.cd.parms.poly_modulus_degree
+        m = self._payload(plain_data, plain_ntt, is_rns)
+
+        def step(cur, sk):
+            B = cur.shape[0]
+            kc = fold_in_keys(base_keys, self._probe(cur))
+            a = uniform_from_keys(fold_in_keys(kc, 0), (B, L, n), self.cd.qtab())
+            e = self._noise(fold_in_keys(kc, 1), (B, n))
+            out = _symmetric_combine(self.cd, sk, a, e, self.ntt_form)
+            return self._add_payload(out.transpose(0, 1), m)
+
+        return step
+
+    def build_decrypt_step(self, sk_pows, size: int = 2, inv_cf: int = 1):
+        """Returns fn cur -> plaintexts: cur (B, size, L, n) at this level,
+        sk_pows [s, s^2, ...] at the key level.  BFV and BGV give (B, n)
+        mod t (BGV times inv_cf), CKKS the (B, L, n) NTT-form phase."""
+        cd, qtab = self.cd, self.cd.qtab()
+        L = cd.coeff_modulus_size
+        scheme = cd.parms.scheme
+
+        def phase(cur):
+            if self.ntt_form:
+                acc = cur[:, 0]
+                for i in range(1, size):
+                    acc = P.add(acc, P.dyadic_product(cur[:, i], sk_pows[i - 1][..., :L, :],
+                                                      qtab), qtab)
+                return acc
+            acc = None
+            for i in range(1, size):
+                term = P.dyadic_product(NTT.ntt_forward(cur[:, i].contiguous(), qtab),
+                                        sk_pows[i - 1][..., :L, :], qtab)
+                acc = term if acc is None else P.add(acc, term, qtab)
+            return P.add(NTT.ntt_inverse(acc, qtab), cur[:, 0], qtab)
+
+        if scheme == SchemeType.BFV:
+            return lambda cur: cd.rns_tool.decrypt_scale_and_round(phase(cur))
+        if scheme == SchemeType.CKKS:
+            return phase
+        t = cd.parms.plain_modulus.value
+
+        def bgv_step(cur):
+            m = cd.rns_tool.decrypt_mod_t(NTT.ntt_inverse(phase(cur), qtab))
+            return U.mul_mod(m, inv_cf, t)
+
+        return bgv_step
+
+    @staticmethod
+    def build_batch_encode_step(encoder):
+        """Returns fn vals -> coefficients: (B, n) slot values mod t to the
+        (B, n) coefficients, the slots scattered to their NTT positions and
+        an inverse NTT mod t (ref: batch_encoder.cu:169)."""
+        pos = encoder._slot_to_pos
+
+        def step(vals):
+            slots = torch.zeros_like(vals)
+            slots[..., pos] = vals
+            return NTT.ntt_inverse(slots[..., None, :], encoder.tables)[..., 0, :]
+
+        return step
+
+    @staticmethod
+    def build_batch_decode_step(encoder):
+        """Returns fn coeffs -> slot values: the forward NTT mod t, then the
+        gather."""
+        pos = encoder._slot_to_pos
+
+        def step(coeffs):
+            return NTT.ntt_forward(coeffs[..., None, :].contiguous(),
+                                   encoder.tables)[..., 0, :][..., pos]
+
+        return step
