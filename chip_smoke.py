@@ -18,8 +18,10 @@ a BFV multiply + relinearize at n = 65536, where
 the NTT and the fused tensor product take their two-launch routes; LWE
 extraction and packing on the BFV chain; the app layer's matmul and
 conv2d at the reference's app-bench sizes; the client's batched steps and
-the device CKKS encoder at bench.py's chain; and the client and the server
-over bytes (seed-compressed inputs, the helpers' wire format).  In phases:
+the device CKKS encoder at bench.py's chain; the client and the server
+over bytes (seed-compressed inputs, the helpers' wire format); the ring2k
+encoder at the app bench's ring2k sizes; and the wide path at bench.py's
+{60, 40, 40, 60} chain.  In phases:
 
   1. device   the card's name and power limit (fails without CUDA);
   2. build    nvcc builds every csrc/*.cu into one library under
@@ -34,13 +36,15 @@ over bytes (seed-compressed inputs, the helpers' wire format).  In phases:
               each launch also against its plain partial transform); the
               base conversion (K3) at every conversion of
               both lifts, the floor, Shenoy-Kumaresan and decrypt, at a
-              15 -> 9 contraction and at one input limb; the fused tensor
+              15 -> 9 contraction, at one input limb, and into ring2k's
+              {t, gamma} with t = 2^30 and 2^31 (output moduli past 2^30); the fused tensor
               product (K4, and its earlier radix-2 kernel, the yardstick of
               [times]) on lazy [0, 2q) input over base q and Bsk and at every
               degree 2 to 131072 (above 32768 its route through the NTT
               kernels and the tensor-product kernel, which is also held to
               dyadic_convolute).  Each wrapper refuses input its kernel
-              cannot take, and every degree above 131072;
+              cannot take, every degree above 131072, and a wide (40-60-bit)
+              modulus;
   4. main     keygen, encode, encrypt 16 distinct pairs; one HPS step and
               one BEHZ step.  Each must launch the NTT kernels and K3, equal
               the same step with every kernel dispatch (NTT.ntt_forward,
@@ -156,7 +160,35 @@ over bytes (seed-compressed inputs, the helpers' wire format).  In phases:
               frames byte for byte; the bytes on the wire, seeded against not,
               and each frame's mode byte; the automorphism keys and a seeded
               public key through the wire; threefry's time for one seed;
- 15. times    CUDA-event times of the chained steps against their all-plain
+ 15. ring2k   scripts/app_bench.py's ring2k configurations (n = 8192, 30-bit
+              primes, t = PlainModulus.batching(8192, 25), which ring2k
+              bypasses, seed 0xBEEF, EncryptLeft, inputs uniform below
+              min(2^k, 2^63) from numpy seed 7): the matmul 100 x 105 x 110
+              without packing at k = 32 (4 primes), 64 (6) and 128 (11), the
+              conv2d 4 x 3 x 32 x 32 -> 16, 3 x 3 at k = 64; then
+              examples/13_ring2k.py's flow on 16 messages at k = 24 and 31
+              (scale_up, encrypt, add_plain, decrypt_scale_down, whose {t,
+              gamma} conversion launches K3 into t = 2^k).  Each must launch
+              the NTT kernels (the helper flows K3 too), equal its all-plain
+              run and decrypt exactly to (x @ w), the convolution or m1 + m2
+              mod 2^k; each flow's time a call, launches, device time and
+              busy share;
+ 16. wide     bench.py's wide configuration (n = 8192, CoeffModulus.create(8192,
+              [60, 40, 40, 60]), batch 16, seed 0xBEEF, keys from the
+              context's threefry streams): the BFV multiply + relinearize step
+              (t = PlainModulus.batching(8192, 20)) and rotate_rows(1), the
+              CKKS multiply + relinearize + rescale and rotate_vector(1) at
+              scale 2^40, the BGV multiply + relinearize; the client's
+              symmetric and asymmetric encryptions and decrypt; one wide
+              ciphertext, seeded and not, over Zstd bytes.  No step may
+              launch a fast-path kernel (the wide NTT is int64 torch passes,
+              ops/ntt64.py); each decrypts or decodes right (CKKS by the
+              [ckks] tolerances at scale 2^40) and its ciphertext 0 equals the
+              same step run on the CPU bit for bit (the client's keys and
+              ciphertexts too); each step's chained time, launches, device
+              time, busy share, and the wide NTT's share of the launches and
+              device time (each of its calls timed alone);
+ 17. times    CUDA-event times of the chained steps against their all-plain
               versions (multiply + relinearize, the three rotations, the mod
               switch), the profiler's launches, device time, NTT kernel time
               and busy share of the HPS step and of one rotate_rows(1) and
@@ -531,8 +563,28 @@ def expect_refusals(label: str, fn, cases: dict):
 
 
 def phase_refusals(dev, t, bconv_tabs, big):
-    """Each wrapper raises, without launching, on input its kernel cannot take."""
+    """Each wrapper raises, without launching, on input its kernel cannot take,
+    a wide (40-60-bit) modulus included."""
     from troy_tpu_torch.ops import ntt_cuda, bconv_cuda, fused_mul_cuda
+    from troy_tpu_torch.ops.bconv import BConvTables
+    from troy_tpu_torch.ops.ntt64 import NTT64Tables
+    from troy_tpu_torch.core.coeff_modulus import CoeffModulus
+
+    wide = NTT64Tables(t.log_n, CoeffModulus.create(t.n, WIDE_BITS[:2]), dev)
+    xw = torch.zeros((2, wide.size, wide.n), dtype=torch.int64, device=dev)
+    expect_refusals("ntt_forward and ntt_inverse on wide tables",
+                    lambda v: ntt_cuda.ntt_forward(v, wide) + ntt_cuda.ntt_inverse(v, wide), {
+                        "wide moduli": (xw, ValueError)})
+    aw = torch.zeros((2, 2, wide.size, wide.n), dtype=torch.int64, device=dev)
+    expect_refusals("fused_negacyclic_multiply on wide tables",
+                    lambda v: fused_mul_cuda.fused_negacyclic_multiply(v, v, wide), {
+                        "wide moduli": (aw, ValueError)})
+    q31 = (1 << 31) - 1
+    tabs31 = BConvTables([q31], [1], [bconv_tabs.p_out.tolist()[0]], [[1]], dev)
+    expect_refusals("base_convert from a 31-bit input modulus",
+                    lambda v: bconv_cuda.base_convert(v, tabs31), {
+                        "input modulus >= 2^30": (
+                            torch.zeros((2, 1, N), dtype=torch.int64, device=dev), ValueError)})
 
     x = torch.zeros((2, t.size, t.n), dtype=torch.int64, device=dev)
     expect_refusals("ntt_forward", lambda v: ntt_cuda.ntt_forward(v, t), {
@@ -972,9 +1024,10 @@ def step_report(phase: str, gpu: str, label: str, fn, chained_ms: float, calls: 
 NOISE_SIGMA = (21 / 2) ** 0.5  # standard deviation of the centred binomial noise
 
 
-def ckks_noise(n: int, levels: int, q_max: int, q_special: int) -> dict:
+def ckks_noise(n: int, levels: int, q_max: int, q_special: int,
+               scale: float = CKKS_SCALE) -> dict:
     """Expected rms of one decoded slot's error after each CKKS step, at
-    scale 2^25 (a coefficient-domain error polynomial of coefficient
+    `scale` (2^25 by default; a coefficient-domain error polynomial of coefficient
     deviation d gives slots of rms d sqrt(n)); at n = 1024 the port's CPU
     run gives within 3% of these for fresh, multiplied and rescaled
     ciphertexts, and 1.7x below the rotation's:
@@ -993,18 +1046,18 @@ def ckks_noise(n: int, levels: int, q_max: int, q_special: int) -> dict:
     largest errors (2^-8.6 at n = 1024, where the CPU run's largest is
     2^-9.0)."""
     root_n = n ** 0.5
-    fresh = NOISE_SIGMA * root_n / CKKS_SCALE
+    fresh = NOISE_SIGMA * root_n / scale
     mul = (2 / 3) ** 0.5 * fresh
     rounding = ((1 + 2 * n / 3) / 12) ** 0.5
     keyswitch = (levels * n / 3) ** 0.5 * NOISE_SIGMA * q_max / q_special + rounding
     digit_mean = (levels ** 0.5 * q_max / 2 / q_special * (2 * n / np.pi) * NOISE_SIGMA
-                  * root_n / CKKS_SCALE)
+                  * root_n / scale)
     return {"mul": mul, "rounding": rounding * root_n, "digit_mean": digit_mean,
-            "rotate": (fresh ** 2 + (keyswitch * root_n / CKKS_SCALE) ** 2) ** 0.5}
+            "rotate": (fresh ** 2 + (keyswitch * root_n / scale) ** 2) ** 0.5}
 
 
 def check_ckks(label: str, out: torch.Tensor, parms_id, scale: float, expected,
-               rms: float, encoder, decryptor, peak: float = 0.0) -> float:
+               rms: float, encoder, decryptor, peak: float = 0.0, phase: str = "ckks") -> float:
     """Every ciphertext of the batch out decodes to its row of expected: the
     rms slot error within 4 times the expected rms `rms`, the largest within
     32 times it plus 4 times `peak`, the expected size of a noise term that
@@ -1019,13 +1072,14 @@ def check_ckks(label: str, out: torch.Tensor, parms_id, scale: float, expected,
         worst, sq, count = max(worst, float(diff.max())), sq + float((diff ** 2).sum()), count + diff.size
     got_rms = (sq / count) ** 0.5
     rms_tol, max_tol = 4 * rms, 32 * rms + 4 * peak
-    log(f"[ckks] {label}: all {out.shape[0]} ciphertexts decode (scale 2^{np.log2(scale):.2f}): "
+    log(f"[{phase}] {label}: all {out.shape[0]} ciphertexts decode (scale 2^{np.log2(scale):.2f}): "
         f"rms error 2^{np.log2(got_rms):.2f} against the tolerance 2^{np.log2(rms_tol):.2f} "
         f"(4 x the expected rms 2^{np.log2(rms):.2f}); max |err| {worst:.3e} = "
         f"2^{np.log2(worst):.2f} against {max_tol:.3e} = 2^{np.log2(max_tol):.2f} (32 x the rms"
         + (f" + 4 x the digit-mean term 2^{np.log2(peak):.2f})" if peak else ")"))
     if not (got_rms < rms_tol and worst < max_tol):
-        raise AssertionError(f"[ckks] {label}: decodes off: rms {got_rms:.3e}, max {worst:.3e}")
+        raise AssertionError(f"[{phase}] {label}: decodes off: rms {got_rms:.3e}, "
+                             f"max {worst:.3e}")
     return worst
 
 
@@ -2117,6 +2171,471 @@ def phase_wire(dev, gpu: str) -> dict:
     return dict(launches=launches, flows=flows, bytes=wire_bytes, threefry=threefry)
 
 
+RING2K_LIMBS = {32: 4, 64: 6, 128: 11}  # [ring2k]: app_bench.py's chains per k
+RING2K_SMALL = (24, 31)                 # [ring2k]: the int64 helper, K3 into t = 2^k
+RING2K_MESSAGES = 16
+RING2K_MATMUL, RING2K_CONV = APP_MATMUL, APP_CONV
+RING2K_LOG_T = 25                       # the context's t, which ring2k bypasses
+WIDE_BITS = [60, 40, 40, 60]            # [wide]: bench.py's wide chain
+WIDE_SCALE = 2.0 ** 40
+WIDE_PROFILE_STEPS = 2
+
+
+def ring2k_context(dev, limbs: int) -> dict:
+    """app_bench.py's ring2k context: n = N on `limbs` x 30-bit primes, t =
+    PlainModulus.batching(N, 25), seed KEY_SEED, keys and encryptions from
+    the context's default threefry streams."""
+    from troy_tpu_torch.core.params import EncryptionParameters, SchemeType
+    from troy_tpu_torch.core.coeff_modulus import CoeffModulus, PlainModulus, SecurityLevel
+    from troy_tpu_torch.core.context import HeContext
+    from troy_tpu_torch.core.keygen import KeyGenerator
+    from troy_tpu_torch.core.encryptor import Encryptor
+    from troy_tpu_torch.core.decryptor import Decryptor
+    from troy_tpu_torch.core.evaluator import Evaluator
+
+    parms = EncryptionParameters(SchemeType.BFV)
+    parms.set_poly_modulus_degree(N)
+    parms.set_coeff_modulus(CoeffModulus.create(N, [30] * limbs))
+    parms.set_plain_modulus(PlainModulus.batching(N, RING2K_LOG_T))
+    ctx = HeContext.create(parms, dev, SecurityLevel.Nil, seed=KEY_SEED)
+    keygen = KeyGenerator(ctx)
+    return dict(ctx=ctx, encryptor=Encryptor(ctx, sk=keygen.secret_key,
+                                             pk=keygen.create_public_key()),
+                decryptor=Decryptor(ctx, keygen.secret_key), ev=Evaluator(ctx))
+
+
+def t_gamma_tables(dev, k: int):
+    """K3's tables of the ring2k {t = 2^k, gamma} conversion at app_bench.py's
+    4 x 30-bit chain (the gamma the encoder picks)."""
+    from troy_tpu_torch.core.coeff_modulus import CoeffModulus
+    from troy_tpu_torch.core.modulus import Modulus
+    from troy_tpu_torch.rns.rns_base import RNSBase, BaseConverter
+    from troy_tpu_torch.rns.rns_tool import _aux_primes
+
+    q = CoeffModulus.create(N, [30] * 4)[:3]
+    gamma = _aux_primes(N, {m.value for m in q}, 1, need_ntt=False)[0]
+    return BaseConverter(RNSBase(q, dev), RNSBase([Modulus(1 << k), Modulus(gamma)],
+                                                  dev)).tables
+
+
+def phase_ring2k(dev, gpu: str) -> dict:
+    """scripts/app_bench.py's ring2k configurations (TROY_APP_SCHEME=ring2k{32,
+    64,128}), read as data: n = N, 30-bit primes, seed KEY_SEED, EncryptLeft,
+    inputs uniform below min(2^k, 2^63) from numpy seed MSG_SEED; the matmul
+    100 x 105 x 110 without packing at k = 32, 64 and 128, the conv2d at k =
+    64; then the int64 helper (examples/13_ring2k.py's flow) on 16 messages
+    at k = 24 and 31, whose decrypt runs K3 into t = 2^k."""
+    from troy_tpu_torch.app.cipher2d import Cipher2d
+    from troy_tpu_torch.app.conv2d import Conv2dHelper
+    from troy_tpu_torch.app.encoder_adapter import Ring2kEncoderAdapter
+    from troy_tpu_torch.app.matmul import MatmulHelper, MatmulObjective
+    from troy_tpu_torch.app.ring2k import PolynomialEncoderRing2k
+
+    need = ("ntt_forward", "ntt_inverse")
+    launches, flows, ctxs = {}, {}, {}
+    B, I, O = RING2K_MATMUL
+
+    def context(limbs):
+        if limbs not in ctxs:
+            t0 = time.perf_counter()
+            ctxs[limbs] = ring2k_context(dev, limbs)
+            torch.cuda.synchronize()
+            log(f"[ring2k] context n={N}, {limbs} x 30-bit primes, seed {KEY_SEED:#x}: keys "
+                f"in {time.perf_counter() - t0:.3f} s")
+        return ctxs[limbs]
+
+    def stacked(y):
+        return torch.stack([c.data for row in y.data for c in row])
+
+    def oracle_mod(prod, k):
+        return np.vectorize(lambda v: int(v) & ((1 << k) - 1), otypes=[object])(prod)
+
+    for k, limbs in RING2K_LIMBS.items():
+        c = context(limbs)
+        ad = Ring2kEncoderAdapter(PolynomialEncoderRing2k(c["ctx"], k))
+        rng = np.random.default_rng(MSG_SEED)
+        hi = min(1 << k, 1 << 63)
+        x = rng.integers(0, hi, (B, I), dtype=np.uint64)
+        w = rng.integers(0, hi, (I, O), dtype=np.uint64)
+        helper = MatmulHelper(B, I, O, N, MatmulObjective.EncryptLeft, pack_lwe=False)
+        t0 = time.perf_counter()
+        x_enc = helper.encrypt_inputs(c["encryptor"], ad, x)
+        w_enc = helper.encode_weights(ad, w)
+        torch.cuda.synchronize()
+        label = f"ring2k k={k} matmul {B} x {I} x {O} on {limbs} primes"
+        log(f"[ring2k] {label}: blocks (batch, input, output) = ({helper.batch_block}, "
+            f"{helper.input_block}, {helper.output_block}); scale_up and encrypt of "
+            f"{sum(len(r) for r in x_enc.data)} inputs, centralize of "
+            f"{sum(len(r) for r in w_enc.data)} weights in {time.perf_counter() - t0:.3f} s")
+        holder = {}
+
+        def flow(helper=helper, x_enc=x_enc, w_enc=w_enc, ev=c["ev"], holder=holder):
+            holder["y"] = helper.matmul(ev, x_enc, w_enc)
+            return stacked(holder["y"])
+
+        _, launches[f"matmul k={k}"] = run_step("ring2k", label, flow, need)
+        got = oracle_mod(helper.decrypt_outputs(ad, c["decryptor"], holder["y"]), k)
+        want = oracle_mod(x.astype(object) @ w.astype(object), k)
+        if not np.array_equal(got, want):
+            raise AssertionError(f"[ring2k] {label} decrypts wrong")
+        log(f"[ring2k] {label}: decrypts to (x @ w) mod 2^{k} exactly, {got.shape} outputs")
+        flows[f"matmul k={k}"] = flow_report("ring2k", gpu, label, flow)
+
+    # the conv2d at k = 64, the CIFAR-like layer
+    k = 64
+    c = context(RING2K_LIMBS[k])
+    ad = Ring2kEncoderAdapter(PolynomialEncoderRing2k(c["ctx"], k))
+    Bc, Ci, Co, H, W, kh, kw = RING2K_CONV
+    rng = np.random.default_rng(MSG_SEED)
+    xc = rng.integers(0, 1 << 63, (Bc, Ci, H, W), dtype=np.uint64)
+    kc = rng.integers(0, 1 << 63, (Co, Ci, kh, kw), dtype=np.uint64)
+    conv = Conv2dHelper(Bc, Ci, Co, H, W, kh, kw, N, MatmulObjective.EncryptLeft)
+    xc_enc = conv.encrypt_inputs(c["encryptor"], ad, xc)
+    kc_enc = conv.encode_weights(ad, kc)
+    label = f"ring2k k=64 conv2d {Bc} x {Ci} x {H} x {W} -> {Co}, {kh} x {kw}"
+    holder = {}
+
+    def conv_flow():
+        holder["y"] = conv.conv2d(c["ev"], xc_enc, kc_enc)
+        return stacked(holder["y"])
+
+    _, launches["conv2d k=64"] = run_step("ring2k", label, conv_flow, need)
+    got = conv.decrypt_outputs(ad, c["decryptor"], holder["y"]).astype(np.uint64)
+    windows = np.lib.stride_tricks.sliding_window_view(xc, (kh, kw), axis=(2, 3))
+    want = np.einsum("bchwij,ocij->bohw", windows, kc)   # uint64: exact mod 2^64
+    if not np.array_equal(got, want):
+        raise AssertionError(f"[ring2k] {label} decrypts wrong")
+    log(f"[ring2k] {label}: decrypts to the valid convolution mod 2^64 exactly, "
+        f"{got.shape} outputs")
+    flows["conv2d k=64"] = flow_report("ring2k", gpu, label, conv_flow)
+
+    # the int64 helper: scale_up, encrypt, add_plain, decrypt_scale_down
+    c = context(4)
+    for k in RING2K_SMALL:
+        enc = PolynomialEncoderRing2k(c["ctx"], k)
+        rng = np.random.default_rng(MSG_SEED)
+        m1 = rng.integers(0, 1 << k, (RING2K_MESSAGES, N), dtype=np.uint64)
+        m2 = rng.integers(0, 1 << k, (RING2K_MESSAGES, N), dtype=np.uint64)
+        cts = [c["encryptor"].encrypt_asymmetric(enc.scale_up(m)) for m in m1]
+        label = (f"ring2k k={k} int64 helper, {RING2K_MESSAGES} messages: add_plain of "
+                 f"scale_up(m2), decrypt_scale_down (K3 into t = 2^{k})")
+
+        def u32_flow(enc=enc, cts=cts, m2=m2):
+            return torch.from_numpy(np.stack([
+                enc.decrypt_scale_down(c["decryptor"], c["ev"].add_plain(ct, enc.scale_up(m)))
+                for ct, m in zip(cts, m2)]).astype(np.int64))
+
+        out, launches[f"helper k={k}"] = run_step("ring2k", label, u32_flow,
+                                                  need + ("base_convert",))
+        if not np.array_equal(out.numpy(), ((m1 + m2) & np.uint64((1 << k) - 1)).astype(np.int64)):
+            raise AssertionError(f"[ring2k] {label} decrypts wrong")
+        log(f"[ring2k] {label}: every message decrypts to (m1 + m2) mod 2^{k}")
+        flows[f"helper k={k}"] = flow_report("ring2k", gpu, label, u32_flow, reps=1)
+    return dict(launches=launches, flows=flows)
+
+
+def wide_context(dev, scheme: str) -> dict:
+    """bench.py's wide configuration on dev: n = N on [60, 40, 40, 60], t =
+    PlainModulus.batching(N, 20) but for CKKS, seed KEY_SEED, every key from
+    the context's default threefry streams."""
+    c = seeded_context(dev, scheme, WIDE_BITS)
+    from troy_tpu_torch.core.encryptor import Encryptor
+
+    c["pk"] = c["keygen"].create_public_key()
+    c["encryptor"] = Encryptor(c["ctx"], sk=c["keygen"].secret_key, pk=c["pk"])
+    return c
+
+
+def record_wide_ntt(fn) -> list:
+    """fn() once with the wide NTT recording each call's direction, shape
+    and tables."""
+    from contextlib import ExitStack
+    from troy_tpu_torch.ops import ntt64 as N64
+
+    calls = []
+
+    def recording(name, impl):
+        def call(x, t):
+            calls.append((name, tuple(x.shape), t))
+            return impl(x, t)
+        return call
+
+    with ExitStack() as stack:
+        for name in ("ntt_forward64", "ntt_inverse64"):
+            stack.enter_context(mock.patch.object(N64, name, recording(name, getattr(N64, name))))
+        fn()
+    torch.cuda.synchronize()
+    return calls
+
+
+def wide_ntt_cost(name: str, shape, t, cache: dict) -> tuple[float, float]:
+    """Launches and device ms of one wide NTT call (the profiler, 2 calls)."""
+    from troy_tpu_torch.ops import ntt64 as N64
+
+    key = (name, shape, id(t))
+    if key not in cache:
+        x = residues(shape, t.q, torch.Generator(device=t.q.device).manual_seed(9))
+        prof = profile_step(lambda: getattr(N64, name)(x, t), 2)
+        cache[key] = (prof["launches"], prof["ms"])
+    return cache[key]
+
+
+def wide_step(label: str, fn) -> tuple[torch.Tensor, dict]:
+    """fn() once with the launch counts set to 0 just before and read just
+    after: a wide step launches none of the fast path's kernels."""
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    log(f"[wide] {label} -> {tuple(out.shape)} in {time.perf_counter() - t0:.3f} s; "
+        f"kernel launches {counts}")
+    if any(counts.values()):
+        raise AssertionError(f"[wide] {label} launched a fast-path kernel")
+    return out, counts
+
+
+def same_on_cpu(label: str, out0: torch.Tensor, cpu_fn):
+    """Ciphertext 0 of a card step equals the same step run on the CPU."""
+    t0 = time.perf_counter()
+    ref = cpu_fn()
+    if not torch.equal(out0.cpu(), ref):
+        bad = int((out0.cpu() != ref).sum())
+        raise AssertionError(f"[wide] {label}: card != CPU at {bad} residues of ciphertext 0")
+    log(f"[wide] {label}: ciphertext 0 equals the same step on the CPU bit for bit "
+        f"({time.perf_counter() - t0:.3f} s of CPU time)")
+
+
+def wide_report(gpu: str, label: str, fn, chain, first, ntt_cache: dict) -> dict:
+    """A wide step's chained (or repeated) event-timed ms, the profiler's
+    launches, device ms and busy share, and the wide NTT's share of both
+    (its calls recorded, each timed alone)."""
+    for _ in range(2):
+        fn()
+    state = {"cur": first}
+
+    def call():
+        if chain is None:
+            fn()
+        else:
+            state["cur"] = chain(state["cur"])
+
+    ms = cuda_ms(call, 3)
+    prof = profile_step(fn, WIDE_PROFILE_STEPS)
+    calls = record_wide_ntt(fn)
+    costs = [wide_ntt_cost(name, shape, t, ntt_cache) for name, shape, t in calls]
+    ntt_n, ntt_ms = sum(c[0] for c in costs), sum(c[1] for c in costs)
+    log(f"[wide] {gpu}: {label}: {'chained' if chain else 'repeated'} {ms:.4f} ms a step; "
+        f"profiler, {WIDE_PROFILE_STEPS} steps: {prof['launches']:.0f} kernel launches and "
+        f"{prof['ms']:.4f} ms of device kernel time a step, busy share "
+        f"{100 * prof['ms'] / ms:.1f}%; the wide NTT: {len(calls)} calls, {ntt_n:.0f} "
+        f"launches ({100 * ntt_n / max(prof['launches'], 1):.1f}% of the step's) and "
+        f"{ntt_ms:.4f} ms ({100 * ntt_ms / max(prof['ms'], 1e-9):.1f}% of its device time)")
+    return dict(ms=ms, launches=prof["launches"], device_ms=prof["ms"], ntt_calls=len(calls),
+                ntt_launches=ntt_n, ntt_ms=ntt_ms)
+
+
+def phase_wide(dev, gpu: str) -> dict:
+    """bench.py's wide configuration (n = N, [60, 40, 40, 60], batch 16, seed
+    KEY_SEED, keys from the context's threefry streams): the BFV multiply +
+    relinearize step and rotate_rows(1), CKKS multiply + relinearize +
+    rescale and rotate_vector(1) at scale 2^40, BGV multiply + relinearize;
+    the client's encryptions against a CPU twin; a wide ciphertext over
+    bytes.  No step may launch a fast-path kernel; ciphertext 0 of each
+    equals the CPU's run of the step."""
+    from troy_tpu_torch.core.batch_encoder import BatchEncoder
+    from troy_tpu_torch.core.ciphertext import Ciphertext
+    from troy_tpu_torch.core.ckks_encoder import CKKSEncoder
+    from troy_tpu_torch.core.encryptor import Encryptor
+    from troy_tpu_torch.core.evaluator import Evaluator
+    from troy_tpu_torch.core.keygen import KeyGenerator
+    from troy_tpu_torch.ops.galois import GaloisTool
+    from troy_tpu_torch.parallel.batched import BatchedEvaluator
+    from troy_tpu_torch.utils import serialize as S
+
+    cpu = torch.device("cpu")
+    launches, reports, ntt_cache = {}, {}, {}
+    rng = np.random.default_rng(MSG_SEED)
+
+    def twin(c):
+        """The same context on the CPU, its level's batched evaluator."""
+        ctx = seeded_context(cpu, c["ctx"].scheme.name, WIDE_BITS)["ctx"]
+        return ctx, BatchedEvaluator(Evaluator(ctx), ctx.first_context_data())
+
+    # ---- BFV: multiply + relinearize, rotate_rows(1)
+    t0 = time.perf_counter()
+    c = wide_context(dev, "BFV")
+    cd = c["ctx"].first_context_data()
+    encoder = BatchEncoder(c["ctx"])
+    t_val = encoder.t.value
+    rlk = c["keygen"].create_relin_keys().key(2)
+    batched = BatchedEvaluator(c["ev"], cd)
+    rot, rot_elts = batched.build_rotate_rows_step(1)
+    glk = c["keygen"].create_galois_keys_from_elements(rot_elts)
+    rot_keys = tuple(glk.key(e) for e in rot_elts)
+    msgs = rng.integers(0, t_val, (2 * BATCH, N), dtype=np.int64)
+    cts = [c["encryptor"].encrypt_symmetric(encoder.encode(m)).data for m in msgs]
+    d1, d2 = torch.stack(cts[:BATCH]), torch.stack(cts[BATCH:])
+    torch.cuda.synchronize()
+    primes = [m.value for m in c["ctx"].key_context_data().parms.coeff_modulus]
+    log(f"[wide] BFV context n={N}, primes {primes} ({[p.bit_length() for p in primes]} "
+        f"bits), t={t_val}, |Bsk|={cd.rns_tool.base_Bsk.size}, seed {KEY_SEED:#x}: keys and "
+        f"{2 * BATCH} symmetric encryptions {tuple(d1.shape)} in {time.perf_counter() - t0:.3f} s")
+    mul = batched.build_mul_relin_step(rlk)
+    label = f"BFV multiply + relinearize step {tuple(d1.shape)} x {tuple(d2.shape)}"
+    out, launches["bfv_mul"] = wide_step(label, lambda: mul(d1, d2, rlk))
+    expected = (msgs[:BATCH].astype(object) * msgs[BATCH:]) % t_val
+    for b in range(BATCH):
+        got = encoder.decode(c["decryptor"].decrypt(Ciphertext(out[b], cd.parms_id)))
+        if not np.array_equal(got.cpu().numpy(), np.asarray(expected[b], np.int64)):
+            raise AssertionError(f"[wide] {label}: ciphertext {b} decrypts wrong")
+    budget = c["decryptor"].invariant_noise_budget(Ciphertext(out[0], cd.parms_id))
+    log(f"[wide] {label}: all {BATCH} products decrypt to m1 * m2 mod t; noise budget of "
+        f"product 0: {budget} bits")
+    if budget <= 0:
+        raise AssertionError(f"[wide] {label}: no noise budget left")
+    cpu_ctx, cpu_b = twin(c)
+    same_on_cpu(label, out[:1], lambda: cpu_b.build_mul_relin_step(rlk.cpu())(
+        d1[:1].cpu(), d2[:1].cpu(), rlk.cpu()))
+    reports["BFV multiply + relinearize"] = wide_report(
+        gpu, label, lambda: mul(d1, d2, rlk), lambda d: mul(d, d2, rlk), d1, ntt_cache)
+    label = f"BFV rotate_rows(1) step {tuple(d1.shape)}, elements {rot_elts}"
+    out, launches["bfv_rotate"] = wide_step(label, lambda: rot(d1, rot_keys))
+    h = N // 2
+    for b in range(BATCH):
+        got = encoder.decode(c["decryptor"].decrypt(Ciphertext(out[b], cd.parms_id)))
+        m = msgs[b]
+        if not np.array_equal(got.cpu().numpy(), np.concatenate([np.roll(m[:h], -1),
+                                                                 np.roll(m[h:], -1)])):
+            raise AssertionError(f"[wide] {label}: ciphertext {b} decrypts wrong")
+    log(f"[wide] {label}: all {BATCH} decrypt to the rotated rows")
+    same_on_cpu(label, out[:1], lambda: cpu_b.build_rotate_rows_step(1)[0](
+        d1[:1].cpu(), tuple(k.cpu() for k in rot_keys)))
+    reports["BFV rotate_rows(1)"] = wide_report(
+        gpu, label, lambda: rot(d1, rot_keys), lambda d: rot(d, rot_keys), d1, ntt_cache)
+    for name in ("ntt_forward64", "ntt_inverse64"):
+        shape = (BATCH, 2, cd.coeff_modulus_size, N)
+        n_l, n_ms = wide_ntt_cost(name, shape, cd.qtab(), ntt_cache)
+        log(f"[wide] {gpu}: the wide NTT alone, {name} at {shape}: int64 torch passes, "
+            f"{n_l:.0f} launches and {n_ms:.4f} ms of device time a transform (profiler)")
+
+    # ---- the client: threefry streams on the card against a CPU twin; the wire
+    kg_cpu = KeyGenerator(cpu_ctx)
+    if not (torch.equal(kg_cpu.secret_key.data, c["keygen"].secret_key.data.cpu())):
+        raise AssertionError("[wide] the CPU twin's secret key differs")
+    pk_cpu = kg_cpu.create_public_key()
+    if not torch.equal(pk_cpu.data(), c["pk"].data().cpu()):
+        raise AssertionError("[wide] the CPU twin's public key differs")
+    enc_gpu = Encryptor(c["ctx"], sk=c["keygen"].secret_key, pk=c["pk"])
+    enc_cpu = Encryptor(cpu_ctx, sk=kg_cpu.secret_key, pk=pk_cpu)
+    m = msgs[0]
+    pt_gpu, pt_cpu = encoder.encode(m), BatchEncoder(cpu_ctx).encode(m)
+    for kind in ("symmetric", "asymmetric"):
+        label = f"client encrypt_{kind}"
+        reset_launch_counts()
+        ct = getattr(enc_gpu, f"encrypt_{kind}")(pt_gpu)
+        torch.cuda.synchronize()
+        launches[f"client_{kind}"] = launch_counts()
+        if any(launches[f"client_{kind}"].values()):
+            raise AssertionError(f"[wide] {label} launched a fast-path kernel")
+        same_on_cpu(label, ct.data, lambda: getattr(enc_cpu, f"encrypt_{kind}")(pt_cpu).data)
+        got = encoder.decode(c["decryptor"].decrypt(ct)).cpu().numpy()
+        if not np.array_equal(got, m):
+            raise AssertionError(f"[wide] {label} decrypts wrong")
+        log(f"[wide] {label}: keys and ciphertext from the context's threefry streams equal "
+            f"the CPU's; decrypts to the message")
+    unseeded = enc_gpu.encrypt_symmetric(pt_gpu)
+    seeded = enc_gpu.encrypt_symmetric(pt_gpu, save_seed=True)
+    reset_launch_counts()
+    for label, ct in (("unseeded", unseeded), ("seeded", seeded)):
+        raw = S.save_ciphertext(ct, c["ctx"], S.CompressionMode.Zstd)
+        back = S.load_ciphertext(raw, c["ctx"])
+        if not torch.equal(back.data, ct.data) or back.data.device != ct.data.device:
+            raise AssertionError(f"[wide] wire: the {label} ciphertext loads back different")
+        log(f"[wide] wire: the {label} wide ciphertext {tuple(ct.data.shape)}, Zstd: "
+            f"{len(raw)} bytes (bound {S.ciphertext_size_upperbound(ct)}), loaded back on the "
+            f"card equal")
+    torch.cuda.synchronize()
+    launches["wire"] = launch_counts()
+    if any(launches["wire"].values()):
+        raise AssertionError("[wide] the wire launched a fast-path kernel")
+
+    # ---- CKKS: multiply + relinearize + rescale, rotate_vector(1)
+    c = wide_context(dev, "CKKS")
+    cd = c["ctx"].first_context_data()
+    cenc = CKKSEncoder(c["ctx"])
+    rlk = c["keygen"].create_relin_keys().key(2)
+    batched = BatchedEvaluator(c["ev"], cd)
+    crot, crot_elts = batched.build_rotate_rows_step(1)
+    cglk = c["keygen"].create_galois_keys_from_elements(
+        sorted({GaloisTool.get_element_from_step(1, N)}))
+    crot_keys = tuple(cglk.key(e) for e in crot_elts)
+    m1 = rng.uniform(-1, 1, (BATCH, cenc.slot_count))
+    m2 = rng.uniform(-1, 1, (BATCH, cenc.slot_count))
+    mc = m1 + 1j * m2
+
+    def encrypt(ms):
+        return torch.stack([c["encryptor"].encrypt_symmetric(
+            cenc.encode(v, scale=WIDE_SCALE)).data for v in ms])
+
+    e1, e2, ec = encrypt(m1), encrypt(m2), encrypt(mc)
+    mul, rescale = batched.build_mul_relin_step(rlk), batched.build_rescale_step()
+    q = [m.value for m in c["ctx"].key_context_data().parms.coeff_modulus]
+    L = cd.coeff_modulus_size
+    noise = ckks_noise(N, L, max(q[:L]), q[-1], WIDE_SCALE)
+    label = f"CKKS multiply + relinearize + rescale step {tuple(e1.shape)} x {tuple(e2.shape)}"
+    out, launches["ckks_mul"] = wide_step(label, lambda: rescale(mul(e1, e2, rlk)))
+    after = WIDE_SCALE ** 2 / q[L - 1]
+    check_ckks(label, out, cd.next.parms_id, after, m1 * m2,
+               (noise["mul"] ** 2 + (noise["rounding"] / after) ** 2) ** 0.5, cenc,
+               c["decryptor"], phase="wide")
+    cpu_ctx, cpu_b = twin(c)
+    same_on_cpu(label, out[:1], lambda: cpu_b.build_rescale_step()(
+        cpu_b.build_mul_relin_step(rlk.cpu())(e1[:1].cpu(), e2[:1].cpu(), rlk.cpu())))
+    reports["CKKS multiply + relinearize + rescale"] = wide_report(
+        gpu, label, lambda: rescale(mul(e1, e2, rlk)), None, None, ntt_cache)
+    label = f"CKKS rotate_vector(1) step {tuple(ec.shape)}, elements {crot_elts}"
+    out, launches["ckks_rotate"] = wide_step(label, lambda: crot(ec, crot_keys))
+    check_ckks(label, out, cd.parms_id, WIDE_SCALE, np.roll(mc, -1, axis=-1), noise["rotate"],
+               cenc, c["decryptor"], noise["digit_mean"], phase="wide")
+    same_on_cpu(label, out[:1], lambda: cpu_b.build_rotate_rows_step(1)[0](
+        ec[:1].cpu(), tuple(k.cpu() for k in crot_keys)))
+    reports["CKKS rotate_vector(1)"] = wide_report(
+        gpu, label, lambda: crot(ec, crot_keys), lambda d: crot(d, crot_keys), ec, ntt_cache)
+
+    # ---- BGV: multiply + relinearize
+    c = wide_context(dev, "BGV")
+    cd = c["ctx"].first_context_data()
+    encoder = BatchEncoder(c["ctx"])
+    t_val = encoder.t.value
+    rlk = c["keygen"].create_relin_keys().key(2)
+    batched = BatchedEvaluator(c["ev"], cd)
+    msgs = rng.integers(0, t_val, (2 * BATCH, N), dtype=np.int64)
+    cts = [c["encryptor"].encrypt_symmetric(encoder.encode(m)) for m in msgs]
+    if any(ct.correction_factor != 1 or not ct.is_ntt_form for ct in cts):
+        raise AssertionError("[wide] BGV encryptions are not NTT form with factor 1")
+    g1, g2 = torch.stack([ct.data for ct in cts[:BATCH]]), torch.stack([ct.data for ct in cts[BATCH:]])
+    mul = batched.build_mul_relin_step(rlk)
+    label = f"BGV multiply + relinearize step {tuple(g1.shape)} x {tuple(g2.shape)}"
+    out, launches["bgv_mul"] = wide_step(label, lambda: mul(g1, g2, rlk))
+    expected = (msgs[:BATCH].astype(object) * msgs[BATCH:]) % t_val
+    for b in range(BATCH):
+        got = encoder.decode(c["decryptor"].decrypt(Ciphertext(out[b], cd.parms_id, True)))
+        if not np.array_equal(got.cpu().numpy(), np.asarray(expected[b], np.int64)):
+            raise AssertionError(f"[wide] {label}: ciphertext {b} decrypts wrong")
+    budget = c["decryptor"].invariant_noise_budget(Ciphertext(out[0], cd.parms_id, True))
+    log(f"[wide] {label}: all {BATCH} products decrypt through the BGV decrypt; noise "
+        f"budget of product 0: {budget} bits")
+    if budget <= 0:
+        raise AssertionError(f"[wide] {label}: no noise budget left")
+    cpu_ctx, cpu_b = twin(c)
+    same_on_cpu(label, out[:1], lambda: cpu_b.build_mul_relin_step(rlk.cpu())(
+        g1[:1].cpu(), g2[:1].cpu(), rlk.cpu()))
+    reports["BGV multiply + relinearize"] = wide_report(
+        gpu, label, lambda: mul(g1, g2, rlk), lambda d: mul(d, g2, rlk), g1, ntt_cache)
+    return dict(launches=launches, reports=reports)
+
+
 def main() -> int:
     # ---- 1. device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2204,6 +2723,8 @@ def main() -> int:
         "decrypt q -> {t, gamma}": ((), tool.conv_q_to_t_gamma.tables),
         "15 -> 9": ((4,), converter(15, 9)),
         "1 -> 3": ((4,), converter(1, 3)),
+        **{f"ring2k q -> {{2^{k}, gamma}}": ((RING2K_MESSAGES,), t_gamma_tables(dev, k))
+           for k in (30, 31)},
     }
     err["base_convert"] = phase_bconv(dev, bconv_cases)
     err.update(phase_fused(dev, {
@@ -2278,7 +2799,11 @@ def main() -> int:
     client = phase_client(dev, gpu)
     wire = phase_wire(dev, gpu)
 
-    # ---- 15. times ---------------------------------------------------------
+    # ---- 15. ring2k, 16. wide -------------------------------------------------
+    ring2k = phase_ring2k(dev, gpu)
+    wide = phase_wide(dev, gpu)
+
+    # ---- 17. times ---------------------------------------------------------
     def batch_ms(label: str, step, first, chain: bool = True):
         """Event-timed ms per call of step, with the kernels and all plain:
         chained (each output the next input) or repeated on first."""
@@ -2395,7 +2920,7 @@ def main() -> int:
             f"path (NTT kernel, torch dyadic_convolute, NTT kernel) {unfused_ms:.5f} ms "
             f"(device time per call, CUDA graph); kernel / unfused {ms / unfused_ms:.3f}")
 
-    # ---- 16. results -------------------------------------------------------
+    # ---- 18. results -------------------------------------------------------
     paths = {  # each main path's launch counts, read just after its run
         "hps": {**launches["hps"], "fused_negacyclic_multiply":
                 launches["fused"]["fused_negacyclic_multiply"]},
@@ -2405,10 +2930,16 @@ def main() -> int:
         "lwe": {k: sum(c[k] for c in lwe["launches"].values()) for k in KERNELS},
         "app": {k: sum(c[k] for c in app["launches"].values()) for k in KERNELS},
         "client": {k: sum(c[k] for c in client["launches"].values()) for k in KERNELS},
-        "wire": {k: sum(c[k] for c in wire["launches"].values()) for k in KERNELS}}
-    for path in ("client", "wire"):
+        "wire": {k: sum(c[k] for c in wire["launches"].values()) for k in KERNELS},
+        "ring2k": {k: sum(c[k] for c in ring2k["launches"].values()) for k in KERNELS},
+        "wide": {k: sum(c[k] for c in wide["launches"].values()) for k in KERNELS}}
+    for path in ("client", "wire", "ring2k"):
         if not paths[path]["ntt_forward"] or not paths[path]["ntt_inverse"]:
             raise AssertionError(f"[results] the {path} path launched no NTT kernel")
+    if not paths["ring2k"]["base_convert"]:
+        raise AssertionError("[results] the ring2k path launched no K3 into t = 2^k")
+    if any(paths["wide"].values()):
+        raise AssertionError("[results] the wide path launched a fast-path kernel")
     floor_tabs = tool.ff_tables
     timed = {  # the work each kernel's "ms" times, for its bound
         "ntt_forward": ntt_bound(tuple(xq.shape)), "ntt_inverse": ntt_bound(tuple(xq.shape)),

@@ -14,8 +14,10 @@ kernel input must be a contiguous int64 tensor, as the kernels need); the
 dispatch functions to the wrappers; the refusal phase is skipped.  Sizes: n
 = 1024 (the BFV, CKKS and BGV phases), batch 2, the large-n phase at n = 4096 with blocks of 1024 (the
 tables' route switches at 2048 here), the security bound lifted for the
-quickstart's Classical128.  Times it prints are the CPU's and mean nothing.
-Takes about 40 s.
+quickstart's Classical128; [ring2k] at matmul 4 x 5 x 6, conv2d 1 x 2 x 6
+x 6 -> 3 and 2 messages a helper flow; [wide] at n = 1024, batch 2 (its
+CPU twin then runs on the same device).  Times it prints are the CPU's and
+mean nothing.
 """
 import contextlib
 import sys
@@ -103,6 +105,7 @@ def install_fakes():
     cs.N_LARGE, cs.LARGE_DEGREES, cs.SPLIT_BLOCKS = 4096, (4096, 8192), (9, 10, 11)
     cs.LARGE_BITS = [30] * 5
     cs.K4_DEGREES = (16, 1024)
+    cs.RING2K_MATMUL, cs.RING2K_CONV, cs.RING2K_MESSAGES = (4, 5, 6), (1, 2, 3, 6, 6, 3, 3), 2
     NTT.BLOCK_MAX_LOG_N = 11
     ntt_cuda.BLOCK_MAX_LOG_N = 11
     NTT.LARGE_BLOCK_LOG_N = 10

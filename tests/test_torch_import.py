@@ -42,6 +42,12 @@ def test_module_list_covers_the_wire_slice():
         assert "troy_tpu_torch." + m in MODULES
 
 
+def test_module_list_covers_the_ring2k_and_wide_slice():
+    for m in ("ops.u64", "ops.ntt64", "ops.rp", "ops.limb", "rns.rns_tool64",
+              "app.ring2k"):
+        assert "troy_tpu_torch." + m in MODULES
+
+
 def test_import_leaves_jax_out():
     code = (
         "import sys, importlib\n"

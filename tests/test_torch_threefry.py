@@ -144,10 +144,26 @@ def test_cbd_distribution():
 
 
 def test_wide_moduli_wait_for_the_wide_path():
-    class Wide:
-        words = 2
-        q = torch.tensor([1 << 40])
-        size = 1
+    """The wide path has come (it used to raise here): tables with words ==
+    2 draw 128 random bits a residue, reduced mod each 40-60-bit prime, and
+    the small samplers lift to q + e; every draw equals the JAX package's
+    wide branch, in threefry and AES mode."""
+    from troy_tpu.ops.ntt64 import wide_scalar_pack as jwide
+    from troy_tpu_torch.ops.ntt64 import wide_scalar_pack as twide
+    from troy_tpu_torch import interop
 
-    with pytest.raises(NotImplementedError, match="A14"):
-        R.RandomGenerator(1).sample_uniform((1, 8), Wide())
+    primes = [1152921504606830593, 1099511480321]
+    jt, tt = jwide(primes), twide(primes)
+    for mode in ("threefry", "aes"):
+        jg, tg = JR.RandomGenerator(1, mode=mode), R.RandomGenerator(1, mode)
+        for _ in range(2):
+            got = tg.sample_uniform((3, 2, 8), tt)
+            np.testing.assert_array_equal(
+                interop.to_tensor(np.asarray(jg.sample_uniform((3, 2, 8), jt)), "cpu",
+                                  wide=True).numpy(), got.numpy())
+            assert bool((got < tt.q.view(-1, 1)).all())
+            for name in ("sample_ternary", "sample_cbd"):
+                got = getattr(tg, name)((3, 8), tt)
+                np.testing.assert_array_equal(
+                    interop.to_tensor(np.asarray(getattr(jg, name)((3, 8), jt)), "cpu",
+                                      wide=True).numpy(), got.numpy())

@@ -1,11 +1,14 @@
 """Encoder adapters (counterpart of troy_tpu/app/encoder_adapter.py): one
-polynomial-encoding interface over the BatchEncoder (uint64 mod t) and the
-CKKSEncoder (float64), used by the matmul and conv2d helpers.
+polynomial-encoding interface over the BatchEncoder (uint64 mod t), the
+CKKSEncoder (float64) and the ring2k encoder (Z_2^k), used by the matmul and
+conv2d helpers.
 
 The evaluator lifts mod-t plaintexts itself, so both BFV encodings are the
 raw coefficient encoding.  The CKKS adapter uses the host encoder's
-encode_float64_polynomial / decode_float64_polynomial.  The adapter of the
-ring Z_2^k waits for the port of app/ring2k.py (ROADMAP A13-ring2k).
+encode_float64_polynomial / decode_float64_polynomial.  The ring2k adapter
+encodes a ciphertext operand by scale_up and a plaintext operand by
+centralize (both RNS-form plaintexts at a level), and decrypts by the
+{t, gamma} scale_down of the raw phase.
 """
 
 from __future__ import annotations
@@ -53,3 +56,22 @@ class CKKSEncoderAdapter:
 
     def decrypt_outputs(self, decryptor: Decryptor, ct) -> np.ndarray:
         return self.encoder.decode_float64_polynomial(decryptor.decrypt(ct))
+
+
+class Ring2kEncoderAdapter:
+    """Values mod 2^k (ref: encoder_adapter.h PolynomialEncoderRing2kAdapter);
+    see app/ring2k.py."""
+
+    def __init__(self, encoder, parms_id=None):
+        self.encoder = encoder
+        self.parms_id = parms_id
+        self.slot_count = encoder.n
+
+    def encode_for_cipher(self, vec) -> Plaintext:
+        return self.encoder.scale_up(vec, self.parms_id)
+
+    def encode_for_plain(self, vec) -> Plaintext:
+        return self.encoder.centralize(vec, self.parms_id)
+
+    def decrypt_outputs(self, decryptor: Decryptor, ct) -> np.ndarray:
+        return self.encoder.decrypt_scale_down(decryptor, ct)

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from .params import ParmsID, PARMS_ID_ZERO
+from .params import ParmsID, PARMS_ID_ZERO, WIDE_PARMS_IDS
 
 
 class Ciphertext:
@@ -45,6 +45,23 @@ class Ciphertext:
     @property
     def size(self) -> int:
         return self.data.shape[-3]
+
+    @property
+    def wide(self) -> bool:
+        """True at a wide-path level (40-60-bit primes): one layout holds both
+        widths, so this reads the level, not the shape."""
+        return self.parms_id in WIDE_PARMS_IDS
+
+    @property
+    def coeff_modulus_size(self) -> int:
+        return self.data.shape[-2]
+
+    @property
+    def poly_modulus_degree(self) -> int:
+        return self.data.shape[-1]
+
+    def poly(self, i: int) -> torch.Tensor:
+        return self.data[..., i, :, :]
 
     @staticmethod
     def like(other: "Ciphertext", size: int | None = None) -> "Ciphertext":

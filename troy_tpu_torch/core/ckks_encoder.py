@@ -51,7 +51,7 @@ import torch
 from .context import HeContext, ContextData
 from .params import ParmsID
 from .plaintext import Plaintext
-from ..ops import ntt as NTT
+from ..ops import rp as R, u64 as W
 
 
 def _round_ints(scaled: np.ndarray):
@@ -97,12 +97,12 @@ class CKKSEncoder:
         """Centred integers (n,) -> their (L, n) residues in NTT form on the
         context's device."""
         rns = torch.from_numpy(cd.base_q.decompose_array_host(coeffs)).to(cd.device)
-        return NTT.ntt_forward(rns, cd.qtab())
+        return R.ntt_forward(rns, cd.qtab())
 
     @staticmethod
     def _centered(plain: Plaintext, cd: ContextData) -> np.ndarray:
         """The plaintext's coefficients, centred, as float64 (host CRT)."""
-        data = NTT.ntt_inverse(plain.data, cd.qtab()) if plain.is_ntt_form else plain.data
+        data = R.ntt_inverse(plain.data, cd.qtab()) if plain.is_ntt_form else plain.data
         return cd.base_q.compose_centered_f64_host(data.cpu().numpy())
 
     def encode(self, values, parms_id: ParmsID | None = None,
@@ -208,7 +208,7 @@ class CKKSEncoder:
         ev[..., tabs["idx_conj"]] = v.conj()
         coeffs = (torch.fft.fft(ev) / self.n) * tabs["untwist"]
         rns = self._round_to_rns(coeffs.real * scale, cd, big=C >= 2.0 ** 52)
-        return Plaintext(NTT.ntt_forward(rns, cd.qtab()), cd.parms_id, is_ntt_form=True,
+        return Plaintext(R.ntt_forward(rns, cd.qtab()), cd.parms_id, is_ntt_form=True,
                          scale=scale)
 
     @staticmethod
@@ -224,8 +224,10 @@ class CKKSEncoder:
         shift = (e.to(torch.int64) - 53).clamp(min=0)
         pow2 = torch.tensor([[pow(2, k, v) for k in range(128)] for v in cd.base_q.values],
                             dtype=torch.int64, device=x.device)   # (L, 128): 2^E mod q
-        wide = torch.remainder(mant[..., None, :], q) * pow2[:, shift].movedim(0, -2) % q
-        return torch.where((x.abs() < 2.0 ** 52)[..., None, :], res, wide)
+        m_q = torch.remainder(mant[..., None, :], q)
+        p2 = pow2[:, shift].movedim(0, -2)
+        big_res = W.mul_mod64(m_q, p2, cd.qtab().k) if cd.wide else m_q * p2 % q
+        return torch.where((x.abs() < 2.0 ** 52)[..., None, :], res, big_res)
 
     def _frac_words(self, cd: ContextData, K: int) -> torch.Tensor:
         """(L, K) int64: the 32-bit words of floor(2^(32K) / q_i)."""
@@ -249,16 +251,30 @@ class CKKSEncoder:
                 f"{margin:.0f} exceeds the 120-bit device envelope; "
                 "use decode() (host path) at this level/scale")
         K = max(5, 4 + math.ceil((margin + 40) / 32))
-        x = NTT.ntt_inverse(plain.data, cd.qtab()) if plain.is_ntt_form else plain.data
+        x = R.ntt_inverse(plain.data, cd.qtab()) if plain.is_ntt_form else plain.data
         q = cd.base_q.q.view(-1, 1)
         inv = torch.tensor(cd.base_q.inv_punctured, dtype=torch.int64, device=x.device)
-        y = x * inv.view(-1, 1) % q
         words = self._frac_words(cd, K)
         cols = [0] * (K + 1)
-        for w in range(K):
-            p = y * words[:, w:w + 1]                    # (..., L, n), each < 2^62
-            cols[w] = cols[w] + (p & 0xFFFFFFFF).sum(dim=-2)
-            cols[w + 1] = cols[w + 1] + (p >> 32).sum(dim=-2)
+        if cd.wide:
+            # y < 2^61: its 16-bit digits d_j times the 32-bit words (< 2^48),
+            # each placed at bit 16 j + 32 w; columns from K on are dropped
+            y = W.mul_mod64(x, inv.view(-1, 1), cd.qtab().k)
+            for j in range(4):
+                d = (y >> (16 * j)) & 0xFFFF
+                for w in range(K - j // 2):
+                    p = d * words[:, w:w + 1]
+                    c = w + j // 2
+                    lo, hi = ((p & 0xFFFFFFFF, p >> 32) if j % 2 == 0
+                              else ((p & 0xFFFF) << 16, p >> 16))
+                    cols[c] = cols[c] + lo.sum(dim=-2)
+                    cols[c + 1] = cols[c + 1] + hi.sum(dim=-2)
+        else:
+            y = x * inv.view(-1, 1) % q
+            for w in range(K):
+                p = y * words[:, w:w + 1]                # (..., L, n), each < 2^62
+                cols[w] = cols[w] + (p & 0xFFFFFFFF).sum(dim=-2)
+                cols[w + 1] = cols[w + 1] + (p >> 32).sum(dim=-2)
         acc, carry = [], 0
         for w in range(K):                               # mod 2^(32K): drop the last carry
             c = cols[w] + carry

@@ -81,6 +81,18 @@ class CoeffModulus:
             out.append(Modulus(found[b].pop(0)))
         return out
 
+    @staticmethod
+    def bfv_default(poly_modulus_degree: int,
+                    sec: SecurityLevel = SecurityLevel.Classical128) -> list[Modulus]:
+        """A sensible default chain filling ~the security budget with 30-bit
+        primes, leaving one as the special prime (ref: coeff_modulus.cu
+        bfv_default, re-tuned for 30-bit limbs)."""
+        budget = CoeffModulus.max_bit_count(poly_modulus_degree, sec)
+        if budget <= 0:
+            raise ValueError("[CoeffModulus.bfv_default] degree not in security table")
+        count = max(1, budget // 30)
+        return CoeffModulus.create(poly_modulus_degree, [30] * count)
+
 
 class PlainModulus:
     @staticmethod
@@ -93,3 +105,13 @@ class PlainModulus:
                 "the u32 fast path (use the ring2k encoder for wide plaintexts)"
             )
         return Modulus(numth.get_prime(2 * poly_modulus_degree, bit_size))
+
+    @staticmethod
+    def batching_multiple(poly_modulus_degree: int, bit_sizes: list[int]) -> list[Modulus]:
+        by_size: dict[int, int] = {}
+        for b in bit_sizes:
+            by_size[b] = by_size.get(b, 0) + 1
+        found = {
+            b: numth.get_primes(2 * poly_modulus_degree, b, c) for b, c in by_size.items()
+        }
+        return [Modulus(found[b].pop(0)) for b in bit_sizes]

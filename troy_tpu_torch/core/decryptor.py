@@ -17,7 +17,7 @@ from .params import SchemeType
 from .plaintext import Plaintext
 from .ciphertext import Ciphertext
 from .keys import SecretKey
-from ..ops import ntt as NTT, poly as P, u32 as U
+from ..ops import poly as P, rp as R, u32 as U
 from ..utils import numth
 
 
@@ -30,7 +30,7 @@ class Decryptor:
     def _power(self, k: int) -> torch.Tensor:
         if k not in self._sk_powers:
             qtab = self.context.key_context_data().qtab()
-            self._sk_powers[k] = P.dyadic_product(self._power(k - 1), self.sk.data, qtab)
+            self._sk_powers[k] = R.dyadic_product(self._power(k - 1), self.sk.data, qtab)
         return self._sk_powers[k]
 
     def phase(self, cd: ContextData, data: torch.Tensor) -> torch.Tensor:
@@ -39,10 +39,10 @@ class Decryptor:
         L = cd.coeff_modulus_size
         acc = None
         for i in range(1, data.shape[0]):
-            term = P.dyadic_product(NTT.ntt_forward(data[i], qtab),
+            term = R.dyadic_product(R.ntt_forward(data[i], qtab),
                                     self._power(i)[:L], qtab)
             acc = term if acc is None else P.add(acc, term, qtab)
-        return P.add(NTT.ntt_inverse(acc, qtab), data[0], qtab)
+        return P.add(R.ntt_inverse(acc, qtab), data[0], qtab)
 
     def phase_ntt(self, cd: ContextData, data: torch.Tensor) -> torch.Tensor:
         """NTT-form phase of an NTT-form (size, L, n) ciphertext."""
@@ -50,13 +50,13 @@ class Decryptor:
         L = cd.coeff_modulus_size
         acc = data[0]
         for i in range(1, data.shape[0]):
-            acc = P.add(acc, P.dyadic_product(data[i], self._power(i)[:L], qtab), qtab)
+            acc = P.add(acc, R.dyadic_product(data[i], self._power(i)[:L], qtab), qtab)
         return acc
 
     def phase_coeff(self, cd: ContextData, ct: Ciphertext) -> torch.Tensor:
         """Coefficient-form phase of a ciphertext in either form."""
         if ct.is_ntt_form:
-            return NTT.ntt_inverse(self.phase_ntt(cd, ct.data), cd.qtab())
+            return R.ntt_inverse(self.phase_ntt(cd, ct.data), cd.qtab())
         return self.phase(cd, ct.data)
 
     def decrypt(self, ct: Ciphertext) -> Plaintext:
@@ -65,7 +65,7 @@ class Decryptor:
         if scheme == SchemeType.CKKS:
             # the CKKS plaintext contract is NTT form (ref: decryptor.cu)
             ph = (self.phase_ntt(cd, ct.data) if ct.is_ntt_form
-                  else NTT.ntt_forward(self.phase(cd, ct.data), cd.qtab()))
+                  else R.ntt_forward(self.phase(cd, ct.data), cd.qtab()))
             return Plaintext(ph, parms_id=ct.parms_id, is_ntt_form=True, scale=ct.scale)
         if scheme == SchemeType.BGV:
             t = cd.parms.plain_modulus.value
@@ -76,6 +76,16 @@ class Decryptor:
             raise ValueError("[Decryptor] BFV ciphertexts are coefficient form")
         m = cd.rns_tool.decrypt_scale_and_round(self.phase(cd, ct.data))
         return Plaintext(m[None, :], parms_id=ct.parms_id)
+
+    def decrypt_batched(self, cts: list[Ciphertext]) -> list[Plaintext]:
+        return [self.decrypt(ct) for ct in cts]
+
+    def bfv_decrypt_without_scaling_down(self, ct: Ciphertext) -> Plaintext:
+        """The phase in RNS form, in the ciphertext's domain, at its level
+        (ref: decryptor.h:62); the ring2k decrypt reads it."""
+        cd = self.context.get_context_data(ct.parms_id)
+        data = self.phase_ntt(cd, ct.data) if ct.is_ntt_form else self.phase(cd, ct.data)
+        return Plaintext(data, parms_id=ct.parms_id)
 
     def invariant_noise_budget(self, ct: Ciphertext) -> int:
         """log2(Q / 2 ||t * phase mod Q||) in bits, from a host-side CRT

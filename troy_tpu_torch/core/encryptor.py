@@ -28,11 +28,11 @@ import torch
 
 from .context import HeContext, ContextData
 from .params import ParmsID, SchemeType
-from .plaintext import Plaintext
+from .plaintext import Plaintext, is_rns_form
 from .ciphertext import Ciphertext
 from .keys import PublicKey, SecretKey
 from .rlwe import encrypt_zero_symmetric, encrypt_zero_asymmetric
-from ..ops import ntt as NTT, poly as P, u32 as U
+from ..ops import poly as P, rp as R, u32 as U
 from ..utils import numth
 from ..utils.random import RandomGenerator, stream, new_seed
 
@@ -104,9 +104,9 @@ class Encryptor:
         if scheme == SchemeType.BFV:
             return plain_data if is_rns else cd.scaler.scale_up(plain_data[0])
         if scheme == SchemeType.CKKS:
-            return plain_data if plain_ntt else NTT.ntt_forward(plain_data, cd.qtab())
+            return plain_data if plain_ntt else R.ntt_forward(plain_data, cd.qtab())
         t = cd.parms.plain_modulus.value
-        return NTT.ntt_forward(cd.scaler.centralize(U.mul_mod(plain_data[0], cf % t, t)),
+        return R.ntt_forward(cd.scaler.centralize(U.mul_mod(plain_data[0], cf % t, t)),
                                cd.qtab())
 
     def _add_plain(self, ct: Ciphertext, plain: Plaintext) -> Ciphertext:
@@ -118,7 +118,7 @@ class Encryptor:
                 raise ValueError("[Encryptor] CKKS plaintext level mismatch")
             ct.scale = plain.scale
         m = self.plain_payload(cd, plain.data, ct.correction_factor,
-                               plain.data.shape[-2] > 1, plain.is_ntt_form)
+                               is_rns_form(plain, cd.wide), plain.is_ntt_form)
         seed = ct.seed  # c1 stays the seed's expansion
         ct.data = torch.stack([P.add(ct.data[0], m, cd.qtab()), ct.data[1]])
         ct.seed = seed
@@ -137,6 +137,10 @@ class Encryptor:
                            parms_id: ParmsID | None = None) -> Ciphertext:
         return self._add_plain(
             self.encrypt_zero_asymmetric(self._plain_level(plain, parms_id)), plain)
+
+    def encrypt_asymmetric_batched(self, plains: list[Plaintext],
+                                   parms_id: ParmsID | None = None) -> list[Ciphertext]:
+        return [self.encrypt_asymmetric(p, parms_id) for p in plains]
 
     def encrypt_symmetric_batched(self, plains: list[Plaintext], parms_id: ParmsID | None = None,
                                   save_seed: bool = False) -> list[Ciphertext]:

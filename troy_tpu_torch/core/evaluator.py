@@ -44,11 +44,11 @@ import torch
 
 from .context import HeContext, ContextData
 from .params import ParmsID, SchemeType, PARMS_ID_ZERO
-from .plaintext import Plaintext
+from .plaintext import Plaintext, is_rns_form
 from .ciphertext import Ciphertext
 from .keys import KSwitchKeys, RelinKeys, GaloisKeys
 from .lwe_ops import LweOpsMixin
-from ..ops import ntt as NTT, poly as P, u32 as U, dyadic as D
+from ..ops import poly as P, rp as R, u32 as U, u64 as W
 from ..ops.galois import GaloisTool
 from ..rns.rns_base import RNSBase
 from ..utils import numth
@@ -89,11 +89,10 @@ class Evaluator(LweOpsMixin):
         if self._bgv() and not ct.is_ntt_form:
             raise ValueError(f"[Evaluator.{op}] BGV ciphertexts must be in NTT form")
 
-    @staticmethod
-    def _is_rns_plain(plain: Plaintext) -> bool:
+    def _is_rns_plain(self, plain: Plaintext) -> bool:
         """True for an RNS-form (L, n) plaintext (bfv_scale_up,
         bfv_centralize, transform_plain_to_ntt), False for mod-t (1, n)."""
-        return plain.data.shape[-2] > 1
+        return is_rns_form(plain, self.context.key_context_data().wide)
 
     def _plain_to_level(self, plain: Plaintext, cd: ContextData, ntt: bool) -> torch.Tensor:
         """A plaintext as (L, n) residues at cd's level, in the NTT domain if
@@ -103,12 +102,12 @@ class Evaluator(LweOpsMixin):
         if self._ckks() or self._is_rns_plain(plain):
             data = plain.data
             if ntt and not plain.is_ntt_form:
-                data = NTT.ntt_forward(data, qtab)
+                data = R.ntt_forward(data, qtab)
             if not ntt and plain.is_ntt_form:
-                data = NTT.ntt_inverse(data, qtab)
+                data = R.ntt_inverse(data, qtab)
             return data
         lifted = cd.scaler.centralize(plain.data[0])
-        return NTT.ntt_forward(lifted, qtab) if ntt else lifted
+        return R.ntt_forward(lifted, qtab) if ntt else lifted
 
     # ------------------------------------------------------------------
     # translate (ref: evaluator_translate.cu)
@@ -133,8 +132,8 @@ class Evaluator(LweOpsMixin):
         e1, e2, f = self._bgv_multipliers(ct1.correction_factor, ct2.correction_factor,
                                           cd.parms.plain_modulus.value)
         a, b = ct1.clone(), ct2.clone()
-        a.data = P.multiply_scalar(ct1.data, e1, cd.qtab())
-        b.data = P.multiply_scalar(ct2.data, e2, cd.qtab())
+        a.data = R.multiply_scalar(ct1.data, e1, cd.qtab())
+        b.data = R.multiply_scalar(ct2.data, e2, cd.qtab())
         a.correction_factor = b.correction_factor = f
         return a, b
 
@@ -173,12 +172,12 @@ class Evaluator(LweOpsMixin):
             raise ValueError("[Evaluator.add_plain] plaintext level mismatch")
         qtab = cd.qtab()
         if self._ckks():
-            m = plain.data if plain.is_ntt_form else NTT.ntt_forward(plain.data, qtab)
+            m = plain.data if plain.is_ntt_form else R.ntt_forward(plain.data, qtab)
         elif self._bgv():
             t = cd.parms.plain_modulus.value
             m = cd.scaler.centralize(U.mul_mod(plain.data[0], ct.correction_factor % t, t))
             if ct.is_ntt_form:
-                m = NTT.ntt_forward(m, qtab)
+                m = R.ntt_forward(m, qtab)
         elif plain.is_ntt_form != ct.is_ntt_form:
             raise ValueError("[Evaluator.add_plain] NTT form mismatch")
         else:
@@ -219,8 +218,8 @@ class Evaluator(LweOpsMixin):
         broadcast against it; coefficient-form BFV or BGV data goes to the
         NTT domain and back."""
         if ntt_form or self._ckks():
-            return P.dyadic_product(data, m_ntt, qtab)
-        return NTT.ntt_inverse(P.dyadic_product(NTT.ntt_forward(data, qtab), m_ntt, qtab),
+            return R.dyadic_product(data, m_ntt, qtab)
+        return R.ntt_inverse(R.dyadic_product(R.ntt_forward(data, qtab), m_ntt, qtab),
                                qtab)
 
     def multiply(self, ct1: Ciphertext, ct2: Ciphertext) -> Ciphertext:
@@ -236,7 +235,7 @@ class Evaluator(LweOpsMixin):
                                               None if ct1 is ct2 else ct2.data)
             return out
         self._check_bgv_ntt(ct1, "multiply")
-        out.data = D.dyadic_convolute(ct1.data, ct2.data, cd.qtab())
+        out.data = R.dyadic_convolute(ct1.data, ct2.data, cd.qtab())
         if self._ckks():
             out.scale = ct1.scale * ct2.scale
         else:
@@ -250,7 +249,7 @@ class Evaluator(LweOpsMixin):
         self._check_bgv_ntt(ct, "square")
         cd = self._cd(ct)
         out = ct.clone()
-        out.data = D.dyadic_square(ct.data, cd.qtab())
+        out.data = R.dyadic_square(ct.data, cd.qtab())
         if self._ckks():
             out.scale = ct.scale * ct.scale
         else:
@@ -267,17 +266,17 @@ class Evaluator(LweOpsMixin):
                 else tool.fast_b_conv_m_tilde_sm_mrq)
 
         def prep(x):
-            return NTT.ntt_forward(x, qtab), NTT.ntt_forward(lift(x), btab)
+            return R.ntt_forward(x, qtab), R.ntt_forward(lift(x), btab)
 
         a_q, a_b = prep(x1)
         if x2 is None:
-            d_q, d_b = D.dyadic_square(a_q, qtab), D.dyadic_square(a_b, btab)
+            d_q, d_b = R.dyadic_square(a_q, qtab), R.dyadic_square(a_b, btab)
         else:
             b_q, b_b = prep(x2)
-            d_q = D.dyadic_convolute(a_q, b_q, qtab)
-            d_b = D.dyadic_convolute(a_b, b_b, btab)
-        d_q = NTT.ntt_inverse(d_q, qtab)
-        d_b = NTT.ntt_inverse(d_b, btab)
+            d_q = R.dyadic_convolute(a_q, b_q, qtab)
+            d_b = R.dyadic_convolute(a_b, b_b, btab)
+        d_q = R.ntt_inverse(d_q, qtab)
+        d_b = R.ntt_inverse(d_b, btab)
         return tool.fast_floor_scale_fast_b_conv_sk(d_q, d_b)
 
     # ------------------------------------------------------------------
@@ -312,6 +311,11 @@ class Evaluator(LweOpsMixin):
             t = cd.parms.plain_modulus.value
             cache.update(inv_t_mod_sp=numth.invert_mod(t % q_sp, q_sp),
                          sp_mod_q=col([q_sp % q for q in q_values]))
+        if cd.wide:
+            inv = [numth.invert_mod(q_sp % q, q) for q in q_values]
+            cache.update(inv_sp_mod_q_shoup=col([W.shoup62(v, q)
+                                                 for v, q in zip(inv, q_values)]),
+                         max_terms=W.dot_mod64_terms(cache["otab"].max_modulus))
         cd._switch_cache = cache
         return cache
 
@@ -324,6 +328,8 @@ class Evaluator(LweOpsMixin):
         prime.  The division by the special prime subtracts the rounding term
         [last]_{q_sp} centred, or for BGV t [last t^-1]_{q_sp} centred, which
         is last mod q_sp and 0 mod t (ref: ski_util7's t-correction)."""
+        if cd.wide:
+            return self._switch_key_impl_wide(cd, target_coeff, keys, out_ntt)
         sw = self._switch_tables(cd)
         L = cd.coeff_modulus_size
         otab = sw["otab"]
@@ -333,12 +339,12 @@ class Evaluator(LweOpsMixin):
         # fast-path prime lies in (2^28, 2^30), so a digit < q_i < 2 p_j is a
         # valid [0, 2q) NTT input and needs no reduction
         D_ = target_coeff[..., :, None, :].expand(*lead, L, L + 1, n).contiguous()
-        D_ = NTT.ntt_forward(D_, otab)
+        D_ = R.ntt_forward(D_, otab)
         keys_sel = keys[:L][:, :, sw["idx"], :]                     # (L, 2, O, n)
         q = otab.q.view(-1, 1)
         acc = U.dot_mod([(D_[..., i, None, :, :], keys_sel[i]) for i in range(L)], q)
         # acc: (..., 2, O, n); divide by the special prime
-        last = NTT.ntt_inverse(acc[..., :, L:, :].contiguous(), sw["sp_tab"])
+        last = R.ntt_inverse(acc[..., :, L:, :].contiguous(), sw["sp_tab"])
         qtab = cd.qtab()
         lq = qtab.q.view(-1, 1)
         q_sp = sw["q_sp"]
@@ -352,10 +358,48 @@ class Evaluator(LweOpsMixin):
             tmp = U.sub_mod(U.barrett_reduce(last_plus, lq), sw["sp_half_mod_q"], lq)
         if out_ntt:
             body = acc[..., :, :L, :]
-            tmp = NTT.ntt_forward(tmp, qtab)
+            tmp = R.ntt_forward(tmp, qtab)
         else:
-            body = NTT.ntt_inverse(acc[..., :, :L, :].contiguous(), qtab)
+            body = R.ntt_inverse(acc[..., :, :L, :].contiguous(), qtab)
         return U.mul_mod(U.sub_mod(body, tmp, lq), sw["inv_sp_mod_q"], lq)
+
+    def _switch_key_impl_wide(self, cd: ContextData, target_coeff: torch.Tensor,
+                              keys: torch.Tensor, out_ntt: bool = False) -> torch.Tensor:
+        """The keyswitch at the wide width, as _switch_key_impl.  The digits
+        are reduced per output prime: a wide chain mixes prime sizes, so the
+        fast path's q_i < 2 p_j shortcut does not hold (ref:
+        fgk/switch_key.cu set_accumulate).  The inner product sums (hi, lo)
+        products, one Barrett per chunk (ops/u64.dot_mod64)."""
+        sw = self._switch_tables(cd)
+        L = cd.coeff_modulus_size
+        otab = sw["otab"]
+        n = target_coeff.shape[-1]
+        lead = target_coeff.shape[:-2]
+        D_ = torch.remainder(target_coeff[..., :, None, :].expand(*lead, L, L + 1, n),
+                             otab.q.view(-1, 1))
+        D_ = R.ntt_forward(D_, otab)
+        keys_sel = keys[:L][:, :, sw["idx"], :]                     # (L, 2, O, n)
+        acc = W.dot_mod64([(D_[..., i, None, :, :], keys_sel[i]) for i in range(L)],
+                          otab.k, sw["max_terms"])
+        last = R.ntt_inverse(acc[..., :, L:, :], sw["sp_tab"])
+        qtab = cd.qtab()
+        lq = qtab.q.view(-1, 1)
+        q_sp = sw["q_sp"]
+        if cd.parms.scheme == SchemeType.BGV:
+            h = W.mul_mod64(last, sw["inv_t_mod_sp"], sw["sp_tab"].k)
+            h_mod = torch.remainder(h, lq)
+            h_c = torch.where(h > (q_sp >> 1), W.sub_mod64(h_mod, sw["sp_mod_q"], lq), h_mod)
+            tmp = W.mul_mod64(h_c, cd.parms.plain_modulus.value, qtab.k)
+        else:
+            last_plus = W.add_mod64(last, q_sp >> 1, q_sp)
+            tmp = W.sub_mod64(torch.remainder(last_plus, lq), sw["sp_half_mod_q"], lq)
+        if out_ntt:
+            body = acc[..., :, :L, :]
+            tmp = R.ntt_forward(tmp, qtab)
+        else:
+            body = R.ntt_inverse(acc[..., :, :L, :], qtab)
+        return W.shoup_mul64(W.sub_mod64(body, tmp, lq), sw["inv_sp_mod_q"],
+                             sw["inv_sp_mod_q_shoup"], lq)
 
     def relinearize(self, ct: Ciphertext, rlk: RelinKeys) -> Ciphertext:
         """size-s -> size-2: switch every poly c_k (k >= 2) with the key for
@@ -368,7 +412,7 @@ class Evaluator(LweOpsMixin):
         for k in range(2, ct.size):
             target = ct.data[k]
             if ct.is_ntt_form:
-                target = NTT.ntt_inverse(target, qtab)
+                target = R.ntt_inverse(target, qtab)
             sw = self._switch_key_impl(cd, target, rlk.key(k), out_ntt=ct.is_ntt_form)
             acc = sw if acc is None else P.add(acc, sw, qtab)
         out = ct.clone()
@@ -384,7 +428,7 @@ class Evaluator(LweOpsMixin):
         qtab = cd.qtab()
         target = ct.data[1]
         if ct.is_ntt_form:
-            target = NTT.ntt_inverse(target, qtab)
+            target = R.ntt_inverse(target, qtab)
         sw = self._switch_key_impl(cd, target, ksk.get(0), out_ntt=ct.is_ntt_form)
         out = ct.clone()
         out.data = torch.stack([P.add(sw[0], ct.data[0], qtab), sw[1]])
@@ -400,7 +444,7 @@ class Evaluator(LweOpsMixin):
         tool = GaloisTool.for_context(cd)
         if ntt_form:
             c0g = tool.apply_ntt(data[..., 0, :, :], galois_elt)
-            target = NTT.ntt_inverse(tool.apply_ntt(data[..., 1, :, :], galois_elt), qtab)
+            target = R.ntt_inverse(tool.apply_ntt(data[..., 1, :, :], galois_elt), qtab)
         else:
             g = tool.apply_coeff(data, galois_elt, qtab)
             c0g, target = g[..., 0, :, :], g[..., 1, :, :]
@@ -561,7 +605,7 @@ class Evaluator(LweOpsMixin):
         if ct.is_ntt_form:
             raise ValueError("[Evaluator.transform_to_ntt] already NTT form")
         out = ct.clone()
-        out.data = NTT.ntt_forward(ct.data, self._cd(ct).qtab())
+        out.data = R.ntt_forward(ct.data, self._cd(ct).qtab())
         out.is_ntt_form = True
         return out
 
@@ -569,7 +613,7 @@ class Evaluator(LweOpsMixin):
         if not ct.is_ntt_form:
             raise ValueError("[Evaluator.transform_from_ntt] not NTT form")
         out = ct.clone()
-        out.data = NTT.ntt_inverse(ct.data, self._cd(ct).qtab())
+        out.data = R.ntt_inverse(ct.data, self._cd(ct).qtab())
         out.is_ntt_form = False
         return out
 
@@ -604,7 +648,7 @@ class Evaluator(LweOpsMixin):
         """(ref: evaluator_transform_ntt.cu transform_plain_from_ntt)"""
         if not plain.is_ntt_form:
             raise ValueError("[Evaluator.transform_plain_from_ntt] not NTT form")
-        return Plaintext(NTT.ntt_inverse(plain.data, self._cd(plain).qtab()),
+        return Plaintext(R.ntt_inverse(plain.data, self._cd(plain).qtab()),
                          parms_id=plain.parms_id, is_ntt_form=False, scale=plain.scale)
 
     def _plain_modulus_base(self, cd: ContextData) -> RNSBase:
@@ -698,17 +742,17 @@ class Evaluator(LweOpsMixin):
         A = torch.stack([torch.stack([ct.data for ct in row]) for row in cts])
         W_raw = torch.stack([torch.stack([p.data for p in row]) for row in plains])
         if self._ckks() or self._is_rns_plain(p0):
-            W = W_raw if p0.is_ntt_form else NTT.ntt_forward(W_raw, qtab)
+            W = W_raw if p0.is_ntt_form else R.ntt_forward(W_raw, qtab)
         else:
-            W = NTT.ntt_forward(cd.scaler.centralize(W_raw[..., 0, :]), qtab)
-        A_ntt = A if ct0.is_ntt_form else NTT.ntt_forward(A, qtab)
+            W = R.ntt_forward(cd.scaler.centralize(W_raw[..., 0, :]), qtab)
+        A_ntt = A if ct0.is_ntt_form else R.ntt_forward(A, qtab)
         acc = None
         for i in range(is_):
             a_i = A_ntt[:, i, None]                   # (bs, 1, size, L, n)
             w_i = W[i][:, None]                       # (os, 1, L, n)
-            acc = (D.dyadic_broadcast_product(a_i, w_i, qtab) if acc is None
-                   else D.dyadic_broadcast_product_accumulate(a_i, w_i, acc, qtab))
-        out_data = acc if ct0.is_ntt_form else NTT.ntt_inverse(acc, qtab)
+            acc = (R.dyadic_broadcast_product(a_i, w_i, qtab) if acc is None
+                   else R.dyadic_broadcast_product_accumulate(a_i, w_i, acc, qtab))
+        out_data = acc if ct0.is_ntt_form else R.ntt_inverse(acc, qtab)
         outs = []
         for b in range(bs):
             row = []
@@ -803,8 +847,8 @@ class Evaluator(LweOpsMixin):
                 def col(values):
                     return torch.tensor(values, dtype=torch.int64,
                                         device=cd.device).view(-1, 1, 1, 1)
-                x1 = P.multiply_scalar(x1, col(e1), qtab)
-                x2 = P.multiply_scalar(x2, col(e2), qtab)
+                x1 = R.multiply_scalar(x1, col(e1), qtab)
+                x2 = R.multiply_scalar(x2, col(e2), qtab)
             metas = []
             for a, f in zip(cts1, fs):
                 m = a.clone()
@@ -842,7 +886,7 @@ class Evaluator(LweOpsMixin):
             res = self.bfv_multiply_impl(cd, self._stack(cts1), self._stack(cts2))
         else:
             self._check_bgv_ntt(cts1[0], "multiply_batched")
-            res = D.dyadic_convolute(self._stack(cts1), self._stack(cts2), cd.qtab())
+            res = R.dyadic_convolute(self._stack(cts1), self._stack(cts2), cd.qtab())
         return self._product_metas(self._unstack(res, cts1[0], cts1), cts1, cts2, cd)
 
     def square_batched(self, cts) -> list[Ciphertext]:
@@ -853,7 +897,7 @@ class Evaluator(LweOpsMixin):
             res = self.bfv_multiply_impl(cd, self._stack(cts), None)
         else:
             self._check_bgv_ntt(cts[0], "square_batched")
-            res = D.dyadic_square(self._stack(cts), cd.qtab())
+            res = R.dyadic_square(self._stack(cts), cd.qtab())
         return self._product_metas(self._unstack(res, cts[0], cts), cts, cts, cd)
 
     def relinearize_batched(self, cts, rlk: RelinKeys) -> list[Ciphertext]:
@@ -873,7 +917,7 @@ class Evaluator(LweOpsMixin):
         for k in range(2, size):
             target = stacked[:, k]
             if ntt_form:
-                target = NTT.ntt_inverse(target.contiguous(), qtab)
+                target = R.ntt_inverse(target.contiguous(), qtab)
             sw = self._switch_key_impl(cd, target, rlk.key(k), out_ntt=ntt_form)
             acc = sw if acc is None else P.add(acc, sw, qtab)
         return self._unstack(P.add(stacked[:, :2], acc, qtab), cts[0], cts)
@@ -955,7 +999,7 @@ class Evaluator(LweOpsMixin):
         stacked = self._stack(cts)
         target = stacked[:, 1]
         if cts[0].is_ntt_form:
-            target = NTT.ntt_inverse(target.contiguous(), qtab)
+            target = R.ntt_inverse(target.contiguous(), qtab)
         sw = self._switch_key_impl(cd, target, ksk.get(0), out_ntt=cts[0].is_ntt_form)
         res = torch.stack([P.add(sw[:, 0], stacked[:, 0], qtab), sw[:, 1]], dim=1)
         return self._unstack(res, cts[0], cts)
@@ -965,7 +1009,7 @@ class Evaluator(LweOpsMixin):
             return []
         if any(ct.is_ntt_form for ct in cts):
             raise ValueError("[Evaluator.transform_to_ntt_batched] already NTT form")
-        out = self._unstack(NTT.ntt_forward(self._stack(cts), self._cd(cts[0]).qtab()),
+        out = self._unstack(R.ntt_forward(self._stack(cts), self._cd(cts[0]).qtab()),
                             cts[0], cts)
         for o in out:
             o.is_ntt_form = True
@@ -976,7 +1020,7 @@ class Evaluator(LweOpsMixin):
             return []
         if any(not ct.is_ntt_form for ct in cts):
             raise ValueError("[Evaluator.transform_from_ntt_batched] not NTT form")
-        out = self._unstack(NTT.ntt_inverse(self._stack(cts), self._cd(cts[0]).qtab()),
+        out = self._unstack(R.ntt_inverse(self._stack(cts), self._cd(cts[0]).qtab()),
                             cts[0], cts)
         for o in out:
             o.is_ntt_form = False

@@ -23,7 +23,7 @@ from .context import HeContext, ContextData
 from .keys import SecretKey, PublicKey, KSwitchKeys, RelinKeys, GaloisKeys
 from .ciphertext import Ciphertext
 from .rlwe import encrypt_zero_symmetric, _noise
-from ..ops import ntt as NTT, poly as P, u32 as U
+from ..ops import poly as P, rp as R
 from ..ops.galois import GaloisTool
 from ..utils.random import RandomGenerator, sample_uniform, sample_ternary, stream, new_seed
 
@@ -37,7 +37,7 @@ class KeyGenerator:
         if sk is None:
             qtab = cd.qtab()
             s = sample_ternary((cd.parms.poly_modulus_degree,), qtab, self.generator)
-            sk = SecretKey(NTT.ntt_forward(s, qtab), cd.parms_id)
+            sk = SecretKey(R.ntt_forward(s, qtab), cd.parms_id)
         self._sk = sk
         self._sk_powers: dict[int, torch.Tensor] = {1: sk.data}
 
@@ -49,7 +49,7 @@ class KeyGenerator:
         """s^k in NTT form at key level (cached)."""
         if k not in self._sk_powers:
             qtab = self.context.key_context_data().qtab()
-            self._sk_powers[k] = P.dyadic_product(
+            self._sk_powers[k] = R.dyadic_product(
                 self.secret_key_power(k - 1), self._sk.data, qtab)
         return self._sk_powers[k]
 
@@ -81,12 +81,12 @@ class KeyGenerator:
         L_key = cd.coeff_modulus_size
         decomp = L_key - 1
         q_sp = cd.parms.coeff_modulus[-1].value
-        c0 = P.negate(P.add(P.dyadic_product(a, s[None], qtab),
-                            NTT.ntt_forward(e, qtab), qtab), qtab)
+        c0 = P.negate(P.add(R.dyadic_product(a, s[None], qtab),
+                            R.ntt_forward(e, qtab), qtab), qtab)
         # add (q_sp mod q_i) * target at limb i of key i only
         factor = torch.tensor([q_sp % m.value for m in cd.parms.coeff_modulus],
                               dtype=torch.int64, device=cd.device).view(-1, 1)
-        term = U.mul_mod(target_ntt, factor, qtab.q.view(-1, 1))
+        term = R.mul_mod(target_ntt, factor, qtab)
         mask = torch.eye(decomp, L_key, dtype=torch.bool, device=cd.device)[:, :, None]
         c0 = torch.where(mask, P.add(c0, term[None], qtab), c0)
         return torch.stack([c0, a], dim=1)

@@ -20,6 +20,9 @@ class SecretKey:
         self.data = data
         self.parms_id = parms_id
 
+    def clone(self) -> "SecretKey":
+        return SecretKey(self.data, self.parms_id)
+
 
 class PublicKey:
     """pk = (-(a s + e), a) in NTT form at the key level (ref: key.h:90)."""
@@ -61,6 +64,10 @@ class RelinKeys(KSwitchKeys):
 class GaloisKeys(KSwitchKeys):
     """Key index g holds the switching key for x -> x^g (ref:
     kswitch_keys.h:310)."""
+
+    @staticmethod
+    def get_index(galois_elt: int) -> int:
+        return galois_elt
 
     def key(self, galois_elt: int) -> torch.Tensor:
         return self.get(galois_elt)

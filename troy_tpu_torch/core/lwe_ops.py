@@ -29,7 +29,7 @@ from .params import SchemeType
 from .ciphertext import Ciphertext
 from .lwe import LWECiphertext
 from .keys import GaloisKeys
-from ..ops import u32 as U
+from ..ops import rp as R, u32 as U
 from ..utils import numth
 
 
@@ -100,7 +100,7 @@ class LweOpsMixin:
             cache[k] = torch.tensor([numth.invert_mod(k, q) for q in cd.base_q.values],
                                     dtype=torch.int64, device=cd.device).view(-1, 1)
         out = ct.clone()
-        out.data = U.mul_mod(ct.data, cache[k], cd.qtab().q.view(-1, 1))
+        out.data = R.mul_mod(ct.data, cache[k], cd.qtab())
         return out
 
     # ------------------------------------------------------------------

@@ -12,6 +12,7 @@ every device residue in a uint32 lane and constrains fast-path moduli to
   * Shoup:    w' = floor(w * 2^32 / q) fits u32 for any w < q,
   * Harvey lazy NTT values in [0, 4q) fit u32 since 4q < 2^32.
 
+Host-side scalar helpers mirror uint_small_mod.h for setup and tests.
 """
 
 from __future__ import annotations
@@ -56,9 +57,41 @@ class Modulus:
         return self.value.bit_length()
 
     @property
+    def is_zero(self) -> bool:
+        return self.value == 0
+
+    @property
     def is_prime(self) -> bool:
         return numth.is_prime(self.value)
 
     def fits_fast_path(self) -> bool:
         """True if this modulus fits the u32 fast path (see module docstring)."""
         return MOD_MIN < self.value < MOD_MAX
+
+    def fits_wide_path(self) -> bool:
+        """True if this modulus fits the wide (u32-pair) path: (2^30, 2^61).
+        Matches the reference's native <=61-bit prime range (modulus.h); the
+        lower bound keeps every wide prime above any plain modulus and makes
+        the two paths disjoint."""
+        return MOD_MAX < self.value < (1 << 61)
+
+    # -- host-side scalar modular arithmetic (ref: uint_small_mod.h) -------
+    def reduce(self, x: int) -> int:
+        return x % self.value
+
+    def shoup(self, w: int) -> int:
+        """Shoup precomputed quotient floor(w * 2^32 / q); requires w < q
+        (ref: MultiplyUint64Operand, uint_small_mod.h:92 — at 32-bit width)."""
+        if not 0 <= w < self.value:
+            raise ValueError("[Modulus.shoup] operand must be reduced")
+        return (w << 32) // self.value
+
+    def pow(self, base: int, exponent: int) -> int:
+        return pow(base, exponent, self.value)
+
+    def invert(self, x: int) -> int:
+        return numth.invert_mod(x, self.value)
+
+
+def make_moduli(values: list[int]) -> list[Modulus]:
+    return [Modulus(v) for v in values]

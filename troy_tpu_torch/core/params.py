@@ -31,6 +31,11 @@ ParmsID = str  # 64-char hex digest
 
 PARMS_ID_ZERO: ParmsID = "0" * 64
 
+# parms_ids of wide-path levels (core/context.py adds each wide level it
+# builds).  A parms_id hashes the moduli, so it fixes the width: the port's
+# objects hold one layout for both widths and read their width here.
+WIDE_PARMS_IDS: set = set()
+
 
 class EncryptionParameters:
     """ref: encryption_parameters.h:315"""

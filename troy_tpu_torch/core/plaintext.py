@@ -30,6 +30,10 @@ class Plaintext:
             return self._coeff_count
         return self.data.shape[-1]
 
+    @property
+    def coeff_modulus_size(self) -> int:
+        return self.data.shape[-2]
+
     def clone(self) -> "Plaintext":
         return Plaintext(self.data, self.parms_id, self.is_ntt_form, self.scale,
                          self._coeff_count)
@@ -37,3 +41,13 @@ class Plaintext:
     def __repr__(self):
         return (f"Plaintext(shape={tuple(self.data.shape)}, ntt={self.is_ntt_form}, "
                 f"scale={self.scale}, parms={self.parms_id[:8]})")
+
+
+def is_rns_form(plain: Plaintext, wide: bool) -> bool:
+    """True for an RNS-form (L, n) plaintext (a scale_up, centralize or NTT
+    transform), False for a mod-t (1, n) one.  At the wide width, where the
+    JAX package tells them apart by its word axis and the port's layouts
+    are one, an RNS-form plaintext is the one with a level."""
+    if wide:
+        return plain.parms_id != PARMS_ID_ZERO
+    return plain.data.shape[-2] > 1

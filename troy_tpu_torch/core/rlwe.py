@@ -21,7 +21,7 @@ import torch
 
 from .context import ContextData
 from .params import SchemeType
-from ..ops import ntt as NTT, poly as P
+from ..ops import poly as P, rp as R
 from ..utils.random import sample_uniform, sample_cbd, sample_ternary, uniform_from_seed
 
 
@@ -29,7 +29,7 @@ def _noise(cd: ContextData, shape_n, qtab, generator) -> torch.Tensor:
     """CBD noise of shape (..., n) lifted to (..., L, n); BGV scales it by t."""
     e = sample_cbd(shape_n, qtab, generator)
     if cd.parms.scheme == SchemeType.BGV:
-        e = P.multiply_scalar(e, cd.parms.plain_modulus.value, qtab)
+        e = R.multiply_scalar(e, cd.parms.plain_modulus.value, qtab)
     return e
 
 
@@ -38,13 +38,13 @@ def _symmetric_combine(cd: ContextData, sk_data: torch.Tensor, a_ntt: torch.Tens
     """c = (-(a*s + e), a) from given a (NTT form) and e (coefficient form)."""
     qtab = cd.qtab()
     L = cd.coeff_modulus_size
-    as_ntt = P.dyadic_product(a_ntt, sk_data[..., :L, :], qtab)
+    as_ntt = R.dyadic_product(a_ntt, sk_data[..., :L, :], qtab)
     if ntt_form:
-        c0 = P.negate(P.add(as_ntt, NTT.ntt_forward(e, qtab), qtab), qtab)
+        c0 = P.negate(P.add(as_ntt, R.ntt_forward(e, qtab), qtab), qtab)
         c1 = a_ntt
     else:
-        c0 = P.negate(P.add(NTT.ntt_inverse(as_ntt, qtab), e, qtab), qtab)
-        c1 = NTT.ntt_inverse(a_ntt, qtab)
+        c0 = P.negate(P.add(R.ntt_inverse(as_ntt, qtab), e, qtab), qtab)
+        c1 = R.ntt_inverse(a_ntt, qtab)
     return torch.stack([c0, c1])
 
 
@@ -54,14 +54,14 @@ def _asymmetric_combine(cd: ContextData, pk_data: torch.Tensor, u_coeff: torch.T
     pk_data (2, L_key, n) in NTT form, cut to this level's limbs."""
     qtab = cd.qtab()
     L = cd.coeff_modulus_size
-    u_ntt = NTT.ntt_forward(u_coeff, qtab)
+    u_ntt = R.ntt_forward(u_coeff, qtab)
     # pk (2, L, n) against u's leading batch axes
     pk = pk_data[..., :L, :].reshape(2, *(1,) * (u_ntt.dim() - 2), L, -1)
-    c = P.dyadic_product(pk, u_ntt[None], qtab)
+    c = R.dyadic_product(pk, u_ntt[None], qtab)
     e = torch.stack([e0, e1])
     if ntt_form:
-        return P.add(c, NTT.ntt_forward(e, qtab), qtab)
-    return P.add(NTT.ntt_inverse(c, qtab), e, qtab)
+        return P.add(c, R.ntt_forward(e, qtab), qtab)
+    return P.add(R.ntt_inverse(c, qtab), e, qtab)
 
 
 def encrypt_zero_symmetric(cd: ContextData, sk_data: torch.Tensor, generator,

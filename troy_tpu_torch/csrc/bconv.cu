@@ -18,9 +18,11 @@
 // int64 load and store is coalesced.  The Shoup product [x_i ip_i]_{q_i}
 // (__umulhi and one conditional subtract) lands in shared memory, one
 // (L_in, 128) tile per block, and each output o accumulates
-// sum_i tmp_i M[o, i] in u64: products are below 2^60, so the sum is reduced
-// every 16 terms and once at the end, by Barrett with floor((2^64 - 1) / p_o)
-// (exact for any p_o >= 2, including m~ = 2^16 and the plain modulus t).
+// sum_i tmp_i M[o, i] in u64, reduced every R terms and once at the end, by
+// Barrett with floor((2^64 - 1) / p_o) (exact for any p_o >= 2, including
+// m~ = 2^16, the plain modulus t and t = 2^k of the ring2k encoder).  A
+// product is below 2^30 p_o, so R terms and a reduced sum stay below 2^64
+// with R = 16 for p_o < 2^30, 8 for p_o < 2^31 and 4 for p_o < 2^32.
 // The tables (q_in, ip, ip Shoup, p_out, M: a few hundred words) are copied
 // to shared memory by every block.
 //
@@ -30,8 +32,9 @@
 //
 // Tables: one u32 array [q_in (L_in), ip (L_in), ip_shoup (L_in),
 // p_out (L_out), M (L_out x L_in, row-major)], from ops/bconv.BConvTables.
-// Every modulus is below 2^30; L_in and L_out are at most 64 (the wrapper
-// checks both).  The kernel never allocates.
+// Every input modulus is below 2^30 and every output modulus below 2^32;
+// L_in and L_out are at most 64 (the wrapper checks all three).  The kernel
+// never allocates.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -86,10 +89,11 @@ __global__ void bconv_kernel(const int64_t* __restrict__ x,
   for (int o = 0; o < L_out; ++o) {
     const uint64_t p = p_out[o];
     const uint32_t* m = mat + o * L_in;
+    const int every = p < (1ull << 30) ? 15 : (p < (1ull << 31) ? 7 : 3);
     uint64_t acc = 0;
     for (int i = 0; i < L_in; ++i) {
       acc += static_cast<uint64_t>(t[i * kThreads]) * m[i];
-      if ((i & 15) == 15) acc = troy::barrett_reduce64(acc, p, ratio[o]);
+      if ((i & every) == every) acc = troy::barrett_reduce64(acc, p, ratio[o]);
     }
     acc = troy::barrett_reduce64(acc, p, ratio[o]);
     yr[static_cast<size_t>(o) * n] = static_cast<int64_t>(acc);

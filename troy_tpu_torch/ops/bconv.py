@@ -44,6 +44,8 @@ class BConvTables:
         self.L_in = len(q_in)
         self.L_out = len(p_out)
         self.max_modulus = max(q_in + p_out)
+        self.max_in_modulus = max(q_in)
+        self.max_out_modulus = max(p_out)
         self.device = torch.device(device)
         shoup = [(w << 32) // q for w, q in zip(ip, q_in)]
         words = np.array(q_in + ip + shoup + p_out + [m for row in mat for m in row],
@@ -59,10 +61,13 @@ class BConvTables:
 
 
 def base_convert_plain(x: torch.Tensor, tabs: BConvTables) -> torch.Tensor:
-    """x: (..., L_in, n) residues in [0, q_i) -> (..., L_out, n) in [0, p_o)."""
+    """x: (..., L_in, n) residues in [0, q_i) -> (..., L_out, n) in [0, p_o).
+    The dot's chunk is sized by the products' own bound (inputs below 2^30,
+    outputs below 2^32: ring2k converts into t = 2^k)."""
     tmp = U.mul_mod(x, tabs.ip.view(-1, 1), tabs.q_in.view(-1, 1))
     pairs = [(tmp[..., i:i + 1, :], tabs.mat[:, i:i + 1]) for i in range(tabs.L_in)]
-    return U.dot_mod(pairs, tabs.p_out.view(-1, 1))
+    return U.dot_mod(pairs, tabs.p_out.view(-1, 1),
+                     U.dot_terms(tabs.max_in_modulus, tabs.max_out_modulus))
 
 
 def base_convert(x: torch.Tensor, tabs: BConvTables) -> torch.Tensor:

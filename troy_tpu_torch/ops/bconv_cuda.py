@@ -20,7 +20,8 @@ from .bconv import BConvTables
 LAUNCHES = {"base_convert": 0}
 
 MAX_LIMBS = 64           # shared-memory tables and the (L_in, 128) tile
-MODULUS_BOUND = 1 << 30  # products below 2^60: 16 of them fit a u64 sum
+MODULUS_BOUND = 1 << 30  # input moduli: the Shoup step's u32 lanes
+OUTPUT_BOUND = 1 << 32   # output moduli: a u32 table word (ring2k's t = 2^31)
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_void_p]
@@ -42,8 +43,10 @@ def _check(x: torch.Tensor, tabs: BConvTables):
     if tabs.L_in > MAX_LIMBS or tabs.L_out > MAX_LIMBS:
         raise ValueError(f"[bconv_cuda] {tabs.L_in} -> {tabs.L_out} limbs: at "
                          f"most {MAX_LIMBS} each")
-    if tabs.max_modulus >= MODULUS_BOUND:
-        raise ValueError(f"[bconv_cuda] modulus {tabs.max_modulus} >= 2^30")
+    if tabs.max_in_modulus >= MODULUS_BOUND:
+        raise ValueError(f"[bconv_cuda] input modulus {tabs.max_in_modulus} >= 2^30")
+    if tabs.max_out_modulus >= OUTPUT_BOUND:
+        raise ValueError(f"[bconv_cuda] output modulus {tabs.max_out_modulus} >= 2^32")
 
 
 def base_convert(x: torch.Tensor, tabs: BConvTables) -> torch.Tensor:

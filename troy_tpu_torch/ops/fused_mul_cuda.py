@@ -73,6 +73,9 @@ def _check(a: torch.Tensor, b: torch.Tensor, t: NTTTables, polys: int = 2):
     """a and b: contiguous, 16-byte aligned int64 CUDA tensors on the tables'
     device, of one shape ending in (polys, L, n), at a degree and moduli the
     kernels take."""
+    if getattr(t, "words", 1) != 1:
+        raise ValueError("[fused_mul_cuda] wide (40-60-bit) moduli: the wide path has no "
+                         "fused kernel (ops/rp.py)")
     for x in (a, b):
         if not x.is_cuda:
             raise ValueError("[fused_mul_cuda] inputs must be CUDA tensors")

@@ -396,3 +396,23 @@ def ntt_inverse(x: torch.Tensor, t: NTTTables) -> torch.Tensor:
 
         return ntt_cuda.ntt_inverse(x, t)
     return ntt_inverse_plain(x, t)
+
+
+def slice_tables(t: NTTTables, lo: int, hi: int) -> NTTTables:
+    """The tables of limb rows [lo, hi)."""
+    return t.take(list(range(lo, hi)))
+
+
+def take_tables(t: NTTTables, idx) -> NTTTables:
+    """The tables of the limb rows idx."""
+    return t.take(list(idx))
+
+
+def ntt(x: torch.Tensor, t: NTTTables) -> torch.Tensor:
+    """The JAX package's short name of ntt_forward."""
+    return ntt_forward(x, t)
+
+
+def intt(x: torch.Tensor, t: NTTTables) -> torch.Tensor:
+    """The JAX package's short name of ntt_inverse."""
+    return ntt_inverse(x, t)

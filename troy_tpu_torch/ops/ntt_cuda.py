@@ -59,6 +59,8 @@ _RADIX2_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
 
 
 def _check(x: torch.Tensor, t: NTTTables):
+    if getattr(t, "words", 1) != 1:
+        raise ValueError("[ntt_cuda] wide (40-60-bit) moduli: their NTT is ops/ntt64.py")
     if not x.is_cuda:
         raise ValueError("[ntt_cuda] input must be a CUDA tensor")
     if x.device != t.kernel_phases.device:

@@ -55,3 +55,28 @@ def negacyclic_shift(x, shift: int, t):
         wrapped = torch.arange(n, device=x.device) < k
         out = torch.where(wrapped, negate(out, t), out)
     return negate(out, t) if neg_all else out
+
+
+def multiply_operand(x, w, w_shoup, t):
+    """x * w mod q with per-limb constants w (L,) (ref:
+    multiply_uint64operand_ps).  w_shoup, the JAX package's Shoup companion
+    floor(w 2^32 / q), is accepted for the same signature: the int64 product
+    is exact, so the port reduces it with `%`."""
+    return U.mul_mod(x, w.view(-1, 1), _bq(t))
+
+
+def negacyclic_multiply_monomial(x, coeff: int, degree: int, t):
+    """x * (coeff * X^degree) (ref: negacyclic_multiply_mononomials_ps)."""
+    return multiply_scalar(negacyclic_shift(x, degree, t), coeff, t)
+
+
+def modulo(x, t):
+    """Reduce arbitrary non-negative values into [0, q) per limb (ref:
+    modulo_ps); exact at either width."""
+    return U.barrett_reduce(x, _bq(t))
+
+
+def reduce_from_limb(src, t):
+    """A single-limb polynomial (..., n) reduced into every limb of base t:
+    (..., L, n) (ref: fgk/switch_key.cu set_accumulate)."""
+    return modulo(src[..., None, :], t)

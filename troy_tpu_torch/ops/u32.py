@@ -24,6 +24,14 @@ import torch
 DOT_MAX_TERMS = 7
 
 
+def dot_terms(a_bound: int, b_bound: int) -> int:
+    """Products a b with a < a_bound, b < b_bound that an int64 sum holds:
+    k (a_bound - 1)(b_bound - 1) < 2^63, at most DOT_MAX_TERMS: 7 for two
+    30-bit residues, 4 for a 30-bit residue times a value below 2^31
+    (ring2k's t = 2^31), where 7 would pass 2^63."""
+    return max(1, min(DOT_MAX_TERMS, ((1 << 63) - 1) // ((a_bound - 1) * (b_bound - 1))))
+
+
 def cond_sub(x: torch.Tensor, q) -> torch.Tensor:
     """x - q if x >= q else x (single conditional subtraction)."""
     return torch.where(x >= q, x - q, x)
@@ -57,14 +65,15 @@ def barrett_reduce(z: torch.Tensor, q) -> torch.Tensor:
     return z % q
 
 
-def dot_mod(pairs, q) -> torch.Tensor:
-    """sum_i a_i * b_i mod q for a list of (a, b) tensor pairs of residues
-    below 2^30: exact int64 sums of at most DOT_MAX_TERMS products, one
-    reduction per chunk."""
+def dot_mod(pairs, q, max_terms: int = DOT_MAX_TERMS) -> torch.Tensor:
+    """sum_i a_i * b_i mod q for a list of (a, b) tensor pairs: exact int64
+    sums of at most max_terms products, one reduction per chunk.  The
+    default holds residues below 2^30; dot_terms sizes it for wider
+    factors."""
     total = None
-    for start in range(0, len(pairs), DOT_MAX_TERMS):
+    for start in range(0, len(pairs), max_terms):
         acc = None
-        for a, b in pairs[start:start + DOT_MAX_TERMS]:
+        for a, b in pairs[start:start + max_terms]:
             acc = a * b if acc is None else acc + a * b
         part = acc % q
         total = part if total is None else add_mod(total, part, q)

@@ -23,9 +23,10 @@ import torch
 from ..core.context import ContextData, HeContext
 from ..core.encryptor import Encryptor
 from ..core.evaluator import Evaluator
+from ..core.ciphertext import Ciphertext
 from ..core.params import SchemeType
 from ..core.rlwe import _asymmetric_combine, _symmetric_combine
-from ..ops import dyadic as D, ntt as NTT, poly as P, u32 as U
+from ..ops import poly as P, rp as R, u32 as U
 from ..ops.galois import GaloisTool
 from ..utils.numth import naf
 from ..utils.random import (cbd_from_keys, fold_in_keys, ternary_from_keys,
@@ -46,14 +47,29 @@ class BatchedEvaluator:
         if evaluator.context.using_keyswitching:
             evaluator._switch_tables(cd)
 
+    @staticmethod
+    def stack(cts: list[Ciphertext]) -> torch.Tensor:
+        """Ciphertexts of one level -> their (B, size, L, n) stack."""
+        return torch.stack([ct.data for ct in cts])
+
+    def unstack(self, data: torch.Tensor, proto: Ciphertext) -> list[Ciphertext]:
+        """A (B, size, L, n) stack -> B ciphertexts with proto's metadata and
+        no seed."""
+        out = []
+        for i in range(data.shape[0]):
+            ct = proto.clone()
+            ct.data = data[i]
+            out.append(ct)
+        return out
+
     def add(self, d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
         return P.add(d1, d2, self.cd.qtab())
 
     def multiply(self, d1: torch.Tensor, d2: torch.Tensor | None = None) -> torch.Tensor:
         if self.ntt_form:
             qtab = self.cd.qtab()
-            return (D.dyadic_square(d1, qtab) if d2 is None
-                    else D.dyadic_convolute(d1, d2, qtab))
+            return (R.dyadic_square(d1, qtab) if d2 is None
+                    else R.dyadic_convolute(d1, d2, qtab))
         return self.ev.bfv_multiply_impl(self.cd, d1, d2)
 
     def relinearize(self, d3: torch.Tensor, rlk_key: torch.Tensor) -> torch.Tensor:
@@ -61,7 +77,7 @@ class BatchedEvaluator:
         qtab = self.cd.qtab()
         target = d3[..., 2, :, :]
         if self.ntt_form:
-            target = NTT.ntt_inverse(target.contiguous(), qtab)
+            target = R.ntt_inverse(target.contiguous(), qtab)
         sw = self.ev._switch_key_impl(self.cd, target, rlk_key, out_ntt=self.ntt_form)
         return P.add(d3[..., :2, :, :], sw, qtab)
 
@@ -170,15 +186,17 @@ class BatchedClient:
             cd.rns_tool
             cd.scaler
 
-    @staticmethod
-    def _probe(cur: torch.Tensor) -> torch.Tensor:
-        """One 32-bit word of the chained state, a 0-d device tensor."""
-        return cur.reshape(-1)[0]
+    def _probe(self, cur: torch.Tensor) -> torch.Tensor:
+        """One 32-bit word of the chained state, a 0-d device tensor: the
+        first residue, or at the wide width its high word (the first word of
+        the JAX package's (hi, lo) layout)."""
+        p = cur.reshape(-1)[0]
+        return p >> 32 if self.cd.wide else p
 
     def _noise(self, keys, shape_n) -> torch.Tensor:
         e = cbd_from_keys(keys, shape_n, self.cd.qtab())
         if self.cd.parms.scheme == SchemeType.BGV:
-            e = P.multiply_scalar(e, self.cd.parms.plain_modulus.value, self.cd.qtab())
+            e = R.multiply_scalar(e, self.cd.parms.plain_modulus.value, self.cd.qtab())
         return e
 
     def _payload(self, plain_data, plain_ntt: bool, is_rns: bool):
@@ -237,15 +255,15 @@ class BatchedClient:
             if self.ntt_form:
                 acc = cur[:, 0]
                 for i in range(1, size):
-                    acc = P.add(acc, P.dyadic_product(cur[:, i], sk_pows[i - 1][..., :L, :],
+                    acc = P.add(acc, R.dyadic_product(cur[:, i], sk_pows[i - 1][..., :L, :],
                                                       qtab), qtab)
                 return acc
             acc = None
             for i in range(1, size):
-                term = P.dyadic_product(NTT.ntt_forward(cur[:, i].contiguous(), qtab),
+                term = R.dyadic_product(R.ntt_forward(cur[:, i].contiguous(), qtab),
                                         sk_pows[i - 1][..., :L, :], qtab)
                 acc = term if acc is None else P.add(acc, term, qtab)
-            return P.add(NTT.ntt_inverse(acc, qtab), cur[:, 0], qtab)
+            return P.add(R.ntt_inverse(acc, qtab), cur[:, 0], qtab)
 
         if scheme == SchemeType.BFV:
             return lambda cur: cd.rns_tool.decrypt_scale_and_round(phase(cur))
@@ -254,7 +272,7 @@ class BatchedClient:
         t = cd.parms.plain_modulus.value
 
         def bgv_step(cur):
-            m = cd.rns_tool.decrypt_mod_t(NTT.ntt_inverse(phase(cur), qtab))
+            m = cd.rns_tool.decrypt_mod_t(R.ntt_inverse(phase(cur), qtab))
             return U.mul_mod(m, inv_cf, t)
 
         return bgv_step
@@ -269,7 +287,7 @@ class BatchedClient:
         def step(vals):
             slots = torch.zeros_like(vals)
             slots[..., pos] = vals
-            return NTT.ntt_inverse(slots[..., None, :], encoder.tables)[..., 0, :]
+            return R.ntt_inverse(slots[..., None, :], encoder.tables)[..., 0, :]
 
         return step
 
@@ -280,7 +298,7 @@ class BatchedClient:
         pos = encoder._slot_to_pos
 
         def step(coeffs):
-            return NTT.ntt_forward(coeffs[..., None, :].contiguous(),
+            return R.ntt_forward(coeffs[..., None, :].contiguous(),
                                    encoder.tables)[..., 0, :][..., pos]
 
         return step

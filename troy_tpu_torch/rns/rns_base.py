@@ -17,7 +17,7 @@ import torch
 
 from ..core.modulus import Modulus
 from ..utils import numth
-from ..ops import bconv as BC
+from ..ops import bconv as BC, u64 as W
 
 
 def _int_lanes(values) -> np.ndarray:
@@ -55,6 +55,28 @@ class RNSBase:
             numth.invert_mod(p % v, v) for p, v in zip(self.punctured, vals)
         ]
         self.q = torch.tensor(vals, dtype=torch.int64, device=self.device)
+
+    # -- host CRT of single values (ref: rns_base compose/decompose_single) --
+    def decompose(self, value: int) -> list[int]:
+        value %= self.prod
+        return [value % v for v in self.values]
+
+    def compose(self, residues: list[int]) -> int:
+        acc = 0
+        for r, p, ip, v in zip(residues, self.punctured, self.inv_punctured, self.values):
+            acc += (int(r) * ip % v) * p
+        return acc % self.prod
+
+    def compose_centered(self, residues: list[int]) -> int:
+        """Compose, then centre into (-Q/2, Q/2]."""
+        v = self.compose(residues)
+        return v - self.prod if v > self.prod // 2 else v
+
+    def residues_host(self, values) -> np.ndarray:
+        """An int iterable -> (L, n) residues at full modulus width (uint64
+        rows)."""
+        arr = _int_lanes(values)
+        return np.stack([np.asarray(arr % q, dtype=np.uint64) for q in self.values])
 
     def compose_array_host(self, arr: np.ndarray) -> list[int]:
         """(L, n) residues -> list of Python ints in [0, Q), by the CRT over
@@ -113,7 +135,13 @@ class RNSBase:
         K, W16, r16f, gmat, gscale = cache
         ctil = np.empty((self.size, n), dtype=np.uint64)
         for i, q in enumerate(self.values):
-            ctil[i] = (arr[i].astype(np.uint64) * np.uint64(self.inv_punctured[i])) % np.uint64(q)
+            if q < (1 << 31):
+                ctil[i] = (arr[i].astype(np.uint64)
+                           * np.uint64(self.inv_punctured[i])) % np.uint64(q)
+            else:  # wide primes: the wide path's Shoup multiply (the same residue)
+                w = self.inv_punctured[i]
+                ctil[i] = W.shoup_mul64(torch.from_numpy(arr[i].astype(np.int64)), w,
+                                        W.shoup62(w, q), q).numpy()
         c_lo = (ctil & np.uint64(0xFFFFFFFF)).astype(np.float64)
         c_hi = (ctil >> np.uint64(32)).astype(np.float64)
         acc = np.zeros((W16 + 2, n), dtype=np.float64)
@@ -164,3 +192,42 @@ class BaseConverter:
     def convert(self, x: torch.Tensor) -> torch.Tensor:
         """x: (..., L_in, n) residues in ibase -> (..., L_out, n) in obase."""
         return BC.base_convert(x, self.tables)
+
+    def convert_single_limb(self, x: torch.Tensor) -> torch.Tensor:
+        """The conversion into a one-modulus base: (..., 1, n)."""
+        return self.convert(x)
+
+
+class BaseConverter64:
+    """Fast base conversion at the wide width (input or output primes up to
+    2^61; ref: rns_base.h:158-207 fast_convert_array at the reference's
+    native width): a Shoup multiply by (Q/q_i)^-1 per input limb, then the
+    dot with (Q/q_i) mod p_j in (hi, lo) sums, one Barrett per chunk of
+    ops/u64.dot_mod64.  int64 PyTorch on both devices: the fast path's K3
+    kernel takes no wide modulus."""
+
+    def __init__(self, ibase: RNSBase, obase: RNSBase):
+        self.ibase = ibase
+        self.obase = obase
+        dev = obase.device
+
+        def col(values):
+            return torch.tensor(values, dtype=torch.int64, device=dev).view(-1, 1)
+        self.inv_punc = col(ibase.inv_punctured)
+        self.inv_punc_shoup = col([W.shoup62(ip, v) for ip, v
+                                   in zip(ibase.inv_punctured, ibase.values)])
+        self.iq = col(ibase.values)
+        self.ok = W.barrett_consts(obase.values, dev)
+        self.mat = [col([punc % p for p in obase.values]) for punc in ibase.punctured]
+        # each product is below max(q_i) p_j: the chunk bound takes both bases
+        self.max_terms = W.dot_mod64_terms(max(ibase.values + obase.values))
+
+    def _shoup_terms(self, x: torch.Tensor) -> torch.Tensor:
+        """[x_i (Q/q_i)^-1]_{q_i}, (..., L_in, n)."""
+        return W.shoup_mul64(x, self.inv_punc, self.inv_punc_shoup, self.iq)
+
+    def convert(self, x: torch.Tensor) -> torch.Tensor:
+        """x: (..., L_in, n) residues in ibase -> (..., L_out, n) in obase."""
+        tmp = self._shoup_terms(x)
+        pairs = [(tmp[..., i:i + 1, :], self.mat[i]) for i in range(self.ibase.size)]
+        return W.dot_mod64(pairs, self.ok, self.max_terms)

@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from ..core.modulus import Modulus
-from ..ops import u32 as U
+from ..ops import u32 as U, u64 as W
 from .rns_base import RNSBase
 
 
@@ -67,3 +67,26 @@ class BFVScaler:
         pos = U.barrett_reduce(x0, tv)
         neg = U.neg_mod(U.barrett_reduce(q0 - x0, tv), tv)
         return torch.where(x0 > (q0 >> 1), neg, pos)
+
+
+class BFVScaler64(BFVScaler):
+    """The BFV plaintext scaling at the wide width (ref: scaling_variant.cu at
+    the reference's native 64-bit width).  t stays below 2^31, under every
+    wide prime, so the mod-t side and the centred lift are BFVScaler's own;
+    only the product m * floor(Q/t) mod q_i needs the wide multiply."""
+
+    def __init__(self, base_q: RNSBase, t: Modulus):
+        if t.value % 2 == 0:
+            raise ValueError("[BFVScaler64] plain modulus must be odd (use ring2k for 2^k)")
+        if t.value >= min(base_q.values):
+            raise ValueError("[BFVScaler64] t must be below every coeff modulus")
+        super().__init__(base_q, t)
+        self.k_q = W.barrett_consts(base_q.values, base_q.device)
+
+    def scale_up(self, m: torch.Tensor) -> torch.Tensor:
+        """m: (..., n) in [0, t) -> (..., L, n) = round(m * Q / t) mod q."""
+        tv = self.t.value
+        fix = (m * self.q_mod_t + (tv >> 1)) // tv
+        q = self.base_q.q.view(-1, 1)
+        prod = W.mul_mod64(m[..., None, :], self.coeff_div_plain, self.k_q)
+        return U.add_mod(prod, fix[..., None, :], q)

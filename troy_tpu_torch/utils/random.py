@@ -32,9 +32,12 @@ after every add and left shift.  Keys are pairs of Python ints, or of
 0-d tensors once a device tensor was folded in (BatchedClient's probe of the
 chained state): nothing here reads a device value back to the host.
 
-The wide words == 2 branches of the JAX package (40-60-bit primes) wait
-for the wide path (ROADMAP A14).  Every sample lands on the device of the
-tables it is drawn for (t.q), a sampled small polynomial lifted to every limb.
+At the wide width (tables with words == 2, 40-60-bit primes) a uniform
+residue takes 128 random bits, word i at bit 32 i, reduced exactly mod q;
+the small samplers draw the same words as at the fast width and lift a
+negative value e to q + e, as the JAX package's wide branches do.  Every
+sample lands on the device of the tables it is drawn for (t.q), a sampled
+small polynomial lifted to every limb.
 """
 
 from __future__ import annotations
@@ -130,17 +133,25 @@ def _lift(e: torch.Tensor, t) -> torch.Tensor:
     return torch.remainder(e[..., None, :], t.q.view(-1, 1))
 
 
-def _check_words(t):
-    if getattr(t, "words", 1) == 2:
-        raise NotImplementedError("[random] wide (40-60-bit) moduli wait for the wide "
-                                  "path (ROADMAP A14)")
+def _wide(t) -> bool:
+    return getattr(t, "words", 1) == 2
 
 
 def uniform_from_bits(b: torch.Tensor, t) -> torch.Tensor:
     """(2, ..., L, n) words -> residues (hi 2^32 + lo) mod q per limb, exact
     in int64 as ((hi mod q)(2^32 mod q) + lo) mod q: the canonical residue
-    the JAX package's Barrett reduction gives."""
+    the JAX package's Barrett reduction gives.  Wide tables: (4, ..., L, n)
+    words, the 128-bit value sum_i b[i] 2^(32 i) mod q by Horner steps of
+    the wide multiply."""
     q = t.q.view(-1, 1)
+    if _wide(t):
+        from ..ops import u64 as W
+
+        c32 = torch.remainder(torch.full_like(q, 1 << 32), q)
+        r = b[3] % q
+        for w in (2, 1, 0):
+            r = torch.remainder(W.mul_mod64(r, c32, t.k) + b[w], q)
+        return r
     return ((b[0] % q) * ((1 << 32) % q) + b[1]) % q
 
 
@@ -158,9 +169,9 @@ def cbd_from_bits(b: torch.Tensor, t) -> torch.Tensor:
 
 
 def _uniform_words(shape, t) -> tuple:
-    """The word shape of a uniform draw of shape (..., L, n): (2, ..., L, n)."""
-    _check_words(t)
-    return (2, *shape[:-2], t.q.shape[0], shape[-1])
+    """The word shape of a uniform draw of shape (..., L, n): (2, ..., L, n),
+    or (4, ..., L, n) for wide tables."""
+    return (4 if _wide(t) else 2, *shape[:-2], t.q.shape[0], shape[-1])
 
 
 def uniform_from_keys(keys, shape, t) -> torch.Tensor:
@@ -170,13 +181,11 @@ def uniform_from_keys(keys, shape, t) -> torch.Tensor:
 
 def ternary_from_keys(keys, shape_n, t) -> torch.Tensor:
     """shape_n = (..., n): the threefry draw of sample_ternary."""
-    _check_words(t)
     return ternary_from_bits(_bits2(keys, tuple(shape_n), t.q.device), t)
 
 
 def cbd_from_keys(keys, shape_n, t) -> torch.Tensor:
     """shape_n = (..., n): the threefry draw of sample_cbd."""
-    _check_words(t)
     return cbd_from_bits(_bits2(keys, (2, *shape_n), t.q.device), t)
 
 
@@ -253,19 +262,18 @@ class RandomGenerator:
     # -- samplers -------------------------------------------------------------
     def sample_uniform(self, shape, t) -> torch.Tensor:
         """(..., L, n) residues.  AES: 2 words each, hi = words[:c] and lo =
-        words[c:]."""
+        words[c:]; wide tables: 4 words each, word i = words[i c:(i+1) c]."""
         if self.mode == "threefry":
             return uniform_from_keys(self._next_keys(), shape, t)
-        _check_words(t)
         count = math.prod(shape)
-        words = torch.from_numpy(self.aes_words(2 * count).astype(np.int64)).to(t.q.device)
-        return uniform_from_bits(words.view(2, *shape), t)
+        nw = 4 if _wide(t) else 2
+        words = torch.from_numpy(self.aes_words(nw * count).astype(np.int64)).to(t.q.device)
+        return uniform_from_bits(words.view(nw, *shape), t)
 
     def sample_ternary(self, shape_n, t) -> torch.Tensor:
         """(..., n) ternary values lifted to (..., L, n)."""
         if self.mode == "threefry":
             return ternary_from_keys(self._next_keys(), shape_n, t)
-        _check_words(t)
         r = (self.aes_words(math.prod(shape_n)) % 3).astype(np.int64).reshape(shape_n)
         return _lift(torch.from_numpy(np.where(r == 2, -1, r)).to(t.q.device), t)
 
@@ -273,7 +281,6 @@ class RandomGenerator:
         """(..., n) centered binomial noise lifted to (..., L, n)."""
         if self.mode == "threefry":
             return cbd_from_keys(self._next_keys(), shape_n, t)
-        _check_words(t)
         count = math.prod(shape_n)
         words = self.aes_words(2 * count)
         e = (_popcount21(words[:count]) - _popcount21(words[count:])).reshape(shape_n)

@@ -15,7 +15,9 @@ ciphertext.h:154-288, kswitch_keys.cu):
     libzstd raises (serialize.h:59-91 semantics);
   * an array: ndim u8, each dim u64, then the u32 data.  The port's int64
     residue tensors are written as u32 and come back on the device of the
-    context (or the device) the loader is given;
+    context (or the device) the loader is given; at a wide level (40-60-bit
+    primes) each residue is its (hi, lo) u32 pair with the word axis at -3,
+    the JAX package's wide layout, folded back into one int64 on load;
   * a ciphertext: parms_id (32 bytes), size u8, flags u8 (bit 0 NTT form,
     bit 1 seed, bit 3 terms), scale f64, correction factor u64, the seed
     u64 when it has one, then the data.  A seed-compressed ciphertext stores
@@ -44,6 +46,8 @@ from ..core.plaintext import Plaintext
 from ..core.ciphertext import Ciphertext
 from ..core.keys import SecretKey, PublicKey, KSwitchKeys, RelinKeys, GaloisKeys
 from ..core.lwe import LWECiphertext
+from ..core.params import WIDE_PARMS_IDS
+from ..ops import u64 as W
 
 
 class CompressionMode(enum.IntEnum):
@@ -142,6 +146,28 @@ def _u32(x) -> np.ndarray:
     return arr.astype(np.uint32)
 
 
+def _wide(parms_id) -> bool:
+    return parms_id in WIDE_PARMS_IDS
+
+
+def _wire(x, wide: bool):
+    """A residue tensor as it goes on the wire: u32 as it is, or at the wide
+    width its (hi, lo) u32 pairs with the word axis at -3, hi first (the
+    JAX package's layout, byte for byte)."""
+    if not wide:
+        return x
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.stack(W.pack64(x), axis=-3)
+
+
+def _unwire(arr: np.ndarray, device, wide: bool) -> torch.Tensor:
+    """The inverse of _wire, onto device as int64 residues."""
+    if wide:
+        arr = W.unpack64(arr[..., 0, :, :], arr[..., 1, :, :])
+    return _tensor(arr, device)
+
+
 def _device(where) -> torch.device:
     """A loader's target: a HeContext's device, or a device."""
     if hasattr(where, "key_context_data"):
@@ -160,6 +186,7 @@ class Writer:
         self.buf = io.BytesIO()
 
     def u8(self, v):  self.buf.write(struct.pack("<B", v))
+    def u32(self, v): self.buf.write(struct.pack("<I", v))
     def u64(self, v): self.buf.write(struct.pack("<Q", v))
     def f64(self, v): self.buf.write(struct.pack("<d", v))
     def raw(self, b): self.buf.write(b)
@@ -189,6 +216,7 @@ class Reader:
         return v
 
     def u8(self):  return self._unpack("<B", 1)
+    def u32(self): return self._unpack("<I", 4)
     def u64(self): return self._unpack("<Q", 8)
     def f64(self): return self._unpack("<d", 8)
 
@@ -215,7 +243,7 @@ def save_plaintext(pt: Plaintext, mode: CompressionMode = CompressionMode.Nil) -
     w.u8(int(pt.is_ntt_form))
     w.f64(pt.scale)
     w.u64(pt.coeff_count)
-    w.array_u32(pt.data)
+    w.array_u32(_wire(pt.data, _wide(pt.parms_id)))
     return compress(w.getvalue(), mode)
 
 
@@ -226,7 +254,8 @@ def load_plaintext(data: bytes, device) -> Plaintext:
     ntt = bool(r.u8())
     scale = r.f64()
     cc = r.u64()
-    return Plaintext(_tensor(r.array_u32(), _device(device)), parms_id, ntt, scale, cc)
+    return Plaintext(_unwire(r.array_u32(), _device(device), _wide(parms_id)), parms_id,
+                     ntt, scale, cc)
 
 
 # -- Ciphertext -------------------------------------------------------------
@@ -246,29 +275,30 @@ def save_ciphertext(ct: Ciphertext, context=None,
         if ct.size != 2:
             raise ValueError("[save_ciphertext] seeded ciphertext must be size 2")
         w.u64(ct.seed)
+    wide = _wide(ct.parms_id)
     if terms is None:
-        w.array_u32(ct.data[0] if ct.seed is not None else ct.data)
+        w.array_u32(_wire(ct.data[0] if ct.seed is not None else ct.data, wide))
     else:
         if context is None:
             raise ValueError("[save_ciphertext] save_terms requires context")
-        from ..ops import ntt as NTT
+        from ..ops import rp as R
 
         c0 = ct.data[0]
         if ct.is_ntt_form:
-            c0 = NTT.ntt_inverse(c0.contiguous(), context.get_context_data(ct.parms_id).qtab())
+            c0 = R.ntt_inverse(c0.contiguous(), context.get_context_data(ct.parms_id).qtab())
         w.u64(len(terms))
         for t in terms:
             w.u64(t)
         idx = torch.tensor(terms, dtype=torch.int64, device=c0.device)
-        w.array_u32(c0.index_select(-1, idx))
-        w.array_u32(ct.data[2 if ct.seed is not None else 1:])
+        w.array_u32(_wire(c0.index_select(-1, idx), wide))
+        w.array_u32(_wire(ct.data[2 if ct.seed is not None else 1:], wide))
     return compress(w.getvalue(), mode)
 
 
 def load_ciphertext(data: bytes, context) -> Ciphertext:
     """The ciphertext on the context's device; a seeded one gets its c1 back
     from the seed (on the device), and the result has no seed."""
-    from ..ops import ntt as NTT
+    from ..ops import rp as R
     from .random import uniform_from_seed
 
     r = Reader(decompress(data)[0])
@@ -284,20 +314,21 @@ def load_ciphertext(data: bytes, context) -> Ciphertext:
 
     def expand_c1():
         a_ntt = uniform_from_seed(seed, (L, n), cd.qtab())
-        return a_ntt if ntt else NTT.ntt_inverse(a_ntt, cd.qtab())
+        return a_ntt if ntt else R.ntt_inverse(a_ntt, cd.qtab())
 
+    wide = _wide(parms_id)
     if not has_terms:
-        arr = _tensor(r.array_u32(), dev)
+        arr = _unwire(r.array_u32(), dev, wide)
         dat = torch.stack([arr, expand_c1()]) if has_seed else arr
     else:
         terms = [r.u64() for _ in range(r.u64())]
         c0 = np.zeros((L, n), dtype=np.int64)
-        c0[:, terms] = r.array_u32()
+        c0[:, terms] = _unwire(r.array_u32(), "cpu", wide).numpy()
         c0 = torch.from_numpy(c0).to(dev)
         if ntt:
-            c0 = NTT.ntt_forward(c0, cd.qtab())
+            c0 = R.ntt_forward(c0, cd.qtab())
         polys = [c0] + ([expand_c1()] if has_seed else [])
-        polys += list(_tensor(r.array_u32(), dev).unbind(0))
+        polys += list(_unwire(r.array_u32(), dev, wide).unbind(0))
         dat = torch.stack(polys)
     return Ciphertext(dat, parms_id, ntt, scale, cf)
 
@@ -307,14 +338,14 @@ def load_ciphertext(data: bytes, context) -> Ciphertext:
 def save_secret_key(sk: SecretKey, mode=CompressionMode.Nil) -> bytes:
     w = Writer()
     w.hexid(sk.parms_id)
-    w.array_u32(sk.data)
+    w.array_u32(_wire(sk.data, _wide(sk.parms_id)))
     return compress(w.getvalue(), mode)
 
 
 def load_secret_key(data: bytes, device) -> SecretKey:
     r = Reader(decompress(data)[0])
     pid = r.hexid()
-    return SecretKey(_tensor(r.array_u32(), _device(device)), pid)
+    return SecretKey(_unwire(r.array_u32(), _device(device), _wide(pid)), pid)
 
 
 def save_public_key(pk: PublicKey, context=None, mode=CompressionMode.Nil) -> bytes:
@@ -331,7 +362,7 @@ def save_kswitch_keys(keys: KSwitchKeys, mode=CompressionMode.Nil) -> bytes:
     w.u64(len(keys.keys))
     for idx, arr in sorted(keys.keys.items()):
         w.u64(idx)
-        w.array_u32(arr)
+        w.array_u32(_wire(arr, _wide(keys.parms_id)))
     return compress(w.getvalue(), mode)
 
 
@@ -342,7 +373,7 @@ def _load_ksk_dict(data: bytes, device):
     keys = {}
     for _ in range(r.u64()):
         idx = r.u64()
-        keys[idx] = _tensor(r.array_u32(), dev)
+        keys[idx] = _unwire(r.array_u32(), dev, _wide(pid))
     return keys, pid
 
 
@@ -363,24 +394,32 @@ def load_galois_keys(data: bytes, device) -> GaloisKeys:
 _FRAME_OVERHEAD = 17  # compression frame header worst case
 
 
-def _nbytes(x) -> int:
-    """Bytes of x as u32 on the wire."""
-    return 4 * x.numel()
+def _nbytes(x, wide: bool = False) -> int:
+    """Bytes of x as u32 on the wire (two words a residue at the wide width)."""
+    return 4 * (1 + wide) * x.numel()
+
+
+def _header(x, wide: bool = False) -> int:
+    """An array's ndim byte and u64 dims on the wire."""
+    return 1 + 8 * (x.dim() + wide)
 
 
 def plaintext_size_upperbound(pt: Plaintext) -> int:
-    return 32 + 1 + 8 + 8 + (1 + 8 * pt.data.dim()) + _nbytes(pt.data) + _FRAME_OVERHEAD
+    w = _wide(pt.parms_id)
+    return 32 + 1 + 8 + 8 + _header(pt.data, w) + _nbytes(pt.data, w) + _FRAME_OVERHEAD
 
 
 def ciphertext_size_upperbound(ct: Ciphertext) -> int:
+    w = _wide(ct.parms_id)
     polys = 1 if ct.seed is not None else ct.size
-    data = polys * (_nbytes(ct.data) // ct.size)
+    data = polys * (_nbytes(ct.data, w) // ct.size)
     seed = 8 if ct.seed is not None else 0
-    return 32 + 2 + 8 + 8 + seed + (1 + 8 * ct.data.dim()) + data + _FRAME_OVERHEAD
+    return 32 + 2 + 8 + 8 + seed + _header(ct.data, w) + data + _FRAME_OVERHEAD
 
 
 def kswitch_keys_size_upperbound(keys: KSwitchKeys) -> int:
-    return 32 + 8 + _FRAME_OVERHEAD + sum(8 + (1 + 8 * 4) + _nbytes(arr)
+    w = _wide(keys.parms_id)
+    return 32 + 8 + _FRAME_OVERHEAD + sum(8 + (1 + 8 * (4 + w)) + _nbytes(arr, w)
                                           for arr in keys.keys.values())
 
 
@@ -442,7 +481,8 @@ def parms_size_upperbound(parms) -> int:
 
 
 def secret_key_size_upperbound(sk: SecretKey) -> int:
-    return 32 + (1 + 8 * sk.data.dim()) + _nbytes(sk.data) + _FRAME_OVERHEAD
+    w = _wide(sk.parms_id)
+    return 32 + _header(sk.data, w) + _nbytes(sk.data, w) + _FRAME_OVERHEAD
 
 
 def public_key_size_upperbound(pk: PublicKey) -> int:
