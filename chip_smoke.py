@@ -21,7 +21,9 @@ conv2d at the reference's app-bench sizes; the client's batched steps and
 the device CKKS encoder at bench.py's chain; the client and the server
 over bytes (seed-compressed inputs, the helpers' wire format); the ring2k
 encoder at the app bench's ring2k sizes; and the wide path at bench.py's
-{60, 40, 40, 60} chain.  In phases:
+{60, 40, 40, 60} chain; the per-operation benchmark matrix, the eager
+benchmark, the example twins and the timer, reductions and poly strings.
+In phases:
 
   1. device   the card's name and power limit (fails without CUDA);
   2. build    nvcc builds every csrc/*.cu into one library under
@@ -188,7 +190,35 @@ encoder at the app bench's ring2k sizes; and the wide path at bench.py's
               ciphertexts too); each step's chained time, launches, device
               time, busy share, and the wide NTT's share of the launches and
               device time (each of its calls timed alone);
- 17. times    CUDA-event times of the chained steps against their all-plain
+ 17. harness  Timer and TimerOnce around NTT kernel launches with a CUDA probe,
+              in the lines scripts/compare_bench.py parses; the reductions of
+              ops/reduction.py on a card tensor against the CPU's;
+              poly_to_hex_string of card tensors at both widths; a context
+              made by HeContext.create(parms, True, SecurityLevel.Nil), with
+              no device argument, on the card;
+ 18. eager    scripts/torch_troybench.py's eager object-API loop on BFV at
+              n = 8192 on the card, every op timed through the port's Timer,
+              the multiply + relinearize decrypting right;
+ 19. examples each twin under examples/torch/ run in this process with no
+              arguments (the card is its default device), each ending with
+              its OK line, with its seconds and kernel launches;
+ 20. perop    scripts/torch_troybench_perop.py's per-operation matrix (the
+              reference troybench's op list) at n = 8192, batch 16: BFV, BGV
+              and CKKS on the 7 x 30-bit chain and BFV on {60, 40, 40, 60},
+              inputs from the port's keygen and encryption under seed 7.
+              Each row (negate, add, multiply, multiply + relinearize,
+              multiply_plain, mod switch, rescale, the two rotations, the
+              client's encryptions, decrypt, encode and decode) runs once with
+              the counts set to 0: at the fast width it equals its all-plain
+              run (BFV multiply + relinearize must launch K1 and K3), at the
+              wide width it launches no fast-path kernel but K1 for encode's
+              and decode's NTT mod t (and then equals its all-plain run); its
+              row 0 equals the object API's result on the same ciphertexts
+              and decrypts right.
+              Then each row's profiler launches, device ms and K1 / K3
+              launches a step, its slope time by CUDA events (chained at two
+              repetition counts), and the markdown table;
+ 21. times    CUDA-event times of the chained steps against their all-plain
               versions (multiply + relinearize, the three rotations, the mod
               switch), the profiler's launches, device time, NTT kernel time
               and busy share of the HPS step and of one rotate_rows(1) and
@@ -219,6 +249,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 from unittest import mock
 
 import numpy as np
@@ -414,7 +445,7 @@ def build_context(dev):
     parms.set_poly_modulus_degree(N)
     parms.set_coeff_modulus(CoeffModulus.create(N, Q_BITS))
     parms.set_plain_modulus(PlainModulus.batching(N, LOG_T))
-    return HeContext.create(parms, dev, sec_level=SecurityLevel.Nil)
+    return HeContext.create(parms, sec_level=SecurityLevel.Nil, device=dev)
 
 
 def residues(shape, q: torch.Tensor, gen, factor: int = 1) -> torch.Tensor:
@@ -665,7 +696,6 @@ def check_decrypts(phase: str, label: str, out: torch.Tensor, parms_id, expected
     with mock.patch.object(BC, "base_convert", recording):
         for b in range(out.shape[0]):
             got = encoder.decode(decryptor.decrypt(Ciphertext(out[b], parms_id)))
-            got = got.cpu().numpy()
             if got.shape != (n or N,) or not np.array_equal(got, np.asarray(expected[b], np.int64)):
                 raise AssertionError(f"[{phase}] {label}: ciphertext {b} decrypts wrong")
     k3 = launch_counts()["base_convert"]
@@ -766,7 +796,7 @@ def phase_quickstart(dev, gen) -> dict:
     parms.set_poly_modulus_degree(N)
     parms.set_coeff_modulus(CoeffModulus.create(N, QUICKSTART_BITS))
     parms.set_plain_modulus(PlainModulus.batching(N, LOG_T))
-    context = HeContext.create(parms, dev, SecurityLevel.Classical128)
+    context = HeContext.create(parms, True, SecurityLevel.Classical128, device=dev)
     reset_launch_counts()
     keygen = KeyGenerator(context, gen)
     encryptor = Encryptor(context, pk=keygen.create_public_key(), generator=gen)
@@ -779,7 +809,7 @@ def phase_quickstart(dev, gen) -> dict:
     ct_x = encryptor.encrypt_asymmetric(encoder.encode(x))
     ct_y = encryptor.encrypt_asymmetric(encoder.encode(y))
     ct_sum = evaluator.add(ct_x, ct_y)
-    result = encoder.decode(decryptor.decrypt(ct_sum)).cpu().numpy()
+    result = encoder.decode(decryptor.decrypt(ct_sum))
     torch.cuda.synchronize()
     launches = launch_counts()
     if not np.array_equal(result, ((x + y) % t).astype(np.int64)):
@@ -802,12 +832,12 @@ def phase_quickstart(dev, gen) -> dict:
         "add_plain": (evaluator.add_plain(ct_x, p_y), ((x + y) % t).astype(np.int64)),
     }
     parms.set_use_special_prime_for_encryption(True)
-    context_sp = HeContext.create(parms, dev, SecurityLevel.Classical128)
+    context_sp = HeContext.create(parms, True, SecurityLevel.Classical128, device=dev)
     pk_sp = KeyGenerator(context_sp, gen, sk=keygen.secret_key).create_public_key()
     ct_sp = Encryptor(context_sp, pk=pk_sp, generator=gen).encrypt_asymmetric(encoder.encode(x))
     cases["special-prime encrypt_asymmetric"] = (ct_sp, x.astype(np.int64))
     for label, (ct, want) in cases.items():
-        got = encoder.decode(decryptor.decrypt(ct)).cpu().numpy()
+        got = encoder.decode(decryptor.decrypt(ct))
         if not np.array_equal(got, want):
             raise AssertionError(f"[quickstart] {label} decrypts wrong")
         log(f"[quickstart] {label}: decrypts right (noise budget "
@@ -1104,7 +1134,7 @@ def phase_ckks(dev, gpu: str) -> dict:
     parms = EncryptionParameters(SchemeType.CKKS)
     parms.set_poly_modulus_degree(N)
     parms.set_coeff_modulus(CoeffModulus.create(N, Q_BITS))
-    ctx = HeContext.create(parms, dev, SecurityLevel.Nil, seed=KEY_SEED)
+    ctx = HeContext.create(parms, True, SecurityLevel.Nil, seed=KEY_SEED, device=dev)
     keygen = KeyGenerator(ctx, prng=RandomGenerator(KEY_SEED, "aes", "keygen"))
     rlk = keygen.create_relin_keys().key(2)
     glk = keygen.create_galois_keys_from_elements(sorted(
@@ -1215,7 +1245,6 @@ def check_bgv(label: str, out: torch.Tensor, parms_id, cf: int, expected, encode
     for b in range(out.shape[0]):
         got = encoder.decode(decryptor.decrypt(Ciphertext(out[b], parms_id, True,
                                                           correction_factor=cf)))
-        got = got.cpu().numpy()
         if got.shape != (n or N,) or not np.array_equal(got, np.asarray(expected[b], np.int64)):
             raise AssertionError(f"[bgv] {label}: ciphertext {b} decrypts wrong")
     inv = launch_counts()["ntt_inverse"]
@@ -1260,7 +1289,7 @@ def phase_bgv(dev, gpu: str, bfv: dict) -> dict:
         return parms
 
     t0 = time.perf_counter()
-    ctx = HeContext.create(bgv_parms(False), dev, SecurityLevel.Nil, seed=KEY_SEED)
+    ctx = HeContext.create(bgv_parms(False), True, SecurityLevel.Nil, seed=KEY_SEED, device=dev)
     keygen = KeyGenerator(ctx, prng=RandomGenerator(KEY_SEED, "aes", "keygen"))
     rlk_obj = keygen.create_relin_keys()
     rlk = rlk_obj.key(2)
@@ -1334,7 +1363,7 @@ def phase_bgv(dev, gpu: str, bfv: dict) -> dict:
         f"the Evaluator's; its mod switch's correction factor is q_last^-1 mod t = {cf_down}")
 
     # ---- the object-API flow of examples/4_bgv_basics.py, special prime on
-    sp_ctx = HeContext.create(bgv_parms(True), dev, SecurityLevel.Nil, seed=KEY_SEED)
+    sp_ctx = HeContext.create(bgv_parms(True), True, SecurityLevel.Nil, seed=KEY_SEED, device=dev)
     sp_keygen = KeyGenerator(sp_ctx, prng=RandomGenerator(KEY_SEED, "aes", "keygen"))
     sp_ev = Evaluator(sp_ctx)
     sp_dec = Decryptor(sp_ctx, sp_keygen.secret_key)
@@ -1350,7 +1379,7 @@ def phase_bgv(dev, gpu: str, bfv: dict) -> dict:
     flow = {"x^2 after relinearize + mod switch": (low, m * m % t),
             "x^2 + x (unequal factors)": (mixed, (m * m + m) % t)}
     for label, (c, want) in flow.items():
-        got = encoder.decode(sp_dec.decrypt(c)).cpu().numpy()
+        got = encoder.decode(sp_dec.decrypt(c))
         if not np.array_equal(got, want):
             raise AssertionError(f"[bgv] 4_bgv_basics: {label} decrypts wrong")
     torch.cuda.synchronize()
@@ -1414,7 +1443,7 @@ def phase_large_n(dev, gpu: str, degrees: dict) -> dict:
     parms.set_poly_modulus_degree(n)
     parms.set_coeff_modulus(CoeffModulus.create(n, LARGE_BITS))
     parms.set_plain_modulus(PlainModulus.batching(n, LOG_T))
-    ctx = HeContext.create(parms, dev, SecurityLevel.Nil)
+    ctx = HeContext.create(parms, True, SecurityLevel.Nil, device=dev)
     cd = ctx.first_context_data()
     gen = torch.Generator(device=dev).manual_seed(KEY_SEED)
     keygen = KeyGenerator(ctx, gen)
@@ -1564,7 +1593,7 @@ def aes_context(dev, scheme: str, bits):
     parms.set_coeff_modulus(CoeffModulus.create(N, bits))
     if scheme != "CKKS":
         parms.set_plain_modulus(PlainModulus.batching(N, LOG_T))
-    ctx = HeContext.create(parms, dev, SecurityLevel.Nil, seed=KEY_SEED)
+    ctx = HeContext.create(parms, True, SecurityLevel.Nil, seed=KEY_SEED, device=dev)
     keygen = KeyGenerator(ctx, prng=RandomGenerator(KEY_SEED, "aes", "keygen"))
     encryptor = Encryptor(ctx, sk=keygen.secret_key, pk=keygen.create_public_key(),
                           prng=RandomGenerator(KEY_SEED, "aes", "encryptor"))
@@ -1809,7 +1838,7 @@ def seeded_context(dev, scheme: str, bits) -> dict:
     parms.set_coeff_modulus(CoeffModulus.create(N, bits))
     if scheme != "CKKS":
         parms.set_plain_modulus(PlainModulus.batching(N, LOG_T))
-    ctx = HeContext.create(parms, dev, SecurityLevel.Nil, seed=KEY_SEED)
+    ctx = HeContext.create(parms, True, SecurityLevel.Nil, seed=KEY_SEED, device=dev)
     keygen = KeyGenerator(ctx)
     return dict(ctx=ctx, keygen=keygen, decryptor=Decryptor(ctx, keygen.secret_key),
                 ev=Evaluator(ctx))
@@ -2197,7 +2226,7 @@ def ring2k_context(dev, limbs: int) -> dict:
     parms.set_poly_modulus_degree(N)
     parms.set_coeff_modulus(CoeffModulus.create(N, [30] * limbs))
     parms.set_plain_modulus(PlainModulus.batching(N, RING2K_LOG_T))
-    ctx = HeContext.create(parms, dev, SecurityLevel.Nil, seed=KEY_SEED)
+    ctx = HeContext.create(parms, True, SecurityLevel.Nil, seed=KEY_SEED, device=dev)
     keygen = KeyGenerator(ctx)
     return dict(ctx=ctx, encryptor=Encryptor(ctx, sk=keygen.secret_key,
                                              pk=keygen.create_public_key()),
@@ -2487,7 +2516,7 @@ def phase_wide(dev, gpu: str) -> dict:
     expected = (msgs[:BATCH].astype(object) * msgs[BATCH:]) % t_val
     for b in range(BATCH):
         got = encoder.decode(c["decryptor"].decrypt(Ciphertext(out[b], cd.parms_id)))
-        if not np.array_equal(got.cpu().numpy(), np.asarray(expected[b], np.int64)):
+        if not np.array_equal(got, np.asarray(expected[b], np.int64)):
             raise AssertionError(f"[wide] {label}: ciphertext {b} decrypts wrong")
     budget = c["decryptor"].invariant_noise_budget(Ciphertext(out[0], cd.parms_id))
     log(f"[wide] {label}: all {BATCH} products decrypt to m1 * m2 mod t; noise budget of "
@@ -2505,7 +2534,7 @@ def phase_wide(dev, gpu: str) -> dict:
     for b in range(BATCH):
         got = encoder.decode(c["decryptor"].decrypt(Ciphertext(out[b], cd.parms_id)))
         m = msgs[b]
-        if not np.array_equal(got.cpu().numpy(), np.concatenate([np.roll(m[:h], -1),
+        if not np.array_equal(got, np.concatenate([np.roll(m[:h], -1),
                                                                  np.roll(m[h:], -1)])):
             raise AssertionError(f"[wide] {label}: ciphertext {b} decrypts wrong")
     log(f"[wide] {label}: all {BATCH} decrypt to the rotated rows")
@@ -2539,7 +2568,7 @@ def phase_wide(dev, gpu: str) -> dict:
         if any(launches[f"client_{kind}"].values()):
             raise AssertionError(f"[wide] {label} launched a fast-path kernel")
         same_on_cpu(label, ct.data, lambda: getattr(enc_cpu, f"encrypt_{kind}")(pt_cpu).data)
-        got = encoder.decode(c["decryptor"].decrypt(ct)).cpu().numpy()
+        got = encoder.decode(c["decryptor"].decrypt(ct))
         if not np.array_equal(got, m):
             raise AssertionError(f"[wide] {label} decrypts wrong")
         log(f"[wide] {label}: keys and ciphertext from the context's threefry streams equal "
@@ -2621,7 +2650,7 @@ def phase_wide(dev, gpu: str) -> dict:
     expected = (msgs[:BATCH].astype(object) * msgs[BATCH:]) % t_val
     for b in range(BATCH):
         got = encoder.decode(c["decryptor"].decrypt(Ciphertext(out[b], cd.parms_id, True)))
-        if not np.array_equal(got.cpu().numpy(), np.asarray(expected[b], np.int64)):
+        if not np.array_equal(got, np.asarray(expected[b], np.int64)):
             raise AssertionError(f"[wide] {label}: ciphertext {b} decrypts wrong")
     budget = c["decryptor"].invariant_noise_budget(Ciphertext(out[0], cd.parms_id, True))
     log(f"[wide] {label}: all {BATCH} products decrypt through the BGV decrypt; noise "
@@ -2634,6 +2663,236 @@ def phase_wide(dev, gpu: str) -> dict:
     reports["BGV multiply + relinearize"] = wide_report(
         gpu, label, lambda: mul(g1, g2, rlk), lambda d: mul(d, g2, rlk), g1, ntt_cache)
     return dict(launches=launches, reports=reports)
+
+
+# ---- the per-op matrix, the eager bench, the example twins, the harness ----
+ROOT = Path(__file__).resolve().parent
+PEROP_CONFIGS = (("bfv", Q_BITS), ("bgv", Q_BITS), ("ckks", Q_BITS), ("bfv", WIDE_BITS))
+PEROP_REPS = {"fast": 10, "wide": 2}   # slope runs: reps_hi = reps (x 8 for a short row)
+PEROP_REQUIRED = {  # kernels a row must launch at the fast width (all schemes, BFV)
+    "all": {"multiply_relinearize": ("ntt_forward", "ntt_inverse"),
+            "rotate_rows(1)": ("ntt_forward", "ntt_inverse"),
+            "rotate_vector(1)": ("ntt_forward", "ntt_inverse"),
+            "rotate_columns": ("ntt_forward", "ntt_inverse"),
+            "complex_conjugate": ("ntt_forward", "ntt_inverse")},
+    "bfv": {"multiply": ("ntt_forward", "ntt_inverse", "base_convert"),
+            "multiply_relinearize": ("ntt_forward", "ntt_inverse", "base_convert"),
+            "decrypt (device)": ("ntt_forward", "ntt_inverse", "base_convert")}}
+PEROP_MOD_T = {"encode_simd (device)": ("ntt_inverse",),  # BFV / BGV: the NTT mod t
+               "decode_simd (device)": ("ntt_forward",)}
+EAGER_REPS = 5
+EXAMPLES_DIR = "examples/torch"
+
+
+def script_module(name: str):
+    """A script of the repo's scripts/ folder, imported as a module."""
+    path = str(ROOT / "scripts")
+    if path not in sys.path:
+        sys.path.insert(0, path)
+    import importlib
+
+    return importlib.import_module(name)
+
+
+def phase_perop(dev, gpu: str) -> dict:
+    """scripts/torch_troybench_perop.py's matrix at n = N, batch BATCH, for
+    each of PEROP_CONFIGS: every row once with the counts set to 0, equal to
+    its all-plain run (fast width, and the NTT mod t at the wide width) or
+    launching no fast-path kernel (the other wide rows),
+    row 0 equal to the object API's result and decrypting right; then the
+    profiler's launches, device ms and K1 / K3 launches a step, and the
+    slope time by CUDA events."""
+    perop = script_module("torch_troybench_perop")
+    out = {"launches": {}, "rows": {}}
+    for scheme, bits in PEROP_CONFIGS:
+        t0 = time.perf_counter()
+        width = "wide" if bits == WIDE_BITS else "fast"
+        args = perop.parse_args(["--scheme", scheme, "-n", str(N), "--batch", str(BATCH),
+                                 "--reps", str(PEROP_REPS[width]), "--q-bits",
+                                 ",".join(map(str, bits))])
+        s = perop.setup(args, dev)
+        steps = perop.build_steps(s)
+        torch.cuda.synchronize()
+        tag = f"{scheme.upper()} {width} {{{','.join(map(str, bits))}}}"
+        log(f"[perop] {tag}: context, keys and inputs in {time.perf_counter() - t0:.3f} s; "
+            f"rows {list(steps)}")
+        required = {**PEROP_REQUIRED["all"], **PEROP_REQUIRED.get(scheme, {})}
+        lines = perop.header(s) + perop.host_lines(perop.host_times(s))
+        for name, row in steps.items():
+            label = f"{tag} {name}"
+            run = lambda row=row: row.step(row.cur, row.aux)
+            # at the wide width only the NTT mod t (BFV / BGV) takes a kernel, K1
+            need = required.get(name, ()) if width == "fast" else PEROP_MOD_T.get(name)
+            if need is not None:
+                res, launches = run_step("perop", label, run, need)
+            else:
+                reset_launch_counts()
+                res = run()
+                torch.cuda.synchronize()
+                launches = launch_counts()
+                if any(launches.values()):
+                    raise AssertionError(f"[perop] {label} launched a fast-path kernel "
+                                         f"{launches}")
+            out["launches"][label] = launches
+            checked = perop.check_row(s, row, res)
+            # a wide step makes thousands of launches: one call profiles enough
+            wide_step = width == "wide" and name not in perop.CHEAP
+            prof = profile_step(run, 1 if wide_step else PROFILE_STEPS)
+            ms = perop.slope_ms(row, *perop.rep_counts(name, args.reps), s.dev)
+            k1 = prof["ntt_forward"][0] + prof["ntt_inverse"][0]
+            out["rows"][label] = dict(ms=ms, launches=prof["launches"], device_ms=prof["ms"],
+                                      k1=k1, k3=prof["base_convert"][0])
+            lines.append(perop.device_line(name, ms, BATCH))
+            log(f"[perop] {gpu}: {label}: {checked}; slope {ms:.4f} ms a batched step "
+                f"({ms / BATCH * 1e3:.1f} us a ciphertext); profiler: {prof['launches']:.0f} "
+                f"launches, {prof['ms']:.4f} ms of device time a step, busy "
+                f"{100 * prof['ms'] / ms:.1f}%; K1 {k1:.0f} launches, K3 "
+                f"{prof['base_convert'][0]:.0f} a step; dispatch launches {launches}")
+        for line in lines:
+            log(f"[perop] {line}")
+        log(f"[perop] {tag} done in {time.perf_counter() - t0:.3f} s")
+    return out
+
+
+def phase_eager(dev, gpu: str) -> dict:
+    """scripts/torch_troybench.py's eager loop on BFV at n = N on the card,
+    its correctness check on, with the counts set to 0 just before."""
+    import contextlib
+    import io
+
+    bench = script_module("torch_troybench")
+    args = bench.parse_args(["--scheme", "bfv", "-n", str(N), "--reps", str(EAGER_REPS),
+                             "--device", dev.type])
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    with contextlib.redirect_stdout(buf):
+        res = bench.run(args)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    text = buf.getvalue().splitlines()
+    for line in text:
+        log(f"[eager] {gpu}: {line.strip()}")
+    if not res["correct"] or text[-1] != "correctness: OK":
+        raise AssertionError("[eager] the eager bench's correctness check did not pass")
+    timed = [line for line in text if line.startswith("\t")]
+    if [line.split(":")[0].strip() for line in timed] != bench.op_names("bfv"):
+        raise AssertionError(f"[eager] the bench timed {len(timed)} ops, not its op list")
+    for name in ("ntt_forward", "ntt_inverse", "base_convert"):
+        if not launches[name]:
+            raise AssertionError(f"[eager] the eager bench did not launch {name}")
+    log(f"[eager] {len(timed)} ops timed, multiply + relinearize correct; kernel launches "
+        f"{launches}; {time.perf_counter() - t0:.3f} s")
+    return {"launches": launches}
+
+
+def phase_examples(args=()) -> dict:
+    """Each twin under examples/torch/ run in this process as a script, with
+    sys.argv = [path, *args] (none: the twins' default device, the card),
+    the counts set to 0 just before; each must end without an exception and
+    print its OK line where its JAX original has one."""
+    import contextlib
+    import io
+    import runpy
+
+    folder = ROOT / EXAMPLES_DIR
+    twins = sorted((p for p in folder.glob("*.py") if p.name != "common.py"),
+                   key=lambda p: int(p.name.split("_")[0]))
+    out = {"launches": {}, "seconds": {}}
+    argv, path0 = sys.argv, list(sys.path)
+    try:
+        for p in twins:
+            sys.modules.pop("common", None)
+            sys.argv = [str(p), *args]
+            sys.path[:] = [str(folder)] + path0
+            buf = io.StringIO()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                runpy.run_path(str(p), run_name="__main__")
+            torch.cuda.synchronize()
+            out["seconds"][p.name] = time.perf_counter() - t0
+            out["launches"][p.name] = launch_counts()
+            text = buf.getvalue().strip().splitlines()
+            original = (ROOT / "examples" / p.name).read_text()
+            if not text or ("OK" in original and not any("OK" in line for line in text)):
+                raise AssertionError(f"[examples] {p.name} printed no OK line: {text[-3:]}")
+            log(f"[examples] {p.name}: {out['seconds'][p.name]:.3f} s; last line "
+                f"{text[-1]!r}; kernel launches {out['launches'][p.name]}")
+    finally:
+        sys.argv, sys.path[:] = argv, path0
+        sys.modules.pop("common", None)
+    log(f"[examples] all {len(twins)} twins ran in {sum(out['seconds'].values()):.3f} s")
+    return out
+
+
+TIMER_LINE = r"^\t(?P<name>[\w()+-]+): (?P<val>[\d.]+) (?P<unit>ns|us|ms|s)"
+
+
+def phase_harness(dev, gpu: str, qtab) -> dict:
+    """Timer and TimerOnce around an NTT kernel launch with a CUDA probe; the
+    reductions on a card tensor against the CPU's; poly_to_hex_string of a
+    card tensor at both widths; a context made without device= on the card."""
+    import contextlib
+    import io
+    import re
+    from troy_tpu_torch.ops import ntt as NTT, reduction as RD
+    from troy_tpu_torch.utils import poly_string as PS
+    from troy_tpu_torch.utils.timer import Timer, TimerOnce
+
+    x = residues((BATCH, qtab.size, N), qtab.q, torch.Generator(device=dev).manual_seed(9))
+    timer, buf = Timer(), io.StringIO()
+    reset_launch_counts()
+    with contextlib.redirect_stdout(buf):
+        for _ in range(3):
+            timer.tick("ntt_forward")
+            y = NTT.ntt_forward(x, qtab)
+            timer.tock("ntt_forward", y)
+        with TimerOnce("ntt_inverse once") as once:
+            NTT.ntt_inverse(y, qtab)
+            torch.cuda.synchronize()
+        timer.print()
+    launches = launch_counts()
+    lines = buf.getvalue().splitlines()
+    if launches["ntt_forward"] != 3 or launches["ntt_inverse"] != 1:
+        raise AssertionError(f"[harness] the timed NTT calls launched {launches}")
+    if not (re.match(TIMER_LINE, lines[-1]) and lines[0].startswith("ntt_inverse once: ")
+            and once.elapsed_ns > 0):
+        raise AssertionError(f"[harness] Timer lines {lines} are not the parsed format")
+    log(f"[harness] {gpu}: Timer over 3 NTT launches at {tuple(x.shape)} with a CUDA "
+        f"probe: {lines[-1].strip()!r}; TimerOnce: {lines[0]!r}")
+    q = int(qtab.q[0])
+    cases = {"max_value": RD.max_value, "min_value": RD.min_value,
+             "nonzero_count": RD.nonzero_count, "sum_values": RD.sum_values,
+             "sum_values_wide": RD.sum_values_wide,
+             "max_centered_magnitude": lambda v: RD.max_centered_magnitude(v, q)}
+    x0 = x[:, 0]
+    for name, fn in cases.items():
+        card, host = fn(x0), fn(x0.cpu())
+        if card.device != x0.device or int(card) != int(host):
+            raise AssertionError(f"[harness] {name} on the card {card} != the CPU's {host}")
+    log(f"[harness] {len(cases)} reductions of {tuple(x0.shape)} on the card equal the "
+        f"CPU's: {({k: int(fn(x0)) for k, fn in cases.items()})}")
+    wide = torch.tensor([0, 1, (1 << 60) + 3, 255], dtype=torch.int64, device=dev)
+    for poly in (x[0, 0, :8], wide):
+        got = PS.poly_to_hex_string(poly)
+        want = " + ".join(f"{int(c):X}x^{i}" if i else f"{int(c):X}"
+                          for i, c in reversed(list(enumerate(poly.tolist()))) if c)
+        if got != want:
+            raise AssertionError(f"[harness] poly_to_hex_string {got!r} != {want!r}")
+    log(f"[harness] poly_to_hex_string of card tensors: {PS.poly_to_hex_string(wide)!r}")
+    from troy_tpu_torch import (EncryptionParameters, SchemeType, CoeffModulus, PlainModulus,
+                                HeContext, SecurityLevel)
+    parms = EncryptionParameters(SchemeType.BFV).set_poly_modulus_degree(N)
+    parms.set_coeff_modulus(CoeffModulus.create(N, QUICKSTART_BITS))
+    parms.set_plain_modulus(PlainModulus.batching(N, LOG_T))
+    ctx = HeContext.create(parms, True, SecurityLevel.Nil)  # no device=: the card
+    devices = {cd.device.type for cd in ctx._data.values()}
+    if devices != {dev.type}:
+        raise AssertionError(f"[harness] HeContext.create without device= built on {devices}")
+    log(f"[harness] HeContext.create(parms, True, SecurityLevel.Nil) built its "
+        f"{len(ctx._data)} levels on {dev.type} with no device argument")
+    return {"launches": launches}
 
 
 def main() -> int:
@@ -2803,7 +3062,13 @@ def main() -> int:
     ring2k = phase_ring2k(dev, gpu)
     wide = phase_wide(dev, gpu)
 
-    # ---- 17. times ---------------------------------------------------------
+    # ---- 17. harness, 18. eager, 19. examples, 20. perop ---------------------
+    harness = phase_harness(dev, gpu, qtab)
+    eager = phase_eager(dev, gpu)
+    examples = phase_examples()
+    perop = phase_perop(dev, gpu)
+
+    # ---- 21. times ---------------------------------------------------------
     def batch_ms(label: str, step, first, chain: bool = True):
         """Event-timed ms per call of step, with the kernels and all plain:
         chained (each output the next input) or repeated on first."""
@@ -2920,7 +3185,7 @@ def main() -> int:
             f"path (NTT kernel, torch dyadic_convolute, NTT kernel) {unfused_ms:.5f} ms "
             f"(device time per call, CUDA graph); kernel / unfused {ms / unfused_ms:.3f}")
 
-    # ---- 18. results -------------------------------------------------------
+    # ---- 22. results -------------------------------------------------------
     paths = {  # each main path's launch counts, read just after its run
         "hps": {**launches["hps"], "fused_negacyclic_multiply":
                 launches["fused"]["fused_negacyclic_multiply"]},
@@ -2932,8 +3197,12 @@ def main() -> int:
         "client": {k: sum(c[k] for c in client["launches"].values()) for k in KERNELS},
         "wire": {k: sum(c[k] for c in wire["launches"].values()) for k in KERNELS},
         "ring2k": {k: sum(c[k] for c in ring2k["launches"].values()) for k in KERNELS},
-        "wide": {k: sum(c[k] for c in wide["launches"].values()) for k in KERNELS}}
-    for path in ("client", "wire", "ring2k"):
+        "wide": {k: sum(c[k] for c in wide["launches"].values()) for k in KERNELS},
+        "perop": {k: sum(c[k] for c in perop["launches"].values()) for k in KERNELS},
+        "eager": {k: eager["launches"][k] for k in KERNELS},
+        "examples": {k: sum(c[k] for c in examples["launches"].values()) for k in KERNELS},
+        "harness": {k: harness["launches"][k] for k in KERNELS}}
+    for path in ("client", "wire", "ring2k", "perop", "eager", "examples"):
         if not paths[path]["ntt_forward"] or not paths[path]["ntt_inverse"]:
             raise AssertionError(f"[results] the {path} path launched no NTT kernel")
     if not paths["ring2k"]["base_convert"]:

@@ -8,7 +8,8 @@ runs its main() unchanged otherwise, to catch faults in the script's own
 logic before a chip call: torch.cuda's availability, synchronize, events,
 graphs (a graph just runs its calls) and device name; the device (the
 CPU), nvidia-smi's line, the profiler (the CPU profiler sees no device
-kernels), ptxas and the build.  Each kernel's C call is routed to its plain
+kernels), ptxas and the build; HeContext.create's default device (the
+card) becomes the CPU.  Each kernel's C call is routed to its plain
 version (the wrappers' own routing and launch counting stay real, and every
 kernel input must be a contiguous int64 tensor, as the kernels need); the
 dispatch functions to the wrappers; the refusal phase is skipped.  Sizes: n
@@ -16,7 +17,9 @@ dispatch functions to the wrappers; the refusal phase is skipped.  Sizes: n
 tables' route switches at 2048 here), the security bound lifted for the
 quickstart's Classical128; [ring2k] at matmul 4 x 5 x 6, conv2d 1 x 2 x 6
 x 6 -> 3 and 2 messages a helper flow; [wide] at n = 1024, batch 2 (its
-CPU twin then runs on the same device).  Times it prints are the CPU's and
+CPU twin then runs on the same device); [perop] at n = 1024, batch 2, 2
+repetitions; [eager] 1 repetition; [examples] with --device cpu at the
+twins' own sizes.  Times it prints are the CPU's and
 mean nothing.
 """
 import contextlib
@@ -95,10 +98,11 @@ def install_fakes():
         chk(x); bconv_cuda.LAUNCHES["base_convert"] += 1
         return BC.base_convert_plain(x, tabs)
     bconv_cuda.base_convert = fake_bconv
-    NTT.ntt_forward = lambda x, t: ntt_cuda.ntt_forward(x, t)
-    NTT.ntt_inverse = lambda x, t: ntt_cuda.ntt_inverse(x, t)
-    BC.base_convert = lambda x, t: bconv_cuda.base_convert(x, t)
-    FM.fused_negacyclic_multiply = lambda a, b, t: fused_mul_cuda.fused_negacyclic_multiply(a, b, t)
+    NTT.ntt_forward = lambda x, t: ntt_cuda.ntt_forward(x.contiguous(), t)
+    NTT.ntt_inverse = lambda x, t: ntt_cuda.ntt_inverse(x.contiguous(), t)
+    BC.base_convert = lambda x, t: bconv_cuda.base_convert(x.contiguous(), t)
+    FM.fused_negacyclic_multiply = lambda a, b, t: fused_mul_cuda.fused_negacyclic_multiply(
+        a.contiguous(), b.contiguous(), t)
     CM.CoeffModulus.max_bit_count = staticmethod(lambda n, s: 10**6)
 
     cs.N, cs.BATCH, cs.REPS, cs.PLAIN_REPS, cs.GRAPH_LAUNCHES = 1024, 2, 2, 1, 2
@@ -114,6 +118,13 @@ def install_fakes():
         from troy_tpu_torch.utils import numth
         return {1 << l: NTT.NTTTables(l, [Modulus(p) for p in numth.get_primes(2 << l, 30, 2)], dev) for l in range(1, 14)} | {cs.REFUSED_DEGREE: None}
     cs.other_degrees = small_degrees
+    cs.PEROP_REPS, cs.EAGER_REPS = {"fast": 2, "wide": 2}, 1
+    from troy_tpu_torch.core.context import HeContext
+    create = HeContext.create  # the context's default device, the card, is the CPU here
+    HeContext.create = staticmethod(
+        lambda *a, device=None, **k: create(*a, device=device or "cpu", **k))
+    examples = cs.phase_examples
+    cs.phase_examples = lambda args=(): examples(("--device", "cpu"))
 
 
 if __name__ == "__main__":

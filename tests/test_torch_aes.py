@@ -104,7 +104,7 @@ def test_quickstart_keys_and_ciphertexts_match_jax():
     tp = EncryptionParameters(SchemeType.BFV).set_poly_modulus_degree(n)
     tp.set_coeff_modulus(CoeffModulus.create(n, bits)).set_plain_modulus(
         PlainModulus.batching(n, 20))
-    tc = HeContext.create(tp, "cpu", SecurityLevel.Classical128, seed=seed)
+    tc = HeContext.create(tp, True, SecurityLevel.Classical128, seed=seed, device="cpu")
     jkg = JKeyGen(jc, prng=JRandom(seed, mode="aes", domain="keygen"))
     kg = KeyGenerator(tc, prng=RandomGenerator(seed, "aes", "keygen"))
     same(jkg.secret_key.data, kg.secret_key.data)
@@ -125,6 +125,6 @@ def test_quickstart_keys_and_ciphertexts_match_jax():
     same(jsum.data, tsum.data)
     want = ((x + y) % jp.plain_modulus.value).astype(np.int64)
     np.testing.assert_array_equal(
-        cod.decode(Decryptor(tc, kg.secret_key).decrypt(tsum)).numpy(), want)
+        cod.decode(Decryptor(tc, kg.secret_key).decrypt(tsum)), want)
     np.testing.assert_array_equal(
         jcod.decode(JDecryptor(jc, jkg.secret_key).decrypt(jsum)).astype(np.int64), want)

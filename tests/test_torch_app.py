@@ -374,7 +374,7 @@ def context(scheme: str, n: int, t_bits: int | None = 20):
     parms.set_coeff_modulus(CoeffModulus.create(n, [30, 30, 30, 30]))
     if t_bits:
         parms.set_plain_modulus(PlainModulus.batching(n, t_bits))
-    ctx = HeContext.create(parms, "cpu", SecurityLevel.Nil, seed=3)
+    ctx = HeContext.create(parms, True, SecurityLevel.Nil, seed=3, device="cpu")
     keygen = KeyGenerator(ctx)
     encryptor = Encryptor(ctx, sk=keygen.secret_key, pk=keygen.create_public_key())
     return ctx, keygen, encryptor, Decryptor(ctx, keygen.secret_key), Evaluator(ctx)

@@ -58,7 +58,7 @@ class BothCKKS:
         tp = EncryptionParameters(SchemeType.CKKS).set_poly_modulus_degree(N)
         tp.set_coeff_modulus(CoeffModulus.create(N, BITS))
         tp.set_use_special_prime_for_encryption(special_prime)
-        self.tc = HeContext.create(tp, "cpu", SecurityLevel.Nil, seed=SEED)
+        self.tc = HeContext.create(tp, True, SecurityLevel.Nil, seed=SEED, device="cpu")
         self.jkg = JKeyGen(self.jc, prng=JRandom(SEED, mode="aes", domain="keygen"))
         self.kg = KeyGenerator(self.tc, prng=RandomGenerator(SEED, "aes", "keygen"))
         self.jenc, self.enc = JEncoder(self.jc), CKKSEncoder(self.tc)
@@ -287,7 +287,7 @@ def _bfv_context():
     p = EncryptionParameters(SchemeType.BFV).set_poly_modulus_degree(64)
     p.set_coeff_modulus(CoeffModulus.create(64, [30, 30])).set_plain_modulus(
         PlainModulus.batching(64, 20))
-    return HeContext.create(p, "cpu", SecurityLevel.Nil)
+    return HeContext.create(p, True, SecurityLevel.Nil, device="cpu")
 
 
 @pytest.mark.parametrize("n", [1024])
@@ -311,7 +311,7 @@ def test_ckks_basics_example_flow():
     parms = EncryptionParameters(SchemeType.CKKS)
     parms.set_poly_modulus_degree(n)
     parms.set_coeff_modulus(CoeffModulus.create(n, [30, 30, 30, 30]))
-    context = HeContext.create(parms, "cpu", SecurityLevel.Nil, seed=5)
+    context = HeContext.create(parms, True, SecurityLevel.Nil, seed=5, device="cpu")
     keygen = KeyGenerator(context)
     encryptor = Encryptor(context, pk=keygen.create_public_key())
     decryptor = Decryptor(context, keygen.secret_key)

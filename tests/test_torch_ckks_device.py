@@ -51,7 +51,7 @@ class Enc:
         tp.set_coeff_modulus(CoeffModulus.create(n, bits))
         self.n = n
         self.jc = JContext.create(jp, True, JSec.Nil, 3)
-        self.tc = HeContext.create(tp, "cpu", SecurityLevel.Nil, seed=3)
+        self.tc = HeContext.create(tp, True, SecurityLevel.Nil, seed=3, device="cpu")
         self.jenc, self.enc = JCKKSEncoder(self.jc), CKKSEncoder(self.tc)
         self.rng = np.random.default_rng(n + len(bits))
 

@@ -48,6 +48,11 @@ def test_module_list_covers_the_ring2k_and_wide_slice():
         assert "troy_tpu_torch." + m in MODULES
 
 
+def test_module_list_covers_the_harness_slice():
+    for m in ("utils.timer", "utils.poly_string", "ops.reduction"):
+        assert "troy_tpu_torch." + m in MODULES
+
+
 def test_import_leaves_jax_out():
     code = (
         "import sys, importlib\n"
@@ -63,9 +68,15 @@ def test_import_leaves_jax_out():
 
 
 def test_sources_import_no_jax():
-    """Neither the port nor chip_smoke.py (which runs where jax is absent)
-    imports jax or the JAX package, even lazily inside a function."""
-    for path in sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+    """Neither the port nor chip_smoke.py (which runs where jax is absent),
+    the port's scripts (scripts/torch_*.py) or its example twins
+    (examples/torch/) import jax or the JAX package, even lazily inside a
+    function."""
+    paths = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + sorted((ROOT / "scripts").glob("torch_*.py"))
+             + sorted((ROOT / "examples" / "torch").glob("*.py")))
+    assert len(paths) > len(MODULES) + 20
+    for path in paths:
         for line in path.read_text().splitlines():
             s = line.strip()
             assert not (s.startswith(("import jax", "from jax", "import troy_tpu.",

@@ -68,7 +68,7 @@ class Pair:
             tp.set_plain_modulus(PlainModulus.batching(n, log_t))
             self.t = jp.plain_modulus.value
         self.jc = JContext.create(jp, True, JSec.Nil, seed)
-        self.tc = HeContext.create(tp, "cpu", SecurityLevel.Nil, seed=seed)
+        self.tc = HeContext.create(tp, True, SecurityLevel.Nil, seed=seed, device="cpu")
         self.jkg = JKeyGen(self.jc, prng=JRandom(seed, mode="aes", domain="keygen"))
         self.kg = KeyGenerator(self.tc, prng=RandomGenerator(seed, "aes", "keygen"))
         self.jpk, self.pk = self.jkg.create_public_key(), self.kg.create_public_key()
@@ -410,7 +410,7 @@ def test_batch_encoder_without_simd():
     encodes polynomials."""
     tp = EncryptionParameters(SchemeType.BFV).set_poly_modulus_degree(N)
     tp.set_coeff_modulus(CoeffModulus.create(N, BITS)).set_plain_modulus(1031)
-    enc = BatchEncoder(HeContext.create(tp, "cpu", SecurityLevel.Nil))
+    enc = BatchEncoder(HeContext.create(tp, True, SecurityLevel.Nil, device="cpu"))
     assert not enc.simd_encoding_supported
     pt = enc.encode_polynomial([1, 2, 3])
     np.testing.assert_array_equal(enc.decode_polynomial(pt)[:4], [1, 2, 3, 0])
@@ -425,7 +425,7 @@ def test_example_12_lwes_flow():
     parms = EncryptionParameters(SchemeType.BFV).set_poly_modulus_degree(n)
     parms.set_coeff_modulus(CoeffModulus.create(n, [30, 30, 30, 30]))
     parms.set_plain_modulus(PlainModulus.batching(n, 20))
-    context = HeContext.create(parms, "cpu", SecurityLevel.Nil, seed=1)
+    context = HeContext.create(parms, True, SecurityLevel.Nil, seed=1, device="cpu")
     keygen = KeyGenerator(context)
     encryptor = Encryptor(context, pk=keygen.create_public_key())
     decryptor = Decryptor(context, keygen.secret_key)

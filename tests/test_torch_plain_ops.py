@@ -236,7 +236,7 @@ def test_port_keyswitching_key(flow):
     ksk = KeyGenerator(both.tc, gen, sk=both.sk).create_keyswitching_key(new.secret_key)
     assert tuple(ksk.get(0).shape) == (3, 2, 4, N)
     out = both.ev.apply_keyswitching(both.port(flow["jcts"][0]), ksk)
-    got = both.tenc.decode(Decryptor(both.tc, new.secret_key).decrypt(out)).numpy()
+    got = both.tenc.decode(Decryptor(both.tc, new.secret_key).decrypt(out))
     np.testing.assert_array_equal(got, flow["msgs"][0].astype(np.int64))
 
 

@@ -60,7 +60,7 @@ class Seeded:
         jp.set_use_special_prime_for_encryption(special_prime)
         tp.set_use_special_prime_for_encryption(special_prime)
         self.jc = JContext.create(jp, True, JSec.Nil, seed)
-        self.tc = HeContext.create(tp, "cpu", SecurityLevel.Nil, seed=seed)
+        self.tc = HeContext.create(tp, True, SecurityLevel.Nil, seed=seed, device="cpu")
         self.jkg, self.kg = JKeyGen(self.jc), KeyGenerator(self.tc)
         if self.ckks:
             self.jcod, self.cod = JCKKSEncoder(self.jc), CKKSEncoder(self.tc)
@@ -89,7 +89,7 @@ class Seeded:
         if self.ckks:
             np.testing.assert_allclose(got, m, rtol=0, atol=CKKS_ATOL)
         else:
-            np.testing.assert_array_equal(got.numpy(), m.astype(np.int64))
+            np.testing.assert_array_equal(got, m.astype(np.int64))
 
 
 def same_ct(jct, ct):

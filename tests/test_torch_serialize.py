@@ -227,7 +227,7 @@ def test_an_operation_drops_the_seed():
     assert neg.seed is None and neg.clone().seed is None
     want = (-m.astype(np.int64)) % p.t
     back = S.load_ciphertext(S.save_ciphertext(neg, p.tc), p.tc)
-    np.testing.assert_array_equal(p.cod.decode(p.dec.decrypt(back)).numpy(), want)
+    np.testing.assert_array_equal(p.cod.decode(p.dec.decrypt(back)), want)
     jneg = JEvaluator(p.jc).negate(jencr.encrypt_symmetric(jpt, save_seed=True))
     assert jneg.seed is not None
     jback = JS.load_ciphertext(JS.save_ciphertext(jneg, p.jc), p.jc)

@@ -10,6 +10,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
+import torch
 
 from troy_tpu.core.params import EncryptionParameters as JParams, SchemeType as JScheme
 from troy_tpu.core.coeff_modulus import (CoeffModulus as JCoeff, PlainModulus as JPlain,
@@ -52,7 +53,7 @@ def flow():
     tp = EncryptionParameters(SchemeType.BFV).set_poly_modulus_degree(N)
     tp.set_coeff_modulus(CoeffModulus.create(N, BITS)).set_plain_modulus(
         PlainModulus.batching(N, LOG_T))
-    tc = HeContext.create(tp, "cpu", sec_level=SecurityLevel.Nil)
+    tc = HeContext.create(tp, sec_level=SecurityLevel.Nil, device="cpu")
     return dict(jc=jc, jkg=jkg, rlk=rlk, cts=cts, msgs=msgs, t=t, tc=tc,
                 keys=interop.relin_keys({k: np.asarray(v) for k, v in rlk.keys.items()},
                                         tc.key_parms_id, "cpu"),
@@ -81,7 +82,7 @@ def test_mul_relin_step_matches_jax(flow):
     for b in range(BATCH):
         m = encoder.decode(dec.decrypt(Ciphertext(got[b], cd.parms_id)))
         np.testing.assert_array_equal(
-            m.numpy(), ((msgs[b].astype(object) * msgs[BATCH + b]) % t).astype(np.int64))
+            m, ((msgs[b].astype(object) * msgs[BATCH + b]) % t).astype(np.int64))
 
 
 def test_evaluator_multiply_relinearize_matches_jax(flow):
@@ -173,3 +174,39 @@ def test_noise_budget_matches_jax(flow):
 def test_unknown_lift_raises(flow):
     with pytest.raises(ValueError, match="lift"):
         Evaluator(flow["tc"], lift="bogus")
+
+
+def test_batched_relinearize_takes_the_jax_ntt_form_argument(flow):
+    """BFV: relinearize(d3, key, False), the JAX package's three-argument
+    call, equals the two-argument call and the JAX package's result."""
+    jcd = flow["jc"].first_context_data()
+    jb = JBatched(JEvaluator(flow["jc"]), jcd)
+    cts = flow["cts"]
+    jd3 = jb.multiply(jnp.asarray(cts[:BATCH]), jnp.asarray(cts[BATCH:]))
+    want = np.asarray(jb.relinearize(jd3, flow["rlk"].key(2), False))
+    tb = BatchedEvaluator(Evaluator(flow["tc"]), flow["tc"].first_context_data())
+    d3 = interop.to_tensor(np.asarray(jd3), "cpu")
+    key = flow["keys"].key(2)
+    three, two = tb.relinearize(d3, key, False), tb.relinearize(d3, key)
+    assert torch.equal(three, two)
+    np.testing.assert_array_equal(interop.to_numpy(three), want)
+
+
+def test_batched_relinearize_ckks_ntt_form_argument():
+    """CKKS: relinearize(d3, key, True) equals relinearize(d3, key), which
+    reads the level's NTT form; False takes the coefficient-form route."""
+    from troy_tpu_torch.core.keygen import KeyGenerator
+
+    n = 256
+    tp = EncryptionParameters(SchemeType.CKKS).set_poly_modulus_degree(n)
+    tp.set_coeff_modulus(CoeffModulus.create(n, [30, 30, 30]))
+    tc = HeContext.create(tp, True, SecurityLevel.Nil, 3, device="cpu")
+    cd = tc.first_context_data()
+    tb = BatchedEvaluator(Evaluator(tc), cd)
+    key = KeyGenerator(tc).create_relin_keys().key(2)
+    q = cd.qtab().q.view(-1, 1)
+    g = torch.Generator().manual_seed(4)
+    d3 = torch.randint(0, 1 << 62, (2, 3, cd.coeff_modulus_size, n), generator=g) % q
+    three, two = tb.relinearize(d3, key, True), tb.relinearize(d3, key)
+    assert tb.ntt_form and torch.equal(three, two)
+    assert not torch.equal(tb.relinearize(d3, key, False), two)

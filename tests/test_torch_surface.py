@@ -23,7 +23,8 @@ MODULES = (
                            "context", "decryptor", "encryptor", "evaluator", "keygen", "keys",
                            "lwe", "lwe_ops", "modulus", "params", "plaintext", "rlwe")]
     + ["rns.rns_base", "rns.rns_tool", "rns.rns_tool64", "rns.scaling",
-       "parallel.batched", "utils.random", "utils.serialize",
+       "parallel.batched", "utils.random", "utils.serialize", "utils.timer",
+       "utils.poly_string", "ops.reduction",
        "ops.poly", "ops.galois", "ops.ntt", "ops.u64", "ops.ntt64", "ops.rp", "ops.limb"]
     + [f"app.{m}" for m in ("cipher2d", "conv2d", "encoder_adapter", "matmul", "ring2k")])
 
@@ -244,3 +245,21 @@ def test_wire_u32_against_jax():
     assert jw.getvalue() == tw.getvalue()
     r = TS.Reader(jw.getvalue())
     assert [r.u32() for _ in range(4)] == [0, 1, 0xFFFFFFFF, 123456789]
+
+
+def test_top_level_names_match_jax():
+    """The package's lazy names (PEP 562): __all__ and the _API map equal
+    the JAX package's, each at the same module path, and every name
+    resolves to the port's own object."""
+    import troy_tpu
+    import troy_tpu_torch
+
+    assert troy_tpu_torch.__all__ == troy_tpu.__all__
+    assert troy_tpu_torch._API == troy_tpu._API
+    for name in troy_tpu_torch.__all__:
+        obj = getattr(troy_tpu_torch, name)
+        assert obj.__module__ == "troy_tpu_torch." + troy_tpu_torch._API[name], name
+        assert obj is getattr(importlib.import_module(obj.__module__), name)
+    with pytest.raises(AttributeError, match="troy_tpu_torch"):
+        troy_tpu_torch.NoSuchName
+

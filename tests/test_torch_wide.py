@@ -82,7 +82,7 @@ class WidePair:
             tp.set_plain_modulus(PlainModulus.batching(n, LOG_T))
             self.t = jp.plain_modulus.value
         self.jc = JContext.create(jp, True, JSec.Nil, seed)
-        self.tc = HeContext.create(tp, "cpu", SecurityLevel.Nil, seed=seed)
+        self.tc = HeContext.create(tp, True, SecurityLevel.Nil, seed=seed, device="cpu")
 
         def prngs(domain):
             if prng_mode is None:

@@ -37,7 +37,7 @@ def _ckks_pair(n, bits, scale):
     tp = EncryptionParameters(SchemeType.CKKS).set_poly_modulus_degree(n)
     tp.set_coeff_modulus(CoeffModulus.create(n, list(bits)))
     jc = JContext.create(jp, True, JSec.Nil, 1)
-    tc = HeContext.create(tp, "cpu", SecurityLevel.Nil, seed=1)
+    tc = HeContext.create(tp, True, SecurityLevel.Nil, seed=1, device="cpu")
     return jc, tc, JCKKSEncoder(jc), CKKSEncoder(tc)
 
 

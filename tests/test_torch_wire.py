@@ -166,7 +166,7 @@ def test_example_7_serialization_flow():
     parms = EncryptionParameters(SchemeType.BFV).set_poly_modulus_degree(n)
     parms.set_coeff_modulus(CoeffModulus.create(n, [30, 30, 30]))
     parms.set_plain_modulus(PlainModulus.batching(n, 20))
-    context = HeContext.create(parms, "cpu", SecurityLevel.Nil)
+    context = HeContext.create(parms, True, SecurityLevel.Nil, device="cpu")
     keygen = KeyGenerator(context)
     encryptor = Encryptor(context, sk=keygen.secret_key, pk=keygen.create_public_key())
     decryptor = Decryptor(context, keygen.secret_key)
@@ -180,5 +180,5 @@ def test_example_7_serialization_flow():
     assert len(blob_seed) < 0.6 * len(blob_raw) and len(blob_zstd) <= len(blob_raw)
     for blob in (blob_raw, blob_zstd, blob_seed):
         back = S.load_ciphertext(blob, context)
-        np.testing.assert_array_equal(encoder.decode(decryptor.decrypt(back)).numpy(),
+        np.testing.assert_array_equal(encoder.decode(decryptor.decrypt(back)),
                                       m.astype(np.int64))

@@ -70,11 +70,12 @@ class BatchEncoder:
         slots[self._slot_to_pos[:v.shape[0]]] = v
         return Plaintext(NTT.ntt_inverse(slots[None, :], self.tables), coeff_count=self.n)
 
-    def decode(self, plain: Plaintext) -> torch.Tensor:
-        """(n,) int64 slot values mod t."""
+    def decode(self, plain: Plaintext) -> np.ndarray:
+        """(n,) slot values mod t, numpy uint64 on the host as the JAX
+        package's (the forward NTT mod t runs on the plaintext's device)."""
         self._check_simd()
         evals = NTT.ntt_forward(plain.data.contiguous(), self.tables)[0]
-        return evals[self._slot_to_pos]
+        return evals[self._slot_to_pos].cpu().numpy().astype(np.uint64)
 
     # ------------------------------------------------------------------
     def encode_polynomial(self, coeffs) -> Plaintext:

@@ -168,12 +168,24 @@ class HeContext:
         self.security_level = SecurityLevel.Nil
 
     @staticmethod
-    def create(parms: EncryptionParameters, device,
+    def create(parms: EncryptionParameters, expand_mod_chain: bool = True,
                sec_level: SecurityLevel = SecurityLevel.Classical128,
-               seed: int | None = None) -> "HeContext":
-        """The chain for parms on device.  seed keys the default samplers of
-        the objects made from the context (utils/random.py:stream), as in
-        the JAX package's HeContext.create(..., seed)."""
+               seed: int | None = None, *, device=None) -> "HeContext":
+        """The chain for parms, as the JAX package's HeContext.create: the key
+        level, the first data level (the special prime dropped) and, when
+        expand_mod_chain, every level below it down to one prime.  seed keys
+        the default samplers of the objects made from the context
+        (utils/random.py:stream).  device is where the tables live: the CUDA
+        card when None (RuntimeError without one), else any torch device."""
+        if isinstance(expand_mod_chain, (str, torch.device)):
+            raise TypeError(
+                "[HeContext.create] the second argument is expand_mod_chain (a "
+                f"bool), got the device {expand_mod_chain!r}: pass it as device=")
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError("[HeContext.create] no CUDA device: pass device= "
+                                   "(e.g. device=\"cpu\") to build the context elsewhere")
+            device = torch.device("cuda")
         ctx = HeContext()
         ctx.seed = seed
         ctx.security_level = sec_level
@@ -189,7 +201,8 @@ class HeContext:
         if len(parms.coeff_modulus) > 1:
             ctx.using_keyswitching = True
             cur = key_data
-            while len(cur.parms.coeff_modulus) > 1:
+            # the first data level always, the levels below it when expanding
+            while len(cur.parms.coeff_modulus) > 1 and (expand_mod_chain or len(chain) < 2):
                 nxt = ContextData(cur.parms.clone().set_coeff_modulus(
                     cur.parms.coeff_modulus[:-1]), device, cur.chain_index + 1)
                 nxt.prev, cur.next = cur, nxt

@@ -45,6 +45,7 @@ class Encryptor:
         self.sk = sk
         self.pk = pk
         self.generator = stream(context.seed, generator, prng, "encryptor")
+        self.prng = self.generator  # the JAX package's name for the stream
 
     def _level(self, parms_id: ParmsID | None) -> ContextData:
         return self.context.get_context_data(parms_id or self.context.first_parms_id)

@@ -33,6 +33,7 @@ class KeyGenerator:
                  sk: SecretKey | None = None, prng: RandomGenerator | None = None):
         self.context = context
         self.generator = stream(context.seed, generator, prng, "keygen")
+        self.prng = self.generator  # the JAX package's name for the stream
         cd = context.key_context_data()
         if sk is None:
             qtab = cd.qtab()

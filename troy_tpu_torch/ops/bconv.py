@@ -72,9 +72,9 @@ def base_convert_plain(x: torch.Tensor, tabs: BConvTables) -> torch.Tensor:
 
 def base_convert(x: torch.Tensor, tabs: BConvTables) -> torch.Tensor:
     """Fast base conversion of (..., L_in, n) residues: the kernel for a CUDA
-    tensor, the plain version for a CPU tensor."""
+    tensor (made contiguous), the plain version for a CPU tensor."""
     if x.is_cuda:
         from . import bconv_cuda
 
-        return bconv_cuda.base_convert(x, tabs)
+        return bconv_cuda.base_convert(x.contiguous(), tabs)
     return base_convert_plain(x, tabs)

@@ -34,9 +34,10 @@ def fused_negacyclic_multiply_plain(a: torch.Tensor, b: torch.Tensor,
 
 def fused_negacyclic_multiply(a: torch.Tensor, b: torch.Tensor,
                               t: NTTTables) -> torch.Tensor:
-    """The kernel for CUDA tensors, the plain version for CPU tensors."""
+    """The kernel for CUDA tensors (made contiguous), the plain version for
+    CPU tensors."""
     if a.is_cuda:
         from . import fused_mul_cuda
 
-        return fused_mul_cuda.fused_negacyclic_multiply(a, b, t)
+        return fused_mul_cuda.fused_negacyclic_multiply(a.contiguous(), b.contiguous(), t)
     return fused_negacyclic_multiply_plain(a, b, t)

@@ -377,7 +377,8 @@ def ntt_inverse_plain(x: torch.Tensor, t: NTTTables) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Dispatch: a CPU tensor takes the plain version, a CUDA tensor the kernel.
+# Dispatch: a CPU tensor takes the plain version, a CUDA tensor the kernel
+# (a strided one made contiguous first, as the plain version takes any).
 # ---------------------------------------------------------------------------
 
 def ntt_forward(x: torch.Tensor, t: NTTTables) -> torch.Tensor:
@@ -385,7 +386,7 @@ def ntt_forward(x: torch.Tensor, t: NTTTables) -> torch.Tensor:
     if x.is_cuda:
         from . import ntt_cuda
 
-        return ntt_cuda.ntt_forward(x, t)
+        return ntt_cuda.ntt_forward(x.contiguous(), t)
     return ntt_forward_plain(x, t)
 
 
@@ -394,7 +395,7 @@ def ntt_inverse(x: torch.Tensor, t: NTTTables) -> torch.Tensor:
     if x.is_cuda:
         from . import ntt_cuda
 
-        return ntt_cuda.ntt_inverse(x, t)
+        return ntt_cuda.ntt_inverse(x.contiguous(), t)
     return ntt_inverse_plain(x, t)
 
 

@@ -72,13 +72,16 @@ class BatchedEvaluator:
                     else R.dyadic_convolute(d1, d2, qtab))
         return self.ev.bfv_multiply_impl(self.cd, d1, d2)
 
-    def relinearize(self, d3: torch.Tensor, rlk_key: torch.Tensor) -> torch.Tensor:
-        """d3: (..., 3, L, n) -> (..., 2, L, n), in d3's domain."""
+    def relinearize(self, d3: torch.Tensor, rlk_key: torch.Tensor,
+                    ntt_form: bool | None = None) -> torch.Tensor:
+        """d3: (..., 3, L, n) -> (..., 2, L, n), in the domain ntt_form says
+        (None: the level's, NTT for CKKS and BGV)."""
         qtab = self.cd.qtab()
+        ntt_form = self.ntt_form if ntt_form is None else ntt_form
         target = d3[..., 2, :, :]
-        if self.ntt_form:
+        if ntt_form:
             target = R.ntt_inverse(target.contiguous(), qtab)
-        sw = self.ev._switch_key_impl(self.cd, target, rlk_key, out_ntt=self.ntt_form)
+        sw = self.ev._switch_key_impl(self.cd, target, rlk_key, out_ntt=ntt_form)
         return P.add(d3[..., :2, :, :], sw, qtab)
 
     def build_mul_relin_step(self, rlk_key: torch.Tensor):
