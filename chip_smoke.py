@@ -15,7 +15,7 @@ and complex_conjugate); the same chain under BGV (multiply and square +
 relinearize, rotate_rows, rotate_columns, the mod switch, the flow of
 examples/4_bgv_basics.py, exponentiate and, in BFV, multiply_plain_contract);
 a BFV multiply + relinearize at n = 65536, where
-the NTT and the fused tensor product take their two-launch routes; LWE
+the NTT and the fused tensor product take their cluster routes; LWE
 extraction and packing on the BFV chain; the app layer's matmul and
 conv2d at the reference's app-bench sizes; the client's batched steps and
 the device CKKS encoder at bench.py's chain; the client and the server
@@ -27,26 +27,30 @@ In phases:
 
   1. device   the card's name and power limit (fails without CUDA);
   2. build    nvcc builds every csrc/*.cu into one library under
-              troy_tpu_torch/build/; beside it, nvcc -Xptxas -v on ntt.cu
-              and fused_mul.cu prints each kernel's registers and spills,
-              and the occupancy calculator its CTAs per SM (and K4's
+              troy_tpu_torch/build/; beside it, nvcc -Xptxas -v on ntt.cu,
+              fused_mul.cu, fused_mul_large.cu and tensor_product.cu prints
+              each kernel's registers and spills, and the occupancy
+              calculator its CTAs per SM (and each cluster kernel's
               clusters on the card);
   3. kernels  each kernel against its plain PyTorch version, bit for bit:
               the NTT pair (and the earlier radix-2 pair that [times] uses
               as its yardstick) at every shape the path gives it and at every
-              degree 2 to 131072 (above 32768 the column and block kernels,
-              each launch also against its plain partial transform); the
+              degree 2 to 131072 (above 32768 the cluster kernel, and its
+              yardstick, the column and block kernels, each launch against
+              its plain partial transform); the
               base conversion (K3) at every conversion of
               both lifts, the floor, Shenoy-Kumaresan and decrypt, at a
               15 -> 9 contraction, at one input limb, and into ring2k's
               {t, gamma} with t = 2^30 and 2^31 (output moduli past 2^30); the fused tensor
               product (K4, and its earlier radix-2 kernel, the yardstick of
               [times]) on lazy [0, 2q) input over base q and Bsk and at every
-              degree 2 to 131072 (above 32768 its route through the NTT
-              kernels and the tensor-product kernel, which is also held to
+              degree 2 to 131072 (above 32768 the large cluster kernel, and
+              its five-launch yardstick through the two-launch NTT and the
+              tensor-product kernel, which is also held to
               dyadic_convolute).  Each wrapper refuses input its kernel
-              cannot take, every degree above 131072, and a wide (40-60-bit)
-              modulus;
+              cannot take, every degree above 131072, a cluster of other
+              than 2, 4, 8 or 16 CTAs, a K4 shape the large kernel is not
+              built for, and a wide (40-60-bit) modulus;
   4. main     keygen, encode, encrypt 16 distinct pairs; one HPS step and
               one BEHZ step.  Each must launch the NTT kernels and K3, equal
               the same step with every kernel dispatch (NTT.ntt_forward,
@@ -103,13 +107,17 @@ In phases:
               share and NTT share of its bound;
  10. large_n  BFV multiply + relinearize at n = 65536 (9 x 30-bit primes, t =
               PlainModulus.batching(65536, 20), batch 2): it must launch the
-              column and block NTT kernels and K3, equal its all-plain run
-              and decrypt right; K4 at its entry point at the step's q and
-              Bsk shapes (its large route) equals the unfused stage and its
-              floor the multiply; then each large-n launch's device time
-              beside its bound at (3, 2, n) for n = 65536 and 131072, and the
-              two-launch NTT with blocks of 4096, 8192 and 32768 in turns, at
-              (3, 2, 65536) and at the step's keyswitch digits;
+              cluster NTT kernel (one launch per transform, 9 a step, none of
+              the two-launch yardstick's) and K3, equal its all-plain run and
+              decrypt right; K4 at its entry point at the step's q and Bsk
+              shapes (its large cluster kernel, one launch a call, nothing
+              else) equals the unfused stage and its floor the multiply;
+              then each cluster kernel against its yardstick in turns (new,
+              old, old, new) beside its bound and plain time: the NTT at
+              (3, 2, n) for n = 65536 and 131072 and at every NTT call of
+              the step, K4 at (3, 2, 2, n); and the NTT's cluster sizes in
+              turns (at (3, 2, n) of both degrees, at the step's digits and
+              over the step's transforms);
  11. lwe      bench.py's BFV chain (seed 0xBEEF, AES streams): the 13
               automorphism keys (2^j + 1), one public-key encryption of
               coefficients uniform in [0, t) (numpy seed 7); extract_lwe of 64
@@ -269,13 +277,14 @@ PROFILE_STEPS = 5
 ROT_KEY_STEPS = [1, 4, -1]
 QUICKSTART_BITS = [30] * 4
 K4_DEGREES = (16, 1024, 16384, 32768)
-LARGE_DEGREES = (65536, 131072)   # the two-launch routes (F3)
+LARGE_DEGREES = (65536, 131072)   # the cluster routes
 REFUSED_DEGREE = 262144           # above the reference's largest degree
 CKKS_SCALE = 2.0 ** 25
 N_LARGE = 65536
 LARGE_BITS = [30] * 9             # 8 data primes + the special prime
 LARGE_BATCH = 2
-SPLIT_BLOCKS = (12, 13, 15)       # log2 n2 of the two-launch NTT, timed at N_LARGE
+STEP_NTT_LAUNCHES = 9             # the n = 65536 HPS step's transforms, one launch each
+CLUSTER_SWEEP = {65536: (4, 3, 2, 1), 131072: (4, 3, 2)}  # log2 C of the NTT, timed in turns
 LWE_COUNT, LWE_GROUPS = 64, 4        # [lwe]: LWEs packed, and groups of them batched
 APP_BITS = [30] * 4                   # [app]: the reference's app-bench chain
 APP_MATMUL = (100, 105, 110)          # batch x input x output (matmul_bench.py)
@@ -285,17 +294,20 @@ _INV = "troy_tpu/ops/ntt_pallas.py:89, troy_tpu/ops/ntt_pallas.py:228"
 KERNELS = {  # name: (source, the TPU kernels it replaces: K1 and K2 for the NTT)
     "ntt_forward": ("troy_tpu_torch/csrc/ntt.cu", _FWD),
     "ntt_inverse": ("troy_tpu_torch/csrc/ntt.cu", _INV),
-    "ntt_forward_columns": ("troy_tpu_torch/csrc/ntt.cu", _FWD),
-    "ntt_forward_blocks": ("troy_tpu_torch/csrc/ntt.cu", _FWD),
-    "ntt_inverse_blocks": ("troy_tpu_torch/csrc/ntt.cu", _INV),
-    "ntt_inverse_columns": ("troy_tpu_torch/csrc/ntt.cu", _INV),
+    "ntt_forward_cluster": ("troy_tpu_torch/csrc/ntt.cu", _FWD),
+    "ntt_inverse_cluster": ("troy_tpu_torch/csrc/ntt.cu", _INV),
     "base_convert": ("troy_tpu_torch/csrc/bconv.cu", "troy_tpu/ops/ntt_pallas.py:413"),
     "fused_negacyclic_multiply": ("troy_tpu_torch/csrc/fused_mul.cu",
                                   "troy_tpu/ops/fused_mul.py:75"),
-    "tensor_product": ("troy_tpu_torch/csrc/tensor_product.cu",
-                       "troy_tpu/ops/fused_mul.py:75"),
+    "fused_mul_large": ("troy_tpu_torch/csrc/fused_mul_large.cu",
+                        "troy_tpu/ops/fused_mul.py:75"),
 }
 NTT_KERNELS = [k for k in KERNELS if k.startswith("ntt_")]
+# The cluster routes' yardsticks (the two-launch NTT pair and the tensor
+# product between its calls): timed against them in [large_n], held to their
+# plain versions in [kernels], launched on no path.
+YARDSTICKS = ("ntt_forward_columns", "ntt_forward_blocks", "ntt_inverse_blocks",
+              "ntt_inverse_columns", "tensor_product")
 
 
 MEM_BYTES_PER_S = 3.35e12             # H100 SXM HBM3 (NVIDIA data sheet)
@@ -327,21 +339,6 @@ def bconv_bound(shape, l_out: int) -> tuple[float, str]:
     return bound_us((l_in + l_out) * cols * 8, cols * (3 * l_in + 2 * l_in * l_out + 6 * l_out))
 
 
-def stages_bound(shape, stages: int) -> tuple[float, str]:
-    """One launch of the two-launch NTT route: every value in and out, and
-    `stages` of its log2 n stages."""
-    polys, n = int(np.prod(shape[:-1])), shape[-1]
-    return bound_us(2 * polys * n * 8, polys * (n // 2) * stages * NTT_BUTTERFLY_OPS)
-
-
-def product_bound(shape) -> tuple[float, str]:
-    """The tensor product on (B, 4, L, n) -> (B, 3, L, n): 7 polynomials of
-    int64 moved, four 64-bit products (about 4 int32 multiplies each), an add
-    and three Barrett reductions (about 8 int32 ops each) a coefficient."""
-    cols = shape[0] * shape[2] * shape[3]
-    return bound_us(7 * cols * 8, cols * (4 * 4 + 2 + 3 * 8))
-
-
 def fused_bound(shape) -> tuple[float, str]:
     """K4 on a, b (B, 2, L, n) -> (B, 3, L, n): 7 transforms and the
     dyadic products (about 40 ops a coefficient) per (batch, limb)."""
@@ -363,6 +360,12 @@ PTXAS_NAMES = {  # a part of each kernel's mangled name: the name printed
     "ntt_columns_kernelILi3ELb0": "ntt_forward_columns (split 3)",
     "ntt_columns_kernelILi3ELb1": "ntt_inverse_columns (split 3)",
     "ntt_columns_kernelILi4ELb0": "ntt_forward_columns (split 4)",
+    "ntt_cluster_kernelILi4ELb0": "ntt_forward_cluster (split 4)",
+    "ntt_cluster_kernelILi4ELb1": "ntt_inverse_cluster (split 4)",
+    "ntt_cluster_kernelILi3ELb0": "ntt_forward_cluster (split 3)",
+    "ntt_cluster_kernelILi3ELb1": "ntt_inverse_cluster (split 3)",
+    "fused_mul_large_kernelILi12ELi4E": "fused_mul_large at n = 65536 (C = 16)",
+    "fused_mul_large_kernelILi13ELi4E": "fused_mul_large at n = 131072 (C = 16)",
     "tensor_product_kernel": "tensor_product",
     "ntt_forward_radix2": "ntt_forward radix-2 yardstick",
     "ntt_inverse_radix2": "ntt_inverse radix-2 yardstick",
@@ -457,8 +460,8 @@ def residues(shape, q: torch.Tensor, gen, factor: int = 1) -> torch.Tensor:
 def phase_ntt(dev, tables: dict) -> dict:
     """NTT kernels vs plain, and the radix-2 yardstick of [times] too;
     returns max |err| per kernel.  The inverse also takes lazy [0, 2q).
-    With a split (n > 32768) each of the two launches is also held to its
-    plain partial transform."""
+    With a split (n > 32768) the cluster kernel, and each launch of its
+    two-launch yardstick against its plain partial transform."""
     from troy_tpu_torch.ops import ntt as NTT, ntt_cuda
 
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -476,8 +479,6 @@ def phase_ntt(dev, tables: dict) -> dict:
         e_f = int((y - y_ref).abs().max())
         e_i = max(int((z - z_ref).abs().max()), int((z_lazy - z_lazy_ref).abs().max()))
         if t.split:
-            fwd, inv = ("ntt_forward_columns", "ntt_forward_blocks"), (
-                "ntt_inverse_blocks", "ntt_inverse_columns")
             c_ref = NTT.forward_stages_plain(x, t, 0, t.split)
             b_ref = NTT.inverse_stages_plain(canon, t, t.split, t.log_n, False)
             launch_err = {
@@ -488,17 +489,17 @@ def phase_ntt(dev, tables: dict) -> dict:
                 "ntt_inverse_columns": (ntt_cuda.columns(True, b_ref, t),
                                         NTT.inverse_stages_plain(b_ref, t, 0, t.split, True))}
             launch_err = {k: int((a - b).abs().max()) for k, (a, b) in launch_err.items()}
-            yard = f"each launch against its plain partial transform: {launch_err}"
+            yard = (f"cluster of {1 << t.split}; the two-launch yardstick's launches against "
+                    f"their plain partial transforms: {launch_err}")
             bad = any(launch_err.values())
-            for k, e in launch_err.items():
-                err[k] = max(err[k], e, e_f if k in fwd else e_i)
+            fwd, inv = "ntt_forward_cluster", "ntt_inverse_cluster"
         else:
-            fwd, inv = ("ntt_forward",), ("ntt_inverse",)
             ok = (torch.equal(ntt_cuda.run_radix2(False, x, t), y_ref)
                   and torch.equal(ntt_cuda.run_radix2(True, y, t), z_ref))
             yard, bad = f"radix-2 yardstick equal: {ok}", not ok
-            err["ntt_forward"] = max(err["ntt_forward"], e_f)
-            err["ntt_inverse"] = max(err["ntt_inverse"], e_i)
+            fwd, inv = "ntt_forward", "ntt_inverse"
+        err[fwd] = max(err[fwd], e_f)
+        err[inv] = max(err[inv], e_i)
         torch.cuda.synchronize()
         back = bool(torch.equal(z, canon))
         log(f"[kernels] ntt {label} {shape}: forward max|err| {e_f}, "
@@ -531,13 +532,14 @@ def phase_bconv(dev, cases: dict) -> int:
 
 def phase_fused(dev, cases: dict) -> dict:
     """Fused tensor-product kernel vs plain on lazy [0, 2q) input, and the
-    radix-2 yardstick of [times] too (n <= 32768); above, its route and the
-    tensor-product kernel against dyadic_convolute.  Returns max |err| of
-    K4 and of the tensor-product kernel."""
+    radix-2 yardstick of [times] too (n <= 32768); above, the large cluster
+    kernel, and its five-launch yardstick and that route's tensor-product
+    kernel against dyadic_convolute.  Returns max |err| of K4's two
+    kernels."""
     from troy_tpu_torch.ops import dyadic as D, fused_mul as FM, fused_mul_cuda, ntt as NTT
 
     gen = torch.Generator(device=dev).manual_seed(4)
-    err = {"fused_negacyclic_multiply": 0, "tensor_product": 0}
+    err = {"fused_negacyclic_multiply": 0, "fused_mul_large": 0}
     for label, (lead, t) in cases.items():
         shape = (*lead, 2, t.size, t.n)
         a, b = residues(shape, t.q, gen, 2), residues(shape, t.q, gen, 2)
@@ -547,18 +549,19 @@ def phase_fused(dev, cases: dict) -> dict:
             y = NTT.ntt_forward_plain(torch.cat([a, b], dim=-3), t)
             e_tp = int((fused_mul_cuda.tensor_product(y, t)
                         - D.dyadic_convolute(y[..., :2, :, :], y[..., 2:, :, :], t)).abs().max())
-            err["tensor_product"] = max(err["tensor_product"], e_tp)
-            yard, bad = f"tensor-product kernel max|err| {e_tp}", e_tp != 0
+            e_five = int((fused_mul_cuda.run_five_launch(a, b, t) - c_ref).abs().max())
+            yard = (f"cluster of {1 << t.split}; five-launch yardstick max|err| {e_five}, "
+                    f"its tensor-product kernel max|err| {e_tp}")
+            bad, name = e_tp != 0 or e_five != 0, "fused_mul_large"
         else:
             ok = torch.equal(fused_mul_cuda.run_radix2(a, b, t), c_ref)
-            yard, bad = f"radix-2 yardstick equal: {ok}", not ok
+            yard, bad, name = f"radix-2 yardstick equal: {ok}", not ok, "fused_negacyclic_multiply"
         torch.cuda.synchronize()
         e = int((c - c_ref).abs().max())
-        log(f"[kernels] fused_negacyclic_multiply {label} {shape} -> "
-            f"{tuple(c.shape)}: max|err| {e}, {yard}")
+        log(f"[kernels] {name} {label} {shape} -> {tuple(c.shape)}: max|err| {e}, {yard}")
         if e or c.shape != c_ref.shape or bad:
             raise AssertionError(f"[kernels] fused {label}: kernel disagrees with plain")
-        err["fused_negacyclic_multiply"] = max(err["fused_negacyclic_multiply"], e)
+        err[name] = max(err[name], e)
     return err
 
 
@@ -647,6 +650,30 @@ def phase_refusals(dev, t, bconv_tabs, big):
     expect_refusals(f"fused_negacyclic_multiply at n = {big.n}",
                     lambda v: fused_mul_cuda.fused_negacyclic_multiply(v, v, big), {
                         "n above 131072": (ab, ValueError)})
+
+    # the cluster routes: a cluster of 32 CTAs (split 5, the two-launch
+    # yardstick's at 131072), K4 in clusters of 8 at 131072 (four blocks of
+    # 16384 do not fit a CTA), a CPU tensor
+    from troy_tpu_torch.core.modulus import Modulus
+    from troy_tpu_torch.ops.ntt import NTTTables
+    from troy_tpu_torch.utils import numth
+
+    top = max(LARGE_DEGREES)
+    log_top = top.bit_length() - 1
+    mods = [Modulus(p) for p in numth.get_primes(2 * top, 30, 1)]
+    by_split = {k: NTTTables(log_top, mods, dev, split=k) for k in (5, 3, None)}
+    x = torch.zeros((1, 1, top), dtype=torch.int64, device=dev)
+    for inverse in (False, True):
+        fn = ntt_cuda.ntt_inverse if inverse else ntt_cuda.ntt_forward
+        expect_refusals(f"{fn.__name__} at n = {top}", lambda v: fn(*v), {
+            "cluster of 32 CTAs": ((x, by_split[5]), ValueError),
+            "CPU tensor": ((x.cpu(), by_split[None]), ValueError)})
+    ab = torch.zeros((1, 2, 1, top), dtype=torch.int64, device=dev)
+    expect_refusals(f"fused_negacyclic_multiply at n = {top}",
+                    lambda v: fused_mul_cuda.fused_negacyclic_multiply(v[0], v[0], v[1]), {
+                        "cluster of 32 CTAs": ((ab, by_split[5]), ValueError),
+                        "cluster of 8 CTAs": ((ab, by_split[3]), ValueError),
+                        "CPU tensor": ((ab.cpu(), by_split[None]), ValueError)})
 
 
 def run_step(phase: str, label: str, fn, required) -> tuple[torch.Tensor, dict]:
@@ -877,12 +904,10 @@ def round_stages(gpu: str, evaluator, cd, rot: dict):
 
 PROFILED = {  # kernel: parts of its name in the profiler
     "ntt_forward": ("ntt_kernel<false>",), "ntt_inverse": ("ntt_kernel<true>",),
-    "ntt_forward_columns": ("ntt_columns_kernel<", ", false>"),
-    "ntt_inverse_columns": ("ntt_columns_kernel<", ", true>"),
-    "ntt_forward_blocks": ("ntt_block_kernel<false>",),
-    "ntt_inverse_blocks": ("ntt_block_kernel<true>",),
+    "ntt_forward_cluster": ("ntt_cluster_kernel<", ", false>"),
+    "ntt_inverse_cluster": ("ntt_cluster_kernel<", ", true>"),
     "base_convert": ("bconv_kernel",), "fused_negacyclic_multiply": ("fused_mul_kernel",),
-    "tensor_product": ("tensor_product_kernel",)}
+    "fused_mul_large": ("fused_mul_large_kernel",)}
 
 
 def profile_step(fn, calls: int) -> dict:
@@ -939,13 +964,10 @@ def record_launches(fn) -> list:
 
 
 def launch_bound(name: str, shape, t) -> tuple[float, str]:
-    """The bound of one launch of kernel `name` on a dispatch call's input."""
+    """The bound of one launch of kernel `name` on a dispatch call's input
+    (every NTT kernel of a path does a whole transform a launch)."""
     if name == "base_convert":
         return bconv_bound(shape, t.L_out)
-    if name.endswith("_columns"):
-        return stages_bound(shape, t.split)
-    if name.endswith("_blocks"):
-        return stages_bound(shape, t.log_n - t.split)
     return ntt_bound(shape)
 
 
@@ -1422,8 +1444,9 @@ def phase_bgv(dev, gpu: str, bfv: dict) -> dict:
 
 
 def phase_large_n(dev, gpu: str, degrees: dict) -> dict:
-    """BFV multiply + relinearize at n = 65536 through the two-launch NTT,
-    K4's large route at its entry point, then each large-n launch timed."""
+    """BFV multiply + relinearize at n = 65536 through the cluster NTT, K4's
+    large cluster kernel at its entry point, then each cluster kernel timed
+    against its yardstick, and the cluster sizes in turns."""
     from troy_tpu_torch.core.params import EncryptionParameters, SchemeType
     from troy_tpu_torch.core.coeff_modulus import CoeffModulus, PlainModulus, SecurityLevel
     from troy_tpu_torch.core.context import HeContext
@@ -1434,8 +1457,7 @@ def phase_large_n(dev, gpu: str, degrees: dict) -> dict:
     from troy_tpu_torch.core.batch_encoder import BatchEncoder
     from troy_tpu_torch.core.ciphertext import Ciphertext
     from troy_tpu_torch.parallel.batched import BatchedEvaluator
-    from troy_tpu_torch.ops import (dyadic as D, fused_mul as FM, fused_mul_cuda,
-                                    ntt as NTT, ntt_cuda)
+    from troy_tpu_torch.ops import fused_mul as FM, fused_mul_cuda, ntt as NTT, ntt_cuda
 
     t0 = time.perf_counter()
     n = N_LARGE
@@ -1462,13 +1484,21 @@ def phase_large_n(dev, gpu: str, degrees: dict) -> dict:
     bsk = tool.bsk_ntt
     torch.cuda.synchronize()
     log(f"[large_n] context n={n} L={cd.coeff_modulus_size} |Bsk|={bsk.size} t={t_val}, "
-        f"NTT split {qtab.split} (blocks of {1 << qtab.block_log_n}), keys and "
+        f"NTT clusters of {1 << qtab.split} (blocks of {1 << qtab.block_log_n}), keys and "
         f"{2 * LARGE_BATCH} encryptions in {time.perf_counter() - t0:.3f} s")
     step = batched.build_mul_relin_step(rlk)
-    need = ("ntt_forward_columns", "ntt_forward_blocks", "ntt_inverse_blocks",
-            "ntt_inverse_columns", "base_convert")
     out, launches = run_step("large_n", f"HPS step {tuple(d1.shape)} x {tuple(d2.shape)}",
-                             lambda: step(d1, d2, rlk), need)
+                             lambda: step(d1, d2, rlk),
+                             ("ntt_forward_cluster", "ntt_inverse_cluster", "base_convert"))
+    calls = record_launches(lambda: step(d1, d2, rlk))
+    ntt_calls = [c for c in calls if c[0] != "base_convert"]
+    cluster_n = launches["ntt_forward_cluster"] + launches["ntt_inverse_cluster"]
+    others = {k: launches[k] for k in ("ntt_forward", "ntt_inverse", *YARDSTICKS) if launches[k]}
+    log(f"[large_n] the step's NTT: {cluster_n} cluster kernel launches for its "
+        f"{len(ntt_calls)} transforms ({STEP_NTT_LAUNCHES} expected); other NTT kernels "
+        f"launched: {others or 'none'}")
+    if cluster_n != len(ntt_calls) or cluster_n != STEP_NTT_LAUNCHES or others:
+        raise AssertionError("[large_n] the step's transforms are not one cluster launch each")
     check_decrypts("large_n", "HPS products m1 * m2 mod t", out, cd.parms_id, expected,
                    encoder, decryptor, n=n)
     budget = decryptor.invariant_noise_budget(Ciphertext(out[0], cd.parms_id))
@@ -1483,16 +1513,16 @@ def phase_large_n(dev, gpu: str, degrees: dict) -> dict:
     fused_b = FM.fused_negacyclic_multiply(lift["d1"], lift["d2"], bsk)
     torch.cuda.synchronize()
     k4 = launch_counts()
-    log(f"[large_n] tensor-product stage through K4's large route: launches {k4}")
-    if k4["tensor_product"] != 2 or k4["fused_negacyclic_multiply"]:
-        raise AssertionError("[large_n] K4 did not take its large route twice")
+    log(f"[large_n] tensor-product stage through K4's large cluster kernel: launches {k4}")
+    if k4["fused_mul_large"] != 2 or any(v for k, v in k4.items() if k != "fused_mul_large"):
+        raise AssertionError("[large_n] K4's large route did not make one launch a call")
     if not (torch.equal(fused_q, unfused_stage(d1, d2, qtab))
             and torch.equal(fused_b, unfused_stage(lift["d1"], lift["d2"], bsk))):
         raise AssertionError("[large_n] K4 != the unfused tensor-product stage")
     if not torch.equal(tool.fast_floor_scale_fast_b_conv_sk(fused_q, fused_b),
                        batched.multiply(d1, d2)):
         raise AssertionError("[large_n] the floor of K4's stage != the HPS multiply")
-    log("[large_n] K4's large route equals the unfused stage over q and Bsk, and its "
+    log("[large_n] K4's large kernel equals the unfused stage over q and Bsk, and its "
         "floor equals the HPS multiply")
     for _ in range(2):
         step(d1, d2, rlk)
@@ -1504,74 +1534,122 @@ def phase_large_n(dev, gpu: str, degrees: dict) -> dict:
     ms = cuda_ms(chained, 5)
     profile = step_report("large_n", gpu, f"HPS multiply + relinearize step, batch {LARGE_BATCH}",
                           lambda: step(d1, d2, rlk), ms, 2)
-    calls = record_launches(lambda: step(d1, d2, rlk))
 
-    # each large-n launch alone, by CUDA graphs, beside its bound
+    # each cluster kernel against its yardstick, in turns (new, old, old,
+    # new), by CUDA graphs, beside its bound and its plain version
     g = torch.Generator(device=dev).manual_seed(8)
+    yard_tabs = {}
+
+    def yardstick(t):
+        """The two-launch route's tables: t's moduli in its blocks of 4096."""
+        key = (t.log_n, tuple(m.value for m in t.moduli))
+        if key not in yard_tabs:
+            yard_tabs[key] = NTT.NTTTables(t.log_n, t.moduli, dev,
+                                           split=t.log_n - NTT.LARGE_BLOCK_LOG_N)
+        return yard_tabs[key]
+
+    def in_turns(new, old):
+        n1, o1, o2, n2 = graph_us(new), graph_us(old), graph_us(old), graph_us(new)
+        return (n1, n2), (o1, o2)
+
     times = {}
     for deg in LARGE_DEGREES:
         t = degrees[deg]
+        old_t = yardstick(t)
         shape = (3, t.size, deg)
         x = residues(shape, t.q, g)
-        ab = residues((3, 4, t.size, deg), t.q, g)
+        ab = residues((3, 4, t.size, deg), t.q, g, 2)
         a2, b2 = ab[:, :2].contiguous(), ab[:, 2:].contiguous()
-        split, log_n = t.split, t.log_n
         cases = {
-            "ntt_forward_columns": (lambda: ntt_cuda.columns(False, x, t),
-                                    lambda: NTT.forward_stages_plain(x, t, 0, split),
-                                    stages_bound(shape, split)),
-            "ntt_forward_blocks": (lambda: ntt_cuda.blocks(False, x, t),
-                                   lambda: NTT.forward_stages_plain(x, t, split, log_n),
-                                   stages_bound(shape, log_n - split)),
-            "ntt_inverse_blocks": (lambda: ntt_cuda.blocks(True, x, t),
-                                   lambda: NTT.inverse_stages_plain(x, t, split, log_n, False),
-                                   stages_bound(shape, log_n - split)),
-            "ntt_inverse_columns": (lambda: ntt_cuda.columns(True, x, t),
-                                    lambda: NTT.inverse_stages_plain(x, t, 0, split, True),
-                                    stages_bound(shape, split)),
-            "ntt_forward (two launches)": (lambda: ntt_cuda.ntt_forward(x, t),
-                                           lambda: NTT.ntt_forward_plain(x, t), ntt_bound(shape)),
-            "ntt_inverse (two launches)": (lambda: ntt_cuda.ntt_inverse(x, t),
-                                           lambda: NTT.ntt_inverse_plain(x, t), ntt_bound(shape)),
-            "tensor_product": (lambda: fused_mul_cuda.tensor_product(ab, t),
-                               lambda: D.dyadic_convolute(ab[:, :2], ab[:, 2:], t),
-                               product_bound((3, 4, t.size, deg))),
-            "fused_negacyclic_multiply (large route, 5 launches)": (
-                lambda: fused_mul_cuda.fused_negacyclic_multiply(a2, b2, t),
-                lambda: FM.fused_negacyclic_multiply_plain(a2, b2, t),
-                fused_bound((3, 2, t.size, deg))),
+            "ntt_forward_cluster": (shape, lambda: ntt_cuda.ntt_forward(x, t),
+                                    lambda: ntt_cuda.two_launch(False, x, old_t),
+                                    lambda: NTT.ntt_forward_plain(x, t), ntt_bound(shape)),
+            "ntt_inverse_cluster": (shape, lambda: ntt_cuda.ntt_inverse(x, t),
+                                    lambda: ntt_cuda.two_launch(True, x, old_t),
+                                    lambda: NTT.ntt_inverse_plain(x, t), ntt_bound(shape)),
+            "fused_mul_large": (tuple(a2.shape),
+                                lambda: fused_mul_cuda.fused_negacyclic_multiply(a2, b2, t),
+                                lambda: fused_mul_cuda.run_five_launch(a2, b2, old_t),
+                                lambda: FM.fused_negacyclic_multiply_plain(a2, b2, t),
+                                fused_bound(tuple(a2.shape))),
         }
-        for label, (kernel, plain, (bound, by)) in cases.items():
-            us, plain_us = graph_us(kernel), graph_us(plain, PLAIN_REPS)
-            times[(label, deg)] = (us / 1e3, plain_us / 1e3, bound / 1e3, by)
-            arg = {"tensor_product": tuple(ab.shape)}.get(
-                label, tuple(a2.shape) if label.startswith("fused") else shape)
-            log(f"[large_n] {gpu}: {label} at {arg}: kernel {us:.3f} us, plain "
-                f"{plain_us:.3f} us a call (graph); bound {bound:.3f} us ({by}), share "
-                f"{100 * bound / us:.1f}%")
-    # the block size of the route at N_LARGE, in turns (a, b, c, c, b, a), at
-    # (3, 2, n) and at the step's keyswitch digits (batch, L, L + 1, n)
-    log_n = N_LARGE.bit_length() - 1
-    cases = {"(3, 2, n)": ((3,), degrees[N_LARGE].moduli),
-             "the step's digits": ((LARGE_BATCH, cd.coeff_modulus_size),
-                                   ctx.key_context_data().parms.coeff_modulus)}
-    for label, (lead, mods) in cases.items():
-        by_split = {}
-        for log_b in SPLIT_BLOCKS:
-            t = NTT.NTTTables(log_n, mods, dev, split=log_n - log_b)
-            x = residues((*lead, t.size, N_LARGE), t.q, g)
-            by_split[log_b] = (lambda t=t, x=x: ntt_cuda.ntt_inverse(ntt_cuda.ntt_forward(x, t), t))
+        for name, (arg, new, old, plain, (bound, by)) in cases.items():
+            (n1, n2), (o1, o2) = in_turns(new, old)
+            plain_us = graph_us(plain, PLAIN_REPS)
+            us, old_us = min(n1, n2), min(o1, o2)
+            times[(name, deg)] = (us / 1e3, plain_us / 1e3, bound / 1e3, by, old_us / 1e3)
+            yard = "five launches" if name == "fused_mul_large" else "two launches"
+            log(f"[large_n] {gpu}: {name} at {arg}, clusters of {1 << t.split}: kernel "
+                f"{n1:.3f} / {n2:.3f} us, yardstick ({yard}, blocks of "
+                f"{1 << old_t.block_log_n}) {o1:.3f} / {o2:.3f} us a call (graph of "
+                f"{GRAPH_LAUNCHES}, in turns); plain {plain_us:.3f} us; bound {bound:.3f} us "
+                f"({by}); share of the bound {100 * bound / us:.1f}% against "
+                f"{100 * bound / old_us:.1f}%; new <= old: {us <= old_us}")
+    # every transform of the step, the same way
+    step_us, seen = [0.0, 0.0, 0.0], {}
+    for name, shape, t in ntt_calls:
+        key = (name, shape, tuple(m.value for m in t.moduli))
+        if key not in seen:
+            inverse, old_t = name == "ntt_inverse", yardstick(t)
+            x = residues(shape, t.q, g)
+            fn = ntt_cuda.ntt_inverse if inverse else ntt_cuda.ntt_forward
+            (n1, n2), (o1, o2) = in_turns(lambda: fn(x, t),
+                                          lambda: ntt_cuda.two_launch(inverse, x, old_t))
+            seen[key] = (min(n1, n2), min(o1, o2))
+            bound = ntt_bound(shape)[0]
+            log(f"[large_n] {gpu}: step's {name} at {shape}: cluster kernel {n1:.3f} / "
+                f"{n2:.3f} us, two-launch yardstick {o1:.3f} / {o2:.3f} us; bound {bound:.3f} "
+                f"us, share {100 * bound / seen[key][0]:.1f}% against "
+                f"{100 * bound / seen[key][1]:.1f}%")
+        step_us = [step_us[0] + seen[key][0], step_us[1] + seen[key][1],
+                   step_us[2] + ntt_bound(shape)[0]]
+    log(f"[large_n] {gpu}: the step's {len(ntt_calls)} transforms: cluster kernel "
+        f"{step_us[0]:.3f} us in {len(ntt_calls)} launches, two-launch yardstick "
+        f"{step_us[1]:.3f} us in {2 * len(ntt_calls)}; bound {step_us[2]:.3f} us; share of "
+        f"the bound {100 * step_us[2] / step_us[0]:.1f}% against "
+        f"{100 * step_us[2] / step_us[1]:.1f}% (sums of the graph times above)")
+
+    # the cluster sizes in turns (each in order, then in reverse): the NTT's
+    # forward + inverse at (3, 2, n) and at the step's keyswitch digits
+    sweeps = {f"n = {deg}": ((3,), degrees[deg].moduli, deg) for deg in LARGE_DEGREES}
+    sweeps["the step's digits"] = ((LARGE_BATCH, cd.coeff_modulus_size),
+                                   ctx.key_context_data().parms.coeff_modulus, N_LARGE)
+    for label, (lead, mods, deg) in sweeps.items():
+        log_n = deg.bit_length() - 1
+        fns = {}
+        for k in CLUSTER_SWEEP[deg]:
+            t = NTT.NTTTables(log_n, mods, dev, split=k)
+            x = residues((*lead, t.size, deg), t.q, g)
+            fns[k] = lambda t=t, x=x: ntt_cuda.ntt_inverse(ntt_cuda.ntt_forward(x, t), t)
         got = {}
-        for log_b in list(SPLIT_BLOCKS) + list(SPLIT_BLOCKS)[::-1]:
-            got.setdefault(log_b, []).append(graph_us(by_split[log_b], 20))
-        del by_split
-        shape = (*lead, len(mods), N_LARGE)
+        for k in list(fns) + list(fns)[::-1]:
+            got.setdefault(k, []).append(graph_us(fns[k], 20))
+        del fns
+        shape = (*lead, len(mods), deg)
         bound = 2 * ntt_bound(shape)[0]
-        log(f"[large_n] {gpu}: forward + inverse NTT at {shape} ({label}) by block size, in "
+        log(f"[large_n] {gpu}: forward + inverse NTT at {shape} ({label}) by cluster size, in "
             "turns: " + "; ".join(
-                f"blocks of {1 << b} (split {log_n - b}): {' / '.join(f'{v:.3f}' for v in got[b])} "
-                f"us, share of the one-pass bound {100 * bound / min(got[b]):.1f}%"
-                for b in SPLIT_BLOCKS))
+                f"clusters of {1 << k} (blocks of {deg >> k}): "
+                f"{' / '.join(f'{v:.3f}' for v in got[k])} us, share of the bound "
+                f"{100 * bound / min(got[k]):.1f}%" for k in got))
+    # the step's transforms, all of them, by cluster size in turns
+    fns, by_split = {}, {}
+    for k in CLUSTER_SWEEP[N_LARGE]:
+        work = []
+        for name, shape, t in ntt_calls:
+            key = (k, tuple(m.value for m in t.moduli))
+            if key not in by_split:
+                by_split[key] = NTT.NTTTables(t.log_n, t.moduli, dev, split=k)
+            fn = ntt_cuda.ntt_inverse if name == "ntt_inverse" else ntt_cuda.ntt_forward
+            work.append((fn, residues(shape, t.q, g), by_split[key]))
+        fns[k] = lambda work=work: [fn(x, t) for fn, x, t in work]
+    got = {}
+    for k in list(fns) + list(fns)[::-1]:
+        got.setdefault(k, []).append(graph_us(fns[k], 10))
+    del fns, by_split
+    log(f"[large_n] {gpu}: the step's {len(ntt_calls)} transforms by cluster size, in turns: "
+        + "; ".join(f"clusters of {1 << k}: {' / '.join(f'{v:.3f}' for v in got[k])} us, share "
+                    f"of the bound {100 * step_us[2] / min(got[k]):.1f}%" for k in got))
     return dict(launches=launches, k4=k4, times=times, profile=profile, calls=calls)
 
 
@@ -1950,11 +2028,13 @@ def phase_client(dev, gpu: str) -> dict:
         "encrypt_symmetric": (lambda: steps["symmetric"][0](start, keygen.secret_key.data),
                               lambda d: steps["symmetric"][0](d, keygen.secret_key.data), start),
         "encrypt_asymmetric": (lambda: steps["asymmetric"][0](start, pk.data()),
-                               lambda d: steps["asymmetric"][0](d, pk.data()), start),
+                               lambda d: steps["asymmetric"][0](d, pk.data()), start)},
+        calls=1)  # an encrypt step makes 1800-2600 launches: one call profiles enough
+    # a short step's one-call profiler session at times records no kernel
+    timed.update(time_steps("client", gpu, {
         "decrypt": (lambda: decrypt(outs[-1]), None, None),
         "batch encode": (lambda: encode(vals), None, None),
-        "batch decode": (lambda: decode(coeffs), None, None)},
-        calls=1)  # an encrypt step makes 1800-2600 launches: one call profiles enough
+        "batch decode": (lambda: decode(coeffs), None, None)}))
     threefry = {"encrypt_symmetric draws": threefry_report(
         "client", gpu, f"the symmetric step's draws, uniform {(2, BATCH, L_DATA, N)} and CBD "
         f"{(2, BATCH, N)} words, two keys each",
@@ -2922,7 +3002,8 @@ def main() -> int:
     # ---- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
     _cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    ptxas = [ptxas_start(src) for src in ("ntt.cu", "fused_mul.cu", "tensor_product.cu")]
+    ptxas = [ptxas_start(src) for src in ("ntt.cu", "fused_mul.cu", "fused_mul_large.cu",
+                                          "tensor_product.cu")]
     lib = _cuda_build.build()
     _cuda_build.load()
     log(f"[build] {lib.name} from {', '.join(p.name for p in _cuda_build.sources())} "
@@ -2944,6 +3025,24 @@ def main() -> int:
             raise AssertionError(f"[build] K4's launch shape {info} is not the wrapper's "
                                  f"{fused_mul_cuda.shared_bytes(log_n)} bytes a CTA, or "
                                  f"no cluster fits")
+    for deg in LARGE_DEGREES:
+        lg = deg.bit_length() - 1
+        for inverse in (False, True):
+            for threads in (256, 128):
+                info = ntt_cuda.cluster_info(inverse, lg, NTT.default_split(lg), threads)
+                log(f"[build] ntt_{'inverse' if inverse else 'forward'}_cluster at n = {deg}: "
+                    f"{info} (cudaFuncGetAttributes, "
+                    f"cudaOccupancyMaxActiveBlocksPerMultiprocessor, "
+                    f"cudaOccupancyMaxActiveClusters)")
+                if info["clusters"] < 1:
+                    raise AssertionError(f"[build] no cluster of the NTT fits at n = {deg}")
+    for lg, k in fused_mul_cuda.LARGE_SHAPES:
+        info = fused_mul_cuda.large_info(lg, k)
+        log(f"[build] fused_mul_large at n = {1 << lg}, clusters of {1 << k}: {info}")
+        if info["smem"] != fused_mul_cuda.large_shared_bytes(lg - k) or info["clusters"] < 1:
+            raise AssertionError(f"[build] fused_mul_large's launch shape {info} is not the "
+                                 f"wrapper's {fused_mul_cuda.large_shared_bytes(lg - k)} bytes "
+                                 f"a CTA, or no cluster fits")
 
     t0 = time.perf_counter()
     ctx = build_context(dev)
@@ -2966,6 +3065,10 @@ def main() -> int:
         "keyswitch digits": ((BATCH * L,), otab, True),
         "plain modulus t": ((1,), encoder.tables, False),
         **{f"n={n}": ((3,), t, True) for n, t in degrees.items() if n <= 131072},
+        **{f"n={n}, clusters of {1 << k}": ((3,), NTT.NTTTables(
+            n.bit_length() - 1, degrees[n].moduli, dev, split=k), True)
+           for n, splits in CLUSTER_SWEEP.items() for k in splits
+           if k != degrees[n].split},
     })
 
     def converter(l_in, l_out):
@@ -2990,6 +3093,9 @@ def main() -> int:
         "base q": ((BATCH,), qtab),
         "base Bsk": ((BATCH,), bsk),
         **{f"n={n}": ((3,), t) for n, t in degrees.items() if n <= 131072},
+        **{f"n={1 << lg}, clusters of {1 << k}": ((3,), NTT.NTTTables(
+            lg, degrees[1 << lg].moduli, dev, split=k))
+           for lg, k in fused_mul_cuda.LARGE_SHAPES if k != degrees[1 << lg].split},
     }))
     phase_refusals(dev, qtab, tool.conv_B_to_q.tables, degrees[REFUSED_DEGREE])
 
@@ -3214,9 +3320,9 @@ def main() -> int:
         "ntt_forward": ntt_bound(tuple(xq.shape)), "ntt_inverse": ntt_bound(tuple(xq.shape)),
         "base_convert": bconv_bound((BATCH, 3, floor_tabs.L_in, N), floor_tabs.L_out),
         "fused_negacyclic_multiply": fused_bound((BATCH, 2, L, N))}
-    for name in KERNELS:  # the large route's kernels at (3, 2, 65536)
+    for name in KERNELS:  # the cluster kernels at (3, 2, 65536) (K4: (3, 2, 2, 65536))
         if name not in timed:
-            ms, plain_ms, bound_ms, by = large["times"][(name, N_LARGE)]
+            ms, plain_ms, bound_ms, by, _ = large["times"][(name, N_LARGE)]
             times[name] = (ms, plain_ms)
             timed[name] = (bound_ms * 1e3, by)
     hps_kernels = ("ntt_forward", "ntt_inverse", "base_convert", "fused_negacyclic_multiply")

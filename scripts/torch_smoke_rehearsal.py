@@ -13,8 +13,9 @@ card) becomes the CPU.  Each kernel's C call is routed to its plain
 version (the wrappers' own routing and launch counting stay real, and every
 kernel input must be a contiguous int64 tensor, as the kernels need); the
 dispatch functions to the wrappers; the refusal phase is skipped.  Sizes: n
-= 1024 (the BFV, CKKS and BGV phases), batch 2, the large-n phase at n = 4096 with blocks of 1024 (the
-tables' route switches at 2048 here), the security bound lifted for the
+= 1024 (the BFV, CKKS and BGV phases), batch 2, the large-n phase at n = 4096 in clusters of 4
+(the tables' route switches at 2048 here; the yardstick's blocks are of
+1024), the security bound lifted for the
 quickstart's Classical128; [ring2k] at matmul 4 x 5 x 6, conv2d 1 x 2 x 6
 x 6 -> 3 and 2 messages a helper flow; [wide] at n = 1024, batch 2 (its
 CPU twin then runs on the same device); [perop] at n = 1024, batch 2, 2
@@ -60,7 +61,10 @@ def install_fakes():
     cs.ptxas_start = lambda s: None
     cs.profile_step = lambda fn, calls: {"launches": 1, "ms": 1.0, **{k: (1, 0.1) for k in cs.PROFILED}}
     ntt_cuda.kernel_info = lambda w, l: {"threads": 1}
+    ntt_cuda.cluster_info = lambda inv, l, k, threads=256: {"threads": threads, "clusters": 1}
     fused_mul_cuda.kernel_info = lambda w, l: {"smem": fused_mul_cuda.shared_bytes(l), "clusters": 1}
+    fused_mul_cuda.large_info = lambda l, k: {"smem": fused_mul_cuda.large_shared_bytes(l - k),
+                                              "clusters": 1}
     _cuda_build.build = lambda: types.SimpleNamespace(name="fake.so")
     _cuda_build.load = lambda: None
     _cuda_build.sources = lambda: []
@@ -68,14 +72,17 @@ def install_fakes():
 
     def chk(x):
         assert x.dtype == torch.int64 and x.is_contiguous(), (x.dtype, x.is_contiguous())
-    def fake_check(x, t):
+    def fake_check(x, t, cluster=True):
         chk(x); assert x.shape[-1] == t.n and x.shape[-2] == t.size and t.block_log_n <= 15
+        assert not (cluster and t.split) or (1 << t.split) in NTT.CLUSTER_SIZES
     ntt_cuda._check = fake_check
     def fake_call(name, argtypes, x, t, *args):
         chk(x)
         s = t.split
         return {"troy_ntt_forward": lambda: NTT.ntt_forward_plain(x, t),
                 "troy_ntt_inverse": lambda: NTT.ntt_inverse_plain(x % t.q.view(-1, 1), t),
+                "troy_ntt_cluster_forward": lambda: NTT.ntt_forward_plain(x, t),
+                "troy_ntt_cluster_inverse": lambda: NTT.ntt_inverse_plain(x % t.q.view(-1, 1), t),
                 "troy_ntt_blocks_forward": lambda: NTT.forward_stages_plain(x, t, s, t.log_n),
                 "troy_ntt_blocks_inverse": lambda: NTT.inverse_stages_plain(x % t.q.view(-1, 1), t, s, t.log_n, False),
                 "troy_ntt_columns_forward": lambda: NTT.forward_stages_plain(x, t, 0, s),
@@ -83,10 +90,12 @@ def install_fakes():
                 }[name]()
     ntt_cuda._call = fake_call
     ntt_cuda.run_radix2 = lambda inv, x, t: (NTT.ntt_inverse_plain(x % t.q.view(-1,1), t) if inv else NTT.ntt_forward_plain(x, t))
-    def fake_fcheck(a, b, t, polys=2):
+    def fake_fcheck(a, b, t, polys=2, large=True):
         chk(a); chk(b); assert a.shape[-3] == polys
+        assert not (large and t.split) or (t.log_n, t.split) in fused_mul_cuda.LARGE_SHAPES
     fused_mul_cuda._check = fake_fcheck
-    def fake_fcall(name, argtypes, a, b, t, table, *extra):
+    def fake_fcall(name, argtypes, a, b, t, *args):
+        assert name in ("troy_fused_mul", "troy_fused_mul_large")
         return FM.fused_negacyclic_multiply_plain(a, b, t)
     fused_mul_cuda._call = fake_fcall
     fused_mul_cuda.run_radix2 = lambda a, b, t: FM.fused_negacyclic_multiply_plain(a, b, t)
@@ -106,7 +115,10 @@ def install_fakes():
     CM.CoeffModulus.max_bit_count = staticmethod(lambda n, s: 10**6)
 
     cs.N, cs.BATCH, cs.REPS, cs.PLAIN_REPS, cs.GRAPH_LAUNCHES = 1024, 2, 2, 1, 2
-    cs.N_LARGE, cs.LARGE_DEGREES, cs.SPLIT_BLOCKS = 4096, (4096, 8192), (9, 10, 11)
+    cs.N_LARGE, cs.LARGE_DEGREES = 4096, (4096, 8192)
+    cs.CLUSTER_SWEEP = {4096: (3, 2, 1), 8192: (3, 2)}
+    NTT.CLUSTER_SPLIT = {12: 2, 13: 3}
+    fused_mul_cuda.LARGE_SHAPES = ((12, 2), (13, 3))
     cs.LARGE_BITS = [30] * 5
     cs.K4_DEGREES = (16, 1024)
     cs.RING2K_MATMUL, cs.RING2K_CONV, cs.RING2K_MESSAGES = (4, 5, 6), (1, 2, 3, 6, 6, 3, 3), 2

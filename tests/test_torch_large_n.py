@@ -2,14 +2,15 @@
 reference's 131072 (troy_tpu_torch/ops/ntt.py:default_split,
 ops/ntt_cuda.py, ops/fused_mul_cuda.py, csrc/ntt.cu, csrc/tensor_product.cu).
 
-The CUDA route cannot run here.  emulate_ntt (tests/test_torch_ntt.py)
-replays its two launches in PyTorch: the column kernel's first log2 n1
-stages over the columns, then the block kernel's stages on each block of n2
-values with its own slice of the twiddle heap, and the inverse in reverse.
-The split is a parameter of the tables, so the same schedule is held to the
-plain transform and the JAX package at small n too; at n = 65536 and 131072
-the plain versions are held to the JAX radix-2 NTT and to K4's function
-composed from JAX's NTT and dyadic product."""
+The CUDA kernels cannot run here.  emulate_ntt (tests/test_torch_ntt.py)
+replays the two-launch yardstick of the cluster route in PyTorch: the
+column kernel's first log2 n1 stages over the columns, then the block
+kernel's stages on each block of n2 values with its own slice of the twiddle
+heap, and the inverse in reverse (tests/test_torch_cluster.py replays the
+cluster kernels).  The split is a parameter of the tables, so the same
+schedule is held to the plain transform and the JAX package at small n too;
+at n = 65536 and 131072 the plain versions are held to the JAX radix-2 NTT
+and to K4's function composed from JAX's NTT and dyadic product."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -48,7 +49,7 @@ def test_two_launch_schedule_matches_plain_and_jax(log_n, split, L, lead):
     forward and inverse."""
     n = 1 << log_n
     primes, tt = tables(log_n, L, split)
-    assert tt.split == (split if split is not None else log_n - NTT.LARGE_BLOCK_LOG_N)
+    assert tt.split == (split if split is not None else NTT.CLUSTER_SPLIT[log_n])
     assert tt.block_log_n == log_n - tt.split
     radix2 = jax_packs(log_n, primes, pallas=False)["radix2"]
     lazy = as_tensor(residues((*lead, L, n), primes, factor=2))
@@ -75,9 +76,10 @@ def test_two_launch_schedule_matches_plain_and_jax(log_n, split, L, lead):
 
 @pytest.mark.parametrize("log_n,split", [(8, 2)])
 def test_large_fused_route_matches_plain_and_jax_kernel(log_n, split):
-    """K4's route with a split (forward NTT of (a, b) as one (..., 4, L, n)
-    call, the tensor product, the inverse NTT), replayed, equals the plain
-    version and the JAX Pallas K4 in interpret mode."""
+    """K4's five-launch yardstick route with a split (forward NTT of (a, b)
+    as one (..., 4, L, n) call, the tensor product, the inverse NTT),
+    replayed, equals the plain version and the JAX Pallas K4 in interpret
+    mode."""
     n, L = 1 << log_n, 2
     primes, tt = tables(log_n, L, split)
     q = np.array(primes, dtype=np.uint32)[:, None]
@@ -103,7 +105,7 @@ def test_plain_versions_match_jax_at_large_n(log_n):
     composed from the JAX package's NTT and dyadic product."""
     n, L = 1 << log_n, 2
     primes, tt = tables(log_n, L)
-    assert tt.split == log_n - NTT.LARGE_BLOCK_LOG_N
+    assert tt.split == NTT.CLUSTER_SPLIT[log_n]
     radix2 = jax_packs(log_n, primes, pallas=False)["radix2"]
     lazy = residues((L, n), primes, factor=2)
     fwd = NTT.ntt_forward_plain(as_tensor(lazy), tt)
@@ -122,16 +124,17 @@ def test_plain_versions_match_jax_at_large_n(log_n):
 
 @pytest.mark.parametrize("log_n", [16, 17])
 def test_large_tables(log_n):
-    """The default route above 32768: blocks of 4096 values; the block
-    table holds per block the constants psi_br[g] and its slice of every
-    phase's heap rows (roots v = 2^(split+r) + b 2^r + u), the column table
-    the heap subtree of root 1; the block scalars scale by 1."""
+    """The default route above 32768: clusters of 2^CLUSTER_SPLIT CTAs; the
+    block table holds per block the constants psi_br[g] and its slice of
+    every phase's heap rows (roots v = 2^(split+r) + b 2^r + u), the column
+    table the heap subtree of root 1; the block scalars scale by 1."""
     n = 1 << log_n
     primes, tt = tables(log_n, 1)
     split = tt.split
-    assert (tt.block_log_n, split) == (12, log_n - 12)
+    assert (tt.block_log_n, split) == (log_n - NTT.CLUSTER_SPLIT[log_n],
+                                       NTT.CLUSTER_SPLIT[log_n])
     table = (tt.kernel_phases.to(torch.int64) & 0xFFFFFFFF).view(2, 1, 1 << split, -1, 2)
-    assert table.shape[3] == tt.entries == NTT.phase_entries(12)
+    assert table.shape[3] == tt.entries == NTT.phase_entries(tt.block_log_n)
     for b in (0, (1 << split) - 1):
         assert torch.equal(table[0, 0, b, 1:16, 0], tt.psi_br[0, 1:16])
         off = NTT.CONSTANT_SLOTS
@@ -170,4 +173,4 @@ def test_wrappers_refuse_above_131072_and_cpu_tensors():
     assert set(fused_mul_cuda.LAUNCHES.values()) == {0}
     with pytest.raises(ValueError, match="split"):
         NTT.NTTTables(4, [Modulus(numth.get_prime(32, 30))], "cpu", split=4)
-    assert NTT.default_split(15) == 0 and NTT.default_split(18) == 5
+    assert NTT.default_split(15) == 0 and NTT.default_split(18) == 4

@@ -211,9 +211,32 @@ def emulate_kernel(x, t, inverse, lazy=False, n_inv=None):
     block b of 2^block_log_n values of a polynomial is one CTA's polynomial,
     with block b's slice of kernel_phases, and the inverse's scale is 1 (the
     block scalars)."""
+    L, n = t.size, 1 << t.block_log_n
+    s = emulate_phases(x.reshape(-1, n).clone(), t, inverse)
+    rows = s.shape[0]
+    limb = (torch.arange(rows) >> t.split) % L
+    q2 = t.q[limb].view(rows, 1)
+    if inverse:
+        if n_inv is None:
+            n_inv = torch.ones_like(t.n_inv) if t.split else t.n_inv
+        n_inv = n_inv[limb].view(rows, 1)
+        n_inv_sh = (n_inv << 32) // q2
+        s = shoup_lazy(s, n_inv, n_inv_sh, q2)
+        s = torch.where(s >= q2, s - q2, s)
+    elif not lazy:
+        s = torch.where(s >= 2 * q2, s - 2 * q2, s)
+        s = torch.where(s >= q2, s - q2, s)
+    return s.view(x.shape)
+
+
+def emulate_phases(s, t, inverse):
+    """The phases of csrc/ntt_phases.cuh on s, (rows, 2^block_log_n) values
+    in place, row i the block i mod 2^split of polynomial i >> split (the
+    whole polynomial without a split), as emulate_kernel describes: no
+    final reduction or scale, so forward values stay in [0, 4q), inverse
+    ones in [0, 2q)."""
     L, log_n = t.size, t.block_log_n
     n = 1 << log_n
-    s = x.reshape(-1, n).clone()
     rows = s.shape[0]
     limb = (torch.arange(rows) >> t.split) % L
     block = torch.arange(rows) & ((1 << t.split) - 1)
@@ -243,18 +266,7 @@ def emulate_kernel(x, t, inverse, lazy=False, n_inv=None):
         assert (tw[:, :, 0] == 0).all()  # slot 0 is padding
         s[:, idx] = run_levels(s[:, idx], tw, consts, q, k, inverse,
                                FACTOR_LEVEL if last else k)
-    q2 = q.view(rows, 1)
-    if inverse:
-        if n_inv is None:
-            n_inv = torch.ones_like(t.n_inv) if t.split else t.n_inv
-        n_inv = n_inv[limb].view(rows, 1)
-        n_inv_sh = (n_inv << 32) // q2
-        s = shoup_lazy(s, n_inv, n_inv_sh, q2)
-        s = torch.where(s >= q2, s - q2, s)
-    elif not lazy:
-        s = torch.where(s >= 2 * q2, s - 2 * q2, s)
-        s = torch.where(s >= q2, s - q2, s)
-    return s.view(x.shape)
+    return s
 
 
 def emulate_columns(x, t, inverse):
@@ -286,8 +298,9 @@ def emulate_columns(x, t, inverse):
 
 
 def emulate_ntt(x, t, inverse):
-    """The wrapper's route (ops/ntt_cuda.py): one launch of ntt_kernel, or
-    with a split the column and block kernels (the inverse in reverse)."""
+    """One launch of ntt_kernel, or with a split the two-launch yardstick
+    (ops/ntt_cuda.py:two_launch): the column and block kernels, the inverse
+    in reverse.  tests/test_torch_cluster.py replays the cluster route."""
     if not t.split:
         return emulate_kernel(x, t, inverse)
     if inverse:

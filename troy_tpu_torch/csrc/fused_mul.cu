@@ -101,15 +101,6 @@ constexpr int kMaxLogN = 15;
 constexpr int kCluster = 4;        // CTAs a (batch, limb): a0, a1, b0, b1
 constexpr int kMaxProductBatch = 8;  // coefficients a thread forms at once
 
-// Montgomery's REDC: t 2^-32 mod q in [0, 2q) for t < q 2^32, with
-// q_inv_neg = -q^-1 mod 2^32.  t + m q is 0 mod 2^32 and below 2q 2^32 <
-// 2^63, so the shift is exact and below 2q.
-__device__ __forceinline__ uint32_t mont_redc(uint64_t t, uint32_t q,
-                                              uint32_t q_inv_neg) {
-  const uint32_t m = static_cast<uint32_t>(t) * q_inv_neg;
-  return static_cast<uint32_t>((t + static_cast<uint64_t>(m) * q) >> 32);
-}
-
 // One (batch, limb) per cluster of kCluster CTAs, at degree 2^LogN; CTA
 // `rank` of the cluster transforms operand `rank`.  entries: the limb
 // table's pairs (NTTTables.kernel_phases).

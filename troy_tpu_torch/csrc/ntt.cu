@@ -74,29 +74,38 @@
 // input in [0, 2q); the inverse takes [0, 2q) too and scales by n^-1.
 // Kernels never allocate.
 //
-// Degrees above 32768 (to the reference's 131072) do not fit one CTA, so
-// they take two launches of the same stage sequence over n = n1 n2,
-// n1 = 2^split (ops/ntt.py:default_split; n2 = 4096):
-//   * the column kernel (ntt_columns_kernel) runs the first log2 n1 forward
-//     stages on every column x[i n2 + j], i < n1: they are one size-n1
-//     transform of root 1 per column, so a thread holds the columns j, j + 1
-//     of one polynomial in registers, 2^split 16-byte loads (adjacent
-//     threads read adjacent columns), and stores them reduced to [0, q);
-//   * the block kernel (ntt_block_kernel) runs the remaining stages on each
-//     contiguous block b of n2 values: those are the sub-transforms of root
-//     v = n1 + b, so it is the one-polynomial kernel above on a polynomial of
-//     n2 values whose twiddle table is block b's own slice of the heap
-//     (NTTTables.kernel_phases, split per block by ops/ntt.py:phase_rows).
-// The inverse mirrors it: the block kernel first (scaled by 1, that is
-// reduced to [0, q), from the block scalars q, 1, floor(2^32 / q)), then the
-// column kernel, which scales by n^-1.  Each launch reads and writes the
-// whole polynomial, so the pair moves twice the bytes of one pass: at most
-// half of the one-pass bound.
+// Degrees above 32768 (to the reference's 131072) do not fit one CTA.  Over
+// n = C n2, C = 2^split (ops/ntt.py:default_split: clusters of 16 at both
+// 65536 and 131072, the fastest on the H100, PERF.md), the first log2 C
+// forward stages are one size-C transform of root 1 on every column
+// x[e n2 + j], e < C, and the remaining stages are, on each contiguous
+// block b of n2 values, the sub-transforms of roots v = C + b: the
+// one-polynomial schedule above on n2 values with block b's own slice of
+// the twiddle heap (NTTTables.kernel_phases, split per block by
+// ops/ntt.py:phase_rows).
+//   * The route (ntt_cluster_kernel, troy_ntt_cluster_*): one launch, a
+//     polynomial a thread-block cluster of C CTAs, CTA b holding block b in
+//     its shared memory.  The column stages run in registers straight from
+//     device memory and cross the cluster once through distributed shared
+//     memory (ntt_phases.cuh's cluster helpers), so device memory is read
+//     once and written once: the one-pass bound.
+//   * Its yardstick, the first route above 32768 (PR 6), launched only to
+//     time the route against: two launches over the same split.  The column
+//     kernel (ntt_columns_kernel) holds the columns j, j + 1 of one
+//     polynomial in registers (2^split 16-byte loads, adjacent threads on
+//     adjacent columns) and stores them reduced to [0, q); the block kernel
+//     (ntt_block_kernel) is the one-polynomial kernel on block b.  The
+//     inverse runs the block kernel first (scaled by 1, that is reduced to
+//     [0, q), from the block scalars q, 1, floor(2^32 / q)), then the column
+//     kernel with the n^-1 scale.  Each launch reads and writes the whole
+//     polynomial, so the pair reaches at most half of the one-pass bound.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "ntt_phases.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -375,6 +384,147 @@ int launch_columns(const void* in, void* out, const void* columns,
   }
 }
 
+// ---- Degrees above 32768: one cluster a polynomial -------------------------
+
+// One polynomial of 2^(log_b + K) values per cluster of C = 2^K CTAs
+// (blockIdx.x = polynomial row << K | rank); CTA `rank` holds block `rank`
+// of 2^log_b values in its shared memory, then its table: phases (2, L,
+// C 2 E) u32 pairs, the block's own slice of the heap (ops/ntt.py:
+// phase_rows with a split); columns (2, L, 2 C) u32, the column stages'
+// slots (column_rows).  CTA `rank` runs the column stages of the columns
+// [rank 2^(log_b-K), (rank + 1) 2^(log_b-K)), a column a thread.
+//   Forward: a column's 2^K loads, its column stages in registers, each
+//   value e into block e across the cluster (scatter_column; the first
+//   store waits on the arrive every CTA makes at its start, so that no CTA
+//   writes into a peer that has not started), a cluster barrier, the
+//   block's phases in its own shared memory, the block out (16-byte stores,
+//   reduced to [0, q)).
+//   Inverse: the block in (16-byte loads), its phases unscaled, left in
+//   [0, 2q), a cluster barrier, then each column's 2^K values gathered from
+//   the blocks (gather_column), its column stages and the n^-1 scale in
+//   registers, stored; a last cluster barrier keeps every block in place
+//   until no peer reads it.
+// Device memory is read once and written once.  A launch of at most two CTAs
+// an SM runs 256 threads a CTA, which shortens each CTA's chain of loads,
+// phases and stores; a larger one runs 128, four CTAs an SM, so that one
+// CTA's loads overlap another's phases (cluster_threads).  (A column pair a
+// thread, with 16-byte loads and stores, was slower: its cluster stores
+// half-fill their runs; so were 256 threads at every size, 3 CTAs of 256
+// an SM, 6 of 128, and the block's last phase run against device memory;
+// scripts/torch_cluster_variants.py, PERF.md, PR 12.)
+template <int K, bool kInverse>
+__global__ void __launch_bounds__(kThreads)
+    ntt_cluster_kernel(const int64_t* __restrict__ in, int64_t* __restrict__ out,
+                       const uint32_t* __restrict__ phases,
+                       const uint32_t* __restrict__ columns,
+                       const uint32_t* __restrict__ scalars, int L, int log_b,
+                       int plan, int entries) {
+  constexpr int C = 1 << K;
+  extern __shared__ uint32_t s[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const size_t row = blockIdx.x >> K;
+  const int limb = static_cast<int>(row % L);
+  const int dir = (kInverse ? L : 0) + limb;
+  const uint32_t q = scalars[limb];
+  const uint32_t n_inv = scalars[L + limb];
+  const uint32_t n_inv_sh = scalars[2 * L + limb];
+  const uint2* tw = stage_twiddles(
+      s + data_words(log_b),
+      phases + ((static_cast<size_t>(dir) << K) + rank) * 2 * entries, entries);
+  const uint4* col = reinterpret_cast<const uint4*>(columns) +
+                     (static_cast<size_t>(dir) << (K - 1));
+  const int64_t* src = in + (row << (log_b + K));
+  int64_t* dst = out + (row << (log_b + K));
+  const int count = phase_count(plan);
+  const int cols = 1 << (log_b - K);  // columns of this CTA
+  const int first = rank * cols;      // its first column
+  uint32_t x[C];
+
+  if (!kInverse) {
+    cluster_arrive_relaxed();
+    bool waited = false;
+    for (int j = first + threadIdx.x; j < first + cols; j += blockDim.x) {
+      load_column<K>(src, j, log_b, x);
+      radix_stages<K, false, false>(x, col, nullptr, q);
+      if (!waited) cluster_wait();
+      waited = true;
+      scatter_column<K>(s, j, x);
+    }
+    if (!waited) cluster_wait();
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    cluster.sync();
+    smem_phases<false>(s, log_b, plan, count, 0, tw, q);
+    store_values<false>(s, dst + (static_cast<size_t>(rank) << log_b), log_b, q,
+                        n_inv, n_inv_sh);
+    return;
+  }
+
+  load_values(s, src + (static_cast<size_t>(rank) << log_b), log_b);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  smem_phases<true>(s, log_b, plan, count, 0, tw, q);
+  cluster.sync();
+  for (int j = first + threadIdx.x; j < first + cols; j += blockDim.x) {
+    gather_column<K>(s, j, x);
+    radix_stages<K, true, false>(x, col, nullptr, q);
+    store_column<K>(dst, j, log_b, x, q, n_inv, n_inv_sh);
+  }
+  // Every value this thread read from a peer has gone into a store above,
+  // so its read is complete: a relaxed arrive suffices to keep each block in
+  // place until no peer reads it.
+  cluster_arrive_relaxed();
+  cluster_wait();
+}
+
+// The cluster kernel for a split of K = 1 .. 4 (clusters of 2 to 16 CTAs).
+const void* cluster_kernel(bool inverse, int split) {
+  switch (split) {
+    case 1: return inverse ? reinterpret_cast<const void*>(ntt_cluster_kernel<1, true>)
+                           : reinterpret_cast<const void*>(ntt_cluster_kernel<1, false>);
+    case 2: return inverse ? reinterpret_cast<const void*>(ntt_cluster_kernel<2, true>)
+                           : reinterpret_cast<const void*>(ntt_cluster_kernel<2, false>);
+    case 3: return inverse ? reinterpret_cast<const void*>(ntt_cluster_kernel<3, true>)
+                           : reinterpret_cast<const void*>(ntt_cluster_kernel<3, false>);
+    case 4: return inverse ? reinterpret_cast<const void*>(ntt_cluster_kernel<4, true>)
+                           : reinterpret_cast<const void*>(ntt_cluster_kernel<4, false>);
+    default: return nullptr;
+  }
+}
+
+// Threads of a CTA of the cluster kernel for a launch of `ctas` CTAs: 256
+// while the launch fits the card at two CTAs an SM, else 128; 0 if the
+// device cannot be read.
+int cluster_threads(long long ctas) {
+  static int sms[16] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= 16) return 0;
+  if (!sms[dev] &&
+      cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 0;
+  return ctas <= 2LL * sms[dev] ? kThreads : kThreads / 2;
+}
+
+// A CTA of the cluster kernel: `threads` threads and one block with its
+// table.
+Shape cluster_shape(int threads, int log_b, int entries) {
+  return {threads, ntt_shape(log_b, entries).smem};
+}
+
+int launch_cluster(bool inverse, const void* in, void* out, const void* phases,
+                   const void* columns, const void* scalars, long long n_rows,
+                   int L, int log_b, int split, int plan, int entries,
+                   void* stream) {
+  const void* fn = cluster_kernel(inverse, split);
+  // a CTA takes at least two columns: 2^log_b >= 2^(split + 1)
+  if (!fn || log_b <= split) return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = cluster_threads(n_rows << split);
+  if (!threads) return static_cast<int>(cudaErrorInvalidDevice);
+  void* args[] = {&in, &out, &phases, &columns, &scalars, &L, &log_b, &plan, &entries};
+  return launch_clusters(fn, 1 << split, cluster_shape(threads, log_b, entries), n_rows,
+                         stream, args);
+}
+
 }  // namespace
 
 extern "C" int troy_ntt_forward(const void* in, void* out, const void* phases,
@@ -442,6 +592,56 @@ extern "C" int troy_ntt_inverse_radix2(const void* in, void* out,
                                        void* stream) {
   return launch_radix2(ntt_inverse_radix2_kernel, in, out, rows, scalars,
                        n_rows, L, log_n, stream);
+}
+
+// n_rows polynomials of 2^(log_b + split) values, one cluster of 2^split
+// CTAs each; phases: kernel_phases with that split; columns:
+// column_phases; scalars: kernel_scalars.
+extern "C" int troy_ntt_cluster_forward(const void* in, void* out,
+                                        const void* phases, const void* columns,
+                                        const void* scalars, long long n_rows,
+                                        int L, int log_b, int split, int plan,
+                                        int entries, void* stream) {
+  return launch_cluster(false, in, out, phases, columns, scalars, n_rows, L,
+                        log_b, split, plan, entries, stream);
+}
+
+extern "C" int troy_ntt_cluster_inverse(const void* in, void* out,
+                                        const void* phases, const void* columns,
+                                        const void* scalars, long long n_rows,
+                                        int L, int log_b, int split, int plan,
+                                        int entries, void* stream) {
+  return launch_cluster(true, in, out, phases, columns, scalars, n_rows, L,
+                        log_b, split, plan, entries, stream);
+}
+
+// The cluster kernel as the compiler and the occupancy calculator see it,
+// at blocks of 2^log_b values, clusters of 2^split CTAs and `threads`
+// threads a CTA (256 or 128): info = threads, dynamic shared bytes,
+// registers a thread, local (spill) bytes a thread, CTAs resident per SM,
+// clusters the card holds at once.
+extern "C" int troy_ntt_cluster_info(int inverse, int log_b, int split,
+                                     int entries, int threads, int* info) {
+  const void* fn = cluster_kernel(inverse != 0, split);
+  if (!fn || (threads != kThreads && threads != kThreads / 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Shape shape = cluster_shape(threads, log_b, entries);
+  int clusters = 0, blocks = 0;
+  int err = cluster_ready(fn, 1 << split, shape, &clusters);
+  if (err) return err;
+  cudaFuncAttributes attr;
+  err = static_cast<int>(cudaFuncGetAttributes(&attr, fn));
+  if (err) return err;
+  err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, fn, shape.threads, shape.smem));
+  if (err) return err;
+  info[0] = shape.threads;
+  info[1] = static_cast<int>(shape.smem);
+  info[2] = attr.numRegs;
+  info[3] = static_cast<int>(attr.localSizeBytes);
+  info[4] = blocks;
+  info[5] = clusters;
+  return 0;
 }
 
 // What the compiler and the occupancy calculator say of one kernel at

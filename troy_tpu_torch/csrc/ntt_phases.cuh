@@ -1,9 +1,10 @@
 // The register-radix NTT phases over one polynomial in shared memory, for
-// NVIDIA Hopper (sm_90a): the device code of the NTT kernel pair (ntt.cu)
-// and of the fused tensor-product kernel K4 (fused_mul.cu), kept in one
-// place so that the two kernels run one schedule and cannot drift apart.
-// tests/test_torch_ntt.py::emulate_kernel replays this schedule in PyTorch
-// (and tests/test_torch_fused_mul.py replays K4 on it); change them with it.
+// NVIDIA Hopper (sm_90a): the device code of the NTT kernels (ntt.cu) and
+// of the fused tensor-product kernels K4 (fused_mul.cu, fused_mul_large.cu),
+// kept in one place so that the kernels run one schedule and cannot drift
+// apart.  tests/test_torch_ntt.py::emulate_kernel replays this schedule in
+// PyTorch (tests/test_torch_fused_mul.py replays K4 on it,
+// tests/test_torch_cluster.py the cluster kernels); change them with it.
 //
 // Schedule: ops/ntt.py:kernel_phase_plan splits the log2(n) stages into
 // phases of k <= 5 stages (n = 8192: 4 + 4 + 5).  In a phase each thread
@@ -24,10 +25,24 @@
 //
 // Shared memory: n values padded by one word in 32 (pad), so every phase's
 // accesses are free of bank conflicts, then the table (ntt_shape).
+//
+// Above n = 32768 a polynomial does not fit a CTA.  There it is one
+// thread-block cluster of C = 2^K CTAs (the cluster kernels of ntt.cu and
+// fused_mul_large.cu): n = C n2, and CTA r holds block r of n2 values in
+// its shared memory, laid out and padded as above.  The first K forward
+// stages are one size-C transform of root 1 over each column
+// x[e n2 + j], e < C; a CTA runs them for its share of the columns in
+// registers, straight from device memory (load_column), and writes value e
+// of each column into CTA e's block over distributed shared memory
+// (scatter_column).  The other stages are the sub-transforms of block r's
+// own roots, so they run on the block alone, with its own slice of the
+// twiddle heap.  The inverse mirrors it (gather_column, store_column).
+// The helpers for that close this header.
 
 #pragma once
 
 #include <cstdint>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "ntt_common.cuh"
@@ -447,6 +462,216 @@ Shape ntt_shape(int log_n, int entries) {
   return {cta_threads(log_n),
           static_cast<size_t>(data_words(log_n)) * sizeof(uint32_t) +
               static_cast<size_t>(entries) * sizeof(uint2)};
+}
+
+// ---- Thread-block clusters above n = 32768 ---------------------------------
+
+// Montgomery's REDC: t 2^-32 mod q in [0, 2q) for t < q 2^32, with
+// q_inv_neg = -q^-1 mod 2^32.  t + m q is 0 mod 2^32 and below 2q 2^32 <
+// 2^63, so the shift is exact and below 2q.  (K4's products, fused_mul.cu
+// and fused_mul_large.cu.)
+__device__ __forceinline__ uint32_t mont_redc(uint64_t t, uint32_t q,
+                                              uint32_t q_inv_neg) {
+  const uint32_t m = static_cast<uint32_t>(t) * q_inv_neg;
+  return static_cast<uint32_t>((t + static_cast<uint64_t>(m) * q) >> 32);
+}
+
+// The two halves of a cluster barrier (PTX barrier.cluster).  The relaxed
+// arrive orders no memory access: it only tells the peers that this CTA
+// runs, so that a peer past the matching wait may write into its shared
+// memory.  Every thread arrives once and then waits once.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
+// Column j of a polynomial `row` of 2^K blocks of 2^log_b values into
+// registers: x[e] = x_row[e 2^log_b + j].  A thread takes one column and
+// neighbouring threads neighbouring columns, so a warp's load of value e is
+// one 256-byte run.
+template <int K>
+__device__ __forceinline__ void load_column(const int64_t* __restrict__ row,
+                                            int j, int log_b,
+                                            uint32_t (&x)[1 << K]) {
+  int64_t v[1 << K];
+#pragma unroll
+  for (int e = 0; e < (1 << K); ++e)
+    v[e] = __ldg(row + (static_cast<size_t>(e) << log_b) + j);
+#pragma unroll
+  for (int e = 0; e < (1 << K); ++e) x[e] = static_cast<uint32_t>(v[e]);
+}
+
+// Value e of column j into block e: the shared memory of cluster rank e, at
+// the offset `s` has in this CTA, at pad(j).  A warp's 32 columns start at a
+// multiple of 32, so each of its stores is one 128-byte run of the peer's
+// block, no padding word inside.  (One thread a column pair would store two
+// half-filled runs: pad(j) is odd when j / 32 is, so a pair cannot go as
+// one 8-byte store.)
+template <int K>
+__device__ __forceinline__ void scatter_column(uint32_t* s, int j,
+                                               const uint32_t (&x)[1 << K]) {
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  const int at = pad(j);
+#pragma unroll
+  for (int e = 0; e < (1 << K); ++e) cluster.map_shared_rank(s, e)[at] = x[e];
+}
+
+// scatter_column's inverse: value e of column j from block e.
+template <int K>
+__device__ __forceinline__ void gather_column(uint32_t* s, int j,
+                                              uint32_t (&x)[1 << K]) {
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  const int at = pad(j);
+#pragma unroll
+  for (int e = 0; e < (1 << K); ++e) x[e] = cluster.map_shared_rank(s, e)[at];
+}
+
+// Column j out to `row` after the inverse's column stages: [0, 2q) scaled by
+// n_inv into [0, q).
+template <int K>
+__device__ __forceinline__ void store_column(int64_t* __restrict__ row, int j,
+                                             int log_b,
+                                             const uint32_t (&x)[1 << K],
+                                             uint32_t q, uint32_t n_inv,
+                                             uint32_t n_inv_sh) {
+#pragma unroll
+  for (int e = 0; e < (1 << K); ++e)
+    row[(static_cast<size_t>(e) << log_b) + j] =
+        troy::scale_n_inv(x[e], n_inv, n_inv_sh, q);
+}
+
+// A phase (r, K) on `polys` polynomials `stride` words apart in shared
+// memory (K4's cluster route holds its four operand blocks side by side):
+// smem_phase with the sub-transforms of every polynomial shared out over
+// the CTA's threads.
+template <int K, bool kInverse, bool kFactor>
+__device__ __forceinline__ void smem_phase_polys(int polys, int stride,
+                                                 uint32_t* s, int log_n, int r,
+                                                 const uint2* __restrict__ tw,
+                                                 const uint2* __restrict__ consts,
+                                                 uint32_t q) {
+  constexpr int E = 1 << K;
+  const int log_s = log_n - r - K;
+  const int s_mask = (1 << log_s) - 1;
+  const int log_sub = log_n - K;
+  for (int w = threadIdx.x; w < (polys << log_sub); w += blockDim.x) {
+    uint32_t* p = s + (w >> log_sub) * stride;
+    const int u = w & ((1 << log_sub) - 1);
+    const int root = u >> log_s;
+    const int base = (root << (log_s + K)) + (u & s_mask);
+    uint32_t x[E];
+#pragma unroll
+    for (int j = 0; j < E; ++j) x[j] = p[pad(base + (j << log_s))];
+    radix_stages<K, kInverse, kFactor>(
+        x, reinterpret_cast<const uint4*>(tw + root * kRootSlots<K, kFactor>),
+        reinterpret_cast<const uint4*>(consts), q);
+#pragma unroll
+    for (int j = 0; j < E; ++j) p[pad(base + (j << log_s))] = x[j];
+  }
+}
+
+// Every phase of Plan<LogN> on `polys` polynomials, forward in plan order
+// or inverse in reverse, each followed by a barrier.
+template <int LogN, bool kInverse, int Step = 0>
+__device__ __forceinline__ void plan_polys(int polys, int stride, uint32_t* s,
+                                           const uint2* tw, uint32_t q) {
+  using Pl = Plan<LogN>;
+  if constexpr (Step < Pl::kCount) {
+    constexpr int P = kInverse ? Pl::kCount - 1 - Step : Step;
+    smem_phase_polys<Pl::depth(P), kInverse, P == Pl::kCount - 1>(
+        polys, stride, s, LogN, Pl::start(P), tw + Pl::offset(P), tw, q);
+    __syncthreads();
+    plan_polys<LogN, kInverse, Step + 1>(polys, stride, s, tw, q);
+  }
+}
+
+constexpr size_t kSmemDefault = 48 * 1024;  // shared bytes without an opt-in
+constexpr size_t kSmemLimit = 232448;       // the most a CTA may opt into
+
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[2];
+};
+
+// `cells` clusters of `ctas` CTAs of `shape`, under the load-balancing
+// cluster scheduling policy (as fused_mul.cu:launch_config).
+void cluster_config(ClusterLaunch& l, int ctas, const Shape& shape,
+                    long long cells, cudaStream_t stream) {
+  l.cfg = {};
+  l.cfg.gridDim = dim3(static_cast<unsigned int>(cells * ctas));
+  l.cfg.blockDim = dim3(shape.threads);
+  l.cfg.dynamicSmemBytes = shape.smem;
+  l.cfg.stream = stream;
+  l.attr[0] = {};
+  l.attr[0].id = cudaLaunchAttributeClusterDimension;
+  l.attr[0].val.clusterDim.x = ctas;
+  l.attr[0].val.clusterDim.y = 1;
+  l.attr[0].val.clusterDim.z = 1;
+  l.attr[1] = {};
+  l.attr[1].id = cudaLaunchAttributeClusterSchedulingPolicyPreference;
+  l.attr[1].val.clusterSchedulingPolicyPreference =
+      cudaClusterSchedulingPolicyLoadBalancing;
+  l.cfg.attrs = l.attr;
+  l.cfg.numAttrs = 2;
+}
+
+// `fn` readied for clusters of `ctas` CTAs of `shape` (shared memory above
+// 48 KiB granted; above 8 CTAs, a size that is not portable, allowed), and
+// the clusters the card holds at once (cudaOccupancyMaxActiveClusters) into
+// *clusters; 0 or a CUDA error.
+int cluster_ready(const void* fn, int ctas, const Shape& shape, int* clusters) {
+  *clusters = 0;
+  if (shape.smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err;
+  if (shape.smem > kSmemDefault) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(shape.smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (ctas > 8) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  ClusterLaunch l;
+  cluster_config(l, ctas, shape, 1, nullptr);
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(clusters, fn, &l.cfg));
+}
+
+// One launch of `cells` clusters: fn readied once per device, kernel and
+// shape, and refused (cudaErrorLaunchOutOfResources) where the card holds no
+// cluster of it, never shrunk.
+int launch_clusters(const void* fn, int ctas, const Shape& shape,
+                    long long cells, void* stream, void** args) {
+  if (cells <= 0) return 0;
+  struct Ready {
+    const void* fn;
+    int dev;
+    int threads;
+    size_t smem;
+  };
+  static Ready ready[64];
+  static int n_ready = 0;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return static_cast<int>(cudaErrorInvalidDevice);
+  bool seen = false;
+  for (int i = 0; i < n_ready && !seen; ++i)
+    seen = ready[i].fn == fn && ready[i].dev == dev && ready[i].threads == shape.threads &&
+           ready[i].smem == shape.smem;
+  if (!seen) {
+    int clusters = 0;
+    const int err = cluster_ready(fn, ctas, shape, &clusters);
+    if (err) return err;
+    if (clusters < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
+    if (n_ready < 64) ready[n_ready++] = {fn, dev, shape.threads, shape.smem};
+  }
+  ClusterLaunch l;
+  cluster_config(l, ctas, shape, cells, static_cast<cudaStream_t>(stream));
+  const int err = static_cast<int>(cudaLaunchKernelExC(&l.cfg, fn, args));
+  if (err) return err;
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace

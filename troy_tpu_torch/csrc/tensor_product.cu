@@ -6,13 +6,13 @@
 // for input x = (a0, a1, b0, b1) as (B, 4, L, n) residues in [0, q) and
 // output (B, 3, L, n) in [0, q).
 //
-// The middle kernel of the fused tensor product's route at degrees above
-// 32768 (ops/fused_mul_cuda.py): the forward NTT of (a, b) as one
-// (B, 4, L, n) call, this kernel, then the inverse NTT.  At those degrees one
-// operand polynomial does not fit a CTA's shared memory, so the
-// one-cluster-per-(batch, limb) kernel of fused_mul.cu, which replaces the
-// TPU kernel troy_tpu/ops/fused_mul.py:_kernel (K4) at n <= 32768, cannot
-// hold it; this route computes the same function.
+// The middle kernel of the five-launch route of the fused tensor product at
+// degrees above 32768 (ops/fused_mul_cuda.py:run_five_launch): the NTT's
+// two-launch forward of (a, b) as one (B, 4, L, n) call, this kernel, then
+// the two-launch inverse.  That route was K4's (troy_tpu/ops/fused_mul.py:
+// _kernel) above 32768 until the one-launch cluster kernel of
+// fused_mul_large.cu replaced it; it stays as that kernel's timing
+// yardstick, and this kernel is launched by nothing else.
 //
 // Design: a CTA per 512 coefficient pairs of one (batch, limb) (grid y), so
 // q and its Barrett ratio floor((2^64 - 1) / q) are loaded once; a thread

@@ -18,16 +18,23 @@ kernel (troy_fused_mul_radix2) stays in the library as a timing yardstick:
 run_radix2 launches it for chip_smoke.py's comparison, and no route of this
 wrapper takes it.
 
-For n = 65536 and 131072 (a split), where one operand polynomial does not
-fit a CTA: the NTT kernels' two-launch forward of (a, b) as one (..., 4, L,
-n) call, the hand-written tensor-product kernel troy_tensor_product
-(csrc/tensor_product.cu: a0 b0, a0 b1 + a1 b0, a1 b1 mod q in the NTT
-domain), and the two-launch inverse: five launches, none of them a plain
-version.
+For n = 65536 and 131072 (a split, n = C n2), where one operand polynomial
+does not fit a CTA: troy_fused_mul_large (csrc/fused_mul_large.cu), one
+launch, a (batch, limb) a cluster of C CTAs, CTA r holding block r of all
+four operands, so the products are local; the NTT's column stages cross
+the cluster through distributed shared memory, as in the NTT's cluster
+route.  It takes clusters of 16 (LARGE_SHAPES: the fastest at 65536, and
+at 131072 the only size whose four operand blocks fit a CTA).  The route
+it replaced stays as its timing yardstick, run_five_launch: the NTT's
+two-launch yardstick forward of (a, b) as one (..., 4, L, n) call, the
+tensor-product kernel troy_tensor_product (csrc/tensor_product.cu: a0 b0,
+a0 b1 + a1 b0, a1 b1 mod q in the NTT domain; tensor_product launches it
+alone), and the two-launch inverse.
 
-LAUNCHES counts the launches of the cluster kernel (fused_negacyclic_multiply)
+LAUNCHES counts the launches of the one-CTA-an-operand kernel
+(fused_negacyclic_multiply), of the large cluster kernel (fused_mul_large)
 and of the tensor-product kernel (tensor_product), so it says which route
-ran; the NTT launches of the large route count in ntt_cuda.LAUNCHES.
+ran; the yardstick's NTT launches count in ntt_cuda.LAUNCHES.
 """
 
 from __future__ import annotations
@@ -39,14 +46,19 @@ import torch
 from . import _cuda_build
 from .ntt import NTTTables, kernel_phase_plan, phase_entries
 from .ntt import BLOCK_MAX_LOG_N, MAX_LOG_N
-from .ntt_cuda import MODULUS_BOUND
+from .ntt_cuda import MODULUS_BOUND, check_cluster
 
-LAUNCHES = {"fused_negacyclic_multiply": 0, "tensor_product": 0}
+LAUNCHES = {"fused_negacyclic_multiply": 0, "fused_mul_large": 0, "tensor_product": 0}
+LARGE_SHAPES = ((16, 4), (17, 4))  # (log2 n, split) of the large kernel: clusters of 16
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_void_p]
+_LARGE_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
 _PRODUCT_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                      ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                      ctypes.c_void_p]
@@ -69,13 +81,28 @@ def shared_bytes(log_n: int) -> int:
     return 4 * ((n + (n >> 5) + 3) & ~3) + 8 * phase_entries(log_n)
 
 
-def _check(a: torch.Tensor, b: torch.Tensor, t: NTTTables, polys: int = 2):
+def large_shared_bytes(log_b: int) -> int:
+    """Dynamic shared memory of one CTA of the large kernel, as
+    csrc/fused_mul_large.cu:large_shape sizes it: four operand blocks of
+    2^log_b values padded (ntt_shape's layout), then both block tables."""
+    n = 1 << log_b
+    return 16 * ((n + (n >> 5) + 3) & ~3) + 16 * phase_entries(log_b)
+
+
+def _check(a: torch.Tensor, b: torch.Tensor, t: NTTTables, polys: int = 2,
+           large: bool = True):
     """a and b: contiguous, 16-byte aligned int64 CUDA tensors on the tables'
     device, of one shape ending in (polys, L, n), at a degree and moduli the
-    kernels take."""
+    kernels take; with a split, a shape of the large kernel, unless `large`
+    is off (the yardstick route)."""
     if getattr(t, "words", 1) != 1:
         raise ValueError("[fused_mul_cuda] wide (40-60-bit) moduli: the wide path has no "
                          "fused kernel (ops/rp.py)")
+    if large and t.split:
+        check_cluster(t, "fused_mul_cuda")
+        if (t.log_n, t.split) not in LARGE_SHAPES:
+            raise ValueError(f"[fused_mul_cuda] the large kernel takes (log2 n, split) in "
+                             f"{LARGE_SHAPES}, not ({t.log_n}, {t.split})")
     for x in (a, b):
         if not x.is_cuda:
             raise ValueError("[fused_mul_cuda] inputs must be CUDA tensors")
@@ -99,25 +126,27 @@ def _check(a: torch.Tensor, b: torch.Tensor, t: NTTTables, polys: int = 2):
         raise ValueError(f"[fused_mul_cuda] n = {n} must be a power of two in "
                          f"[2, {1 << MAX_LOG_N}]")
     if t.block_log_n > BLOCK_MAX_LOG_N:
-        raise ValueError(f"[fused_mul_cuda] n = {n} needs tables with a split")
+        raise ValueError(f"[fused_mul_cuda] n = {n} needs tables with a larger split")
     if t.max_modulus >= MODULUS_BOUND:
         raise ValueError(f"[fused_mul_cuda] modulus {t.max_modulus} >= 2^30")
 
 
 def _call(name: str, argtypes: list, a: torch.Tensor, b: torch.Tensor,
-          t: NTTTables, table: torch.Tensor, *extra) -> torch.Tensor:
+          t: NTTTables, *args) -> torch.Tensor:
+    """fn(a, b, out, *args, stream) into a new (..., 3, L, n) output."""
     fn = _cuda_build.function(name, argtypes)
     out = torch.empty((*a.shape[:-3], 3, t.size, t.n), dtype=torch.int64,
                       device=a.device)
-    n_batch = a.numel() // (2 * t.size * t.n)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), table.data_ptr(),
-                 t.kernel_scalars.data_ptr(), n_batch, t.size, t.log_n, *extra,
-                 stream)
+        err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), *args, stream)
     if err != 0:
         raise RuntimeError(f"[fused_mul_cuda] {name} launch failed: CUDA error {err}")
     return out
+
+
+def _batches(a: torch.Tensor, t: NTTTables) -> int:
+    return a.numel() // (2 * t.size * t.n)
 
 
 def fused_negacyclic_multiply(a: torch.Tensor, b: torch.Tensor,
@@ -126,21 +155,36 @@ def fused_negacyclic_multiply(a: torch.Tensor, b: torch.Tensor,
     coefficient domain -> (..., 3, L, n) in [0, q), coefficient domain."""
     _check(a, b, t)
     if t.split:
-        from . import ntt_cuda
-
-        y = ntt_cuda.ntt_forward(torch.cat([a, b], dim=-3), t)
-        return ntt_cuda.ntt_inverse(tensor_product(y, t), t)
-    out = _call("troy_fused_mul", _ARGTYPES, a, b, t, t.kernel_phases,
+        out = _call("troy_fused_mul_large", _LARGE_ARGTYPES, a, b, t,
+                    t.kernel_phases.data_ptr(), t.column_phases.data_ptr(),
+                    t.kernel_scalars.data_ptr(), _batches(a, t), t.size, t.block_log_n,
+                    t.split, t.plan_code, t.entries)
+        LAUNCHES["fused_mul_large"] += 1
+        return out
+    out = _call("troy_fused_mul", _ARGTYPES, a, b, t, t.kernel_phases.data_ptr(),
+                t.kernel_scalars.data_ptr(), _batches(a, t), t.size, t.log_n,
                 t.plan_code, t.kernel_phases.shape[-1] // 2)
     LAUNCHES["fused_negacyclic_multiply"] += 1
     return out
+
+
+def run_five_launch(a: torch.Tensor, b: torch.Tensor, t: NTTTables) -> torch.Tensor:
+    """The large kernel's yardstick, the route it replaced: the NTT's
+    two-launch forward of (a, b) as one (..., 4, L, n) call, the
+    tensor-product kernel, the two-launch inverse (each launch counted under
+    its own name; never a route of fused_negacyclic_multiply)."""
+    from . import ntt_cuda
+
+    _check(a, b, t, large=False)
+    y = ntt_cuda.two_launch(False, torch.cat([a, b], dim=-3), t)
+    return ntt_cuda.two_launch(True, tensor_product(y, t), t)
 
 
 def tensor_product(y: torch.Tensor, t: NTTTables) -> torch.Tensor:
     """One launch of the tensor-product kernel: y (..., 4, L, n) = NTT-domain
     (a0, a1, b0, b1) in [0, q) -> (..., 3, L, n) = (a0 b0, a0 b1 + a1 b0,
     a1 b1) mod q.  Its plain version is ops/dyadic.py:dyadic_convolute."""
-    _check(y, y, t, polys=4)
+    _check(y, y, t, polys=4, large=False)
     fn = _cuda_build.function("troy_tensor_product", _PRODUCT_ARGTYPES)
     out = torch.empty((*y.shape[:-3], 3, t.size, t.n), dtype=torch.int64, device=y.device)
     with torch.cuda.device(y.device):
@@ -159,7 +203,8 @@ def run_radix2(a: torch.Tensor, b: torch.Tensor, t: NTTTables) -> torch.Tensor:
     """One launch of the first, radix-2 kernel (the timing yardstick), not
     counted in LAUNCHES and never a route of fused_negacyclic_multiply."""
     _check(a, b, t)
-    return _call("troy_fused_mul_radix2", _RADIX2_ARGTYPES, a, b, t, t.kernel_rows)
+    return _call("troy_fused_mul_radix2", _RADIX2_ARGTYPES, a, b, t, t.kernel_rows.data_ptr(),
+                 t.kernel_scalars.data_ptr(), _batches(a, t), t.size, t.log_n)
 
 
 def kernel_info(which: int, log_n: int) -> dict:
@@ -174,6 +219,19 @@ def kernel_info(which: int, log_n: int) -> dict:
     err = fn(which, log_n, phase_entries(log_n), info)
     if err != 0:
         raise RuntimeError(f"[fused_mul_cuda] kernel info failed: CUDA error {err}")
+    return dict(zip(("threads", "smem", "regs", "local_bytes", "ctas_per_sm",
+                     "clusters"), info))
+
+
+def large_info(log_n: int, split: int) -> dict:
+    """kernel_info's fields of the large kernel at degree 2^log_n in
+    clusters of 2^split CTAs."""
+    fn = _cuda_build.function("troy_fused_mul_large_info", [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
+    info = (ctypes.c_int * 6)()
+    err = fn(log_n - split, split, phase_entries(log_n - split), info)
+    if err != 0:
+        raise RuntimeError(f"[fused_mul_cuda] large kernel info failed: CUDA error {err}")
     return dict(zip(("threads", "smem", "regs", "local_bytes", "ctas_per_sm",
                      "clusters"), info))
 

@@ -13,10 +13,13 @@ Two implementations of one function:
     the JAX radix-2 path).  It serves CPU tensors, and is the reference that
     the CUDA kernel is held to.  forward_stages_plain / inverse_stages_plain
     run a range of its stages: the plain versions of each launch of the
-    two-launch route below.
+    two-launch yardstick route below.
   * ops/ntt_cuda.py: the hand-written Hopper kernels (csrc/ntt.cu), which
-    serve CUDA tensors: one launch up to n = 32768; above, a split
-    (NTTTables.split, default_split) into the column and block launches.
+    serve CUDA tensors: one launch a CTA a polynomial up to n = 32768;
+    above, a split (NTTTables.split, default_split) of n = C n2 into one
+    launch of clusters of C CTAs, a polynomial a cluster.  The earlier two
+    launches over the same split (the column and block kernels) stay as
+    that route's timing yardstick.
 
 ntt_forward / ntt_inverse dispatch on the tensor's device alone.  Callers use
 them through this module's attributes (NTT.ntt_forward), never by name import.
@@ -128,8 +131,8 @@ def phase_rows(row: np.ndarray, row_shoup: np.ndarray, log_n: int,
     factors psi_br[g] (zero where g >= n), then every phase of
     kernel_phase_plan back to back (phase_nodes), padding (0, 0).
 
-    With a split (the two-launch route, NTTTables.split), log_n is a block's
-    and the table repeats per block b < 2^split: the block kernel's phase
+    With a split (NTTTables.split), log_n is a block's and the table repeats
+    per block b < 2^split: the cluster kernels' (and the block kernel's) phase
     (r, k) runs global stages from split + r, where block b holds the roots
     v = 2^(split+r) + b 2^r + u, u < 2^r, so block b's rows of
     phase_nodes(split + r, k) are its own."""
@@ -148,7 +151,7 @@ def phase_rows(row: np.ndarray, row_shoup: np.ndarray, log_n: int,
 
 
 def column_rows(row: np.ndarray, row_shoup: np.ndarray, split: int) -> np.ndarray:
-    """The column kernel's 2^split (w, w') slots: the heap subtree of root 1
+    """The column stages' 2^split (w, w') slots: the heap subtree of root 1
     (phase_nodes(0, split)), slot p = psi_br[p] for 0 < p < 2^split, slot 0
     padding; empty without a split."""
     if not split:
@@ -161,17 +164,20 @@ def column_rows(row: np.ndarray, row_shoup: np.ndarray, split: int) -> np.ndarra
 
 MAX_LOG_N = 17        # the reference's largest degree, 131072
 BLOCK_MAX_LOG_N = 15  # a CTA holds at most 32768 values and their table
-LARGE_BLOCK_LOG_N = 12  # the block of the two-launch route (PERF.md, F3)
+LARGE_BLOCK_LOG_N = 12  # the block of the two-launch yardstick (PERF.md, F3)
+CLUSTER_SIZES = (2, 4, 8, 16)  # CTAs a cluster of the route above 32768 may have
+CLUSTER_SPLIT = {16: 4, 17: 4}  # log2 of the cluster size by log2 n (PERF.md)
 
 
 def default_split(log_n: int) -> int:
-    """log2 n1 of the route NTTTables takes by default: 0 (one launch, a
-    polynomial a CTA) up to n = 32768, else n = n1 n2 with n2 = 4096 (the
-    faster of blocks of 4096, 8192 and 32768 on the H100, PERF.md), at most
-    5 (the kernels take no degree above 131072)."""
+    """log2 C of the route NTTTables takes by default: 0 (one launch, a
+    polynomial a CTA) up to n = 32768, else n = C n2, a polynomial a cluster
+    of C CTAs: CLUSTER_SPLIT, the fastest cluster size on the H100
+    (chip_smoke.py's sweep, PERF.md); 4 above 131072, where only the tables
+    are built (the kernels refuse the degree)."""
     if log_n <= BLOCK_MAX_LOG_N:
         return 0
-    return min(KERNEL_MAX_DEPTH, log_n - LARGE_BLOCK_LOG_N)
+    return CLUSTER_SPLIT.get(log_n, 4)
 
 
 class NTTTables:
@@ -188,18 +194,21 @@ class NTTTables:
         -q^-1 mod 2^32, n^-1 2^32 mod q and its Shoup companion;
       kernel_phases (2, L, 2 E): phase_rows of psi_br and of inv_psi_br per
         limb, E entries each (the NTT kernel's twiddles); with a split,
-        (2, L, 2^split 2 E), E entries per block;
+        (2, L, 2^split 2 E), E entries per block (the cluster kernels'
+        block phases, and the block kernel's);
       phase_plan / plan_code: kernel_phase_plan(block_log_n) and its packed
         form;
       column_phases (2, L, 2^(split+1)): column_rows of psi_br and of
-        inv_psi_br (the column kernel's twiddles; empty without a split);
-      block_scalars (3, L): q, 1 and floor(2^32 / q), the block kernel's
-        inverse scale (a reduction to [0, q));
-      barrett_ratio (L,) int64: floor((2^64 - 1) / q), for the tensor
-        product of csrc/tensor_product.cu.
-    split (log2 n1) picks the kernels' route: 0, one launch of a polynomial
-    a CTA; above, two launches over n = n1 n2, blocks of 2^block_log_n
-    values (csrc/ntt.cu).  default_split(log_n) unless given.
+        inv_psi_br (the column stages' twiddles; empty without a split);
+      block_scalars (3, L): q, 1 and floor(2^32 / q), the yardstick block
+        kernel's inverse scale (a reduction to [0, q));
+      barrett_ratio (L,) int64: floor((2^64 - 1) / q), for the yardstick
+        tensor product of csrc/tensor_product.cu.
+    split (log2 C) picks the kernels' route: 0, one launch of a polynomial
+    a CTA; above, a polynomial a cluster of C CTAs, blocks of
+    2^block_log_n values (csrc/ntt.cu, csrc/fused_mul_large.cu).
+    default_split(log_n) unless given; a split of 5 serves only the
+    two-launch yardstick.
     """
 
     _row_cache: dict = {}  # (log_n, q, split) -> per-modulus host rows
