@@ -22,7 +22,8 @@ the device CKKS encoder at bench.py's chain; the client and the server
 over bytes (seed-compressed inputs, the helpers' wire format); the ring2k
 encoder at the app bench's ring2k sizes; and the wide path at bench.py's
 {60, 40, 40, 60} chain; the per-operation benchmark matrix, the eager
-benchmark, the example twins and the timer, reductions and poly strings.
+benchmark, the example twins and the timer, reductions and poly strings;
+and the mesh (the step and the app matmul split over shards of the card).
 In phases:
 
   1. device   the card's name and power limit (fails without CUDA);
@@ -226,7 +227,22 @@ In phases:
               Then each row's profiler launches, device ms and K1 / K3
               launches a step, its slope time by CUDA events (chained at two
               repetition counts), and the markdown table;
- 21. times    CUDA-event times of the chained steps against their all-plain
+ 21. mesh     parallel/mesh.py on the card: the HPS multiply + relinearize
+              step of [main] (batch 16) over (data, limb) = (8, 1), (4, 2)
+              and (2, 3) meshes of shards of this card (and (cards, 1) over
+              the cards when there are several), and over make_latency_mesh(4)
+              on one ciphertext's coefficients (with several cards also
+              (cards, 1), (cards / 2, 2) and poly over the cards); each
+              equal to the unsharded step on the card bit for bit, products
+              0 and 15 (0) decrypting
+              right, with its collectives and bytes, per-device bytes, the NTT
+              table rows it transformed, K1 and K3 launches per shard and its
+              CUDA-event ms against the unsharded step (a partition's overhead
+              on one card, not a scaling number); [app]'s BFV matmul + pack
+              with mesh=make_mesh(data=4, limb=1), equal to the unsharded run;
+              a one-rank NCCL make_multihost_mesh(hosts=1) data-parallel step
+              with no collective;
+ 22. times    CUDA-event times of the chained steps against their all-plain
               versions (multiply + relinearize, the three rotations, the mod
               switch), the profiler's launches, device time, NTT kernel time
               and busy share of the HPS step and of one rotate_rows(1) and
@@ -289,6 +305,10 @@ LWE_COUNT, LWE_GROUPS = 64, 4        # [lwe]: LWEs packed, and groups of them ba
 APP_BITS = [30] * 4                   # [app]: the reference's app-bench chain
 APP_MATMUL = (100, 105, 110)          # batch x input x output (matmul_bench.py)
 APP_CONV = (4, 3, 16, 32, 32, 3, 3)   # B, Ci, Co, H, W, kh, kw (app_bench.py)
+MESH_LAYOUTS = ((8, 1), (4, 2), (2, 3))  # [mesh]: (data, limb) of the step's shards
+MESH_POLY = 4                         # [mesh]: coefficient shards of one ciphertext
+MESH_APP_DATA = 4                     # [mesh]: the app matmul over (data=4, limb=1)
+MESH_REPS = 5
 _FWD = "troy_tpu/ops/ntt_pallas.py:74, troy_tpu/ops/ntt_pallas.py:206"
 _INV = "troy_tpu/ops/ntt_pallas.py:89, troy_tpu/ops/ntt_pallas.py:228"
 KERNELS = {  # name: (source, the TPU kernels it replaces: K1 and K2 for the NTT)
@@ -1818,6 +1838,8 @@ def phase_app(dev, gpu: str) -> dict:
     label = f"BFV matmul {B} x {I} x {O} + pack_outputs"
     out, launches["bfv_matmul"] = run_step(
         "app", label, lambda: packed_matmul(helper, x_enc, w_enc, bfv_glk, ev), need)
+    matmul = dict(helper=helper, x_enc=x_enc, w_enc=w_enc, glk=bfv_glk, ev=ev, out=out,
+                  adapter=adapter, decryptor=bfv["decryptor"], want=(x @ w) % t_val)
     packed = Cipher2d([[Ciphertext(o, pid) for o in out]])
     dec = helper.decrypt_outputs(adapter, bfv["decryptor"], packed)
     if not np.array_equal(dec.astype(np.int64), (x @ w) % t_val):
@@ -1890,7 +1912,174 @@ def phase_app(dev, gpu: str) -> dict:
         f"{dec.shape} outputs")
     flows["bfv_conv2d"] = flow_report(
         "app", gpu, label, lambda: conv.conv2d(ev, xc_enc, kc_enc))
-    return dict(launches=launches, flows=flows)
+    return dict(launches=launches, flows=flows, matmul=matmul)
+
+
+def ntt_rows(fn) -> tuple:
+    """fn() with the NTT dispatch recorded: (its result, the sorted set of
+    table rows (limbs) of its transforms)."""
+    from troy_tpu_torch.ops import ntt as NTT
+
+    rows = set()
+    real = {k: getattr(NTT, k) for k in ("ntt_forward", "ntt_inverse")}
+
+    def rec(name):
+        def call(x, t):
+            rows.add(t.size)
+            return real[name](x, t)
+        return call
+    with mock.patch.object(NTT, "ntt_forward", rec("ntt_forward")), \
+            mock.patch.object(NTT, "ntt_inverse", rec("ntt_inverse")):
+        out = fn()
+    return out, sorted(rows)
+
+
+def shard_launches(record) -> str:
+    """Each shard's K1 and K3 launches from a CollectiveRecord."""
+    parts = []
+    for i in sorted(record.launches):
+        c = record.launches[i]
+        k1 = sum(v for k, v in c.items() if k.startswith("ntt_"))
+        parts.append(f"{i}: K1 {k1}, K3 {c.get('base_convert', 0)}")
+    return "; ".join(parts)
+
+
+def phase_mesh(dev, gpu: str, main: dict, app: dict) -> dict:
+    """The mesh (parallel/mesh.py, parallel/partition.py) on the card: the
+    HPS multiply + relinearize step of [main] over (data, limb) meshes of
+    shards on this card (and over the cards when there are several), over
+    one ciphertext's coefficients ('poly'), the [app] BFV matmul + pack
+    over (data=4, limb=1), and a one-rank NCCL multihost mesh."""
+    import socket
+
+    import torch.distributed as dist
+    from troy_tpu_torch.core.ciphertext import Ciphertext
+    from troy_tpu_torch.parallel import mesh as M
+
+    step, d1, d2, keys = main["step"], main["d1"], main["d2"], main["keys"]
+    cd, encoder, decryptor = main["cd"], main["encoder"], main["decryptor"]
+    count = torch.cuda.device_count()
+    need = ("ntt_forward", "ntt_inverse", "base_convert")
+    ref, whole_rows = ntt_rows(lambda: step(d1, d2, keys))
+    whole_ms = cuda_ms(lambda: step(d1, d2, keys), MESH_REPS)
+    op_bytes = d1.numel() * d1.element_size()
+    log(f"[mesh] {count} card(s); shards of {dev}; the unsharded HPS step "
+        f"{tuple(d1.shape)}: {whole_ms:.4f} ms ({gpu}, CUDA events, {MESH_REPS} calls), "
+        f"NTT table rows {whole_rows}")
+
+    def decrypts(label, got, rows):
+        for b in rows:
+            dec = encoder.decode(decryptor.decrypt(Ciphertext(got[b], cd.parms_id)))
+            if not np.array_equal(dec, np.asarray(main["expected"][b], np.int64)):
+                raise AssertionError(f"[mesh] {label}: product {b} decrypts wrong")
+
+    def run(label, fn, want, rows, whole_ms, devices):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        out, nrows = ntt_rows(fn)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        for name in need:
+            if counts[name] == 0:
+                raise AssertionError(f"[mesh] {label} did not launch {name}")
+        got = out.gather(dev)
+        if not torch.equal(got, want):
+            raise AssertionError(f"[mesh] {label} != the unsharded step at "
+                                 f"{int((got != want).sum())} residues")
+        decrypts(label, got, rows)
+        stats = M.collective_stats(out)
+        ms = cuda_ms(fn, MESH_REPS)
+        log(f"[mesh] {label}: equals the unsharded step bit for bit, products "
+            f"{list(rows)} decrypt right; collectives {stats['counts']}, "
+            f"{stats['approx_bytes']} bytes ({stats['approx_bytes'] / op_bytes:.3f} x the "
+            f"operand's {op_bytes}); per-device bytes of the result "
+            f"{M.per_device_bytes(out)}; NTT table rows {nrows}; launches {counts}; "
+            f"per shard {shard_launches(out.record)}")
+        where = (f"{len(set(devices))} cards driven by one process" if len(set(devices)) > 1
+                 else "shards of one card: the partition's overhead, not a scaling number")
+        log(f"[mesh] {gpu}: {label}: {ms:.4f} ms against the unsharded {whole_ms:.4f} ms "
+            f"(CUDA events, {MESH_REPS} calls; {where})")
+        return dict(launches=counts, stats=stats, ms=ms, unsharded_ms=whole_ms,
+                    per_device=M.per_device_bytes(out))
+
+    runs = {}
+    meshes = [(f"data={d}, limb={k}", M.make_mesh(d, k, [dev] * (d * k)))
+              for d, k in MESH_LAYOUTS]
+    cards = [torch.device("cuda", i) for i in range(count)] if dev.type == "cuda" else []
+    if count >= 2:
+        meshes.append((f"data={count} over the cards", M.make_mesh(count, 1, cards)))
+        if count % 2 == 0:
+            meshes.append((f"data={count // 2}, limb=2 over the cards",
+                           M.make_mesh(count // 2, 2, cards)))
+    last = d1.shape[0] - 1
+    for label, mesh in meshes:
+        limbs = mesh.shape["limb"] > 1
+        x1, x2 = M.shard_batch(d1, mesh, limbs), M.shard_batch(d2, mesh, limbs)
+        kr = M.replicate(keys, mesh)
+        runs[label] = run(label, lambda: step(x1, x2, kr), ref, (0, last), whole_ms,
+                          list(mesh.devices.flat))
+        if not limbs and runs[label]["stats"]["total"]:
+            raise AssertionError(f"[mesh] {label}: a data-only plan issued collectives")
+        if limbs and not runs[label]["stats"]["total"]:
+            raise AssertionError(f"[mesh] {label}: a limb split issued no collective")
+
+    # one ciphertext over its coefficients
+    one_ms = cuda_ms(lambda: step(d1[:1], d2[:1], keys), MESH_REPS)
+    polys = [(f"poly={MESH_POLY}, one ciphertext", [dev] * MESH_POLY)]
+    if count >= 2:
+        polys.append((f"poly={count} over the cards, one ciphertext", cards))
+    for label, devs in polys:
+        pm = M.make_latency_mesh(len(devs), devs)
+        p1, p2, pk = M.shard_poly(d1[:1], pm), M.shard_poly(d2[:1], pm), M.shard_poly(keys, pm)
+        runs[label] = run(label, lambda: step(p1, p2, pk), ref[:1], (0,), one_ms, devs)
+        if not runs[label]["stats"]["counts"].get("all-to-all"):
+            raise AssertionError(f"[mesh] {label}: no all-to-all")
+
+    # the [app] BFV matmul + pack_outputs over (data=4, limb=1)
+    mm = app["matmul"]
+    am = M.make_mesh(MESH_APP_DATA, 1, [dev] * MESH_APP_DATA)
+    helper, ev = mm["helper"], mm["ev"]
+
+    def app_run():
+        y = helper.matmul(ev, mm["x_enc"], mm["w_enc"], mesh=am)
+        return torch.stack([c.data for c in helper.pack_outputs(ev, mm["glk"], y, mesh=am)[0]])
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with M.recording() as rec:
+        out = app_run()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if not torch.equal(out, mm["out"]):
+        raise AssertionError("[mesh] the sharded app matmul != the unsharded run")
+    if not (counts["ntt_forward"] and counts["ntt_inverse"]):
+        raise AssertionError("[mesh] the sharded app matmul launched no NTT kernel")
+    app_ms = cuda_ms(app_run, 1)
+    stats = M.collective_stats(rec)
+    log(f"[mesh] BFV matmul {APP_MATMUL} + pack_outputs, mesh=make_mesh(data={MESH_APP_DATA}, "
+        f"limb=1): equals the unsharded [app] run bit for bit; shards that ran a stage "
+        f"{rec.active_shards}; collectives {stats['counts']}; launches {counts}; per shard "
+        f"{shard_launches(rec)}; {gpu}: {app_ms:.4f} ms a call (CUDA events)")
+    runs["app matmul"] = dict(launches=counts, stats=stats, ms=app_ms)
+
+    # one rank of a multihost mesh: NCCL on the card
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}", world_size=1,
+                            rank=0)
+    try:
+        hm = M.make_multihost_mesh(hosts=1, limb=1, devices=[dev] * min(4, d1.shape[0]))
+        h1, h2 = M.shard_batch(d1, hm, False), M.shard_batch(d2, hm, False)
+        hk = M.replicate(keys, hm)
+        label = f"{backend} multihost mesh {hm.shape}"
+        runs[label] = run(label, lambda: step(h1, h2, hk), ref, (0, last), whole_ms,
+                          list(hm.devices.flat))
+        if runs[label]["stats"]["total"]:
+            raise AssertionError(f"[mesh] {label}: batch parallelism issued collectives")
+    finally:
+        dist.destroy_process_group()
+    return dict(runs=runs, launches={k: r["launches"] for k, r in runs.items()})
 
 
 CLIENT_STEPS = 3                      # [client]: chained calls of each BatchedClient step
@@ -3174,7 +3363,12 @@ def main() -> int:
     examples = phase_examples()
     perop = phase_perop(dev, gpu)
 
-    # ---- 21. times ---------------------------------------------------------
+    # ---- 21. mesh ---------------------------------------------------------
+    mesh = phase_mesh(dev, gpu, dict(step=steps["hps"], d1=d1, d2=d2, keys=keys, cd=cd,
+                                     encoder=encoder, decryptor=decryptor,
+                                     expected=expected), app)
+
+    # ---- 22. times ---------------------------------------------------------
     def batch_ms(label: str, step, first, chain: bool = True):
         """Event-timed ms per call of step, with the kernels and all plain:
         chained (each output the next input) or repeated on first."""
@@ -3291,7 +3485,7 @@ def main() -> int:
             f"path (NTT kernel, torch dyadic_convolute, NTT kernel) {unfused_ms:.5f} ms "
             f"(device time per call, CUDA graph); kernel / unfused {ms / unfused_ms:.3f}")
 
-    # ---- 22. results -------------------------------------------------------
+    # ---- 23. results -------------------------------------------------------
     paths = {  # each main path's launch counts, read just after its run
         "hps": {**launches["hps"], "fused_negacyclic_multiply":
                 launches["fused"]["fused_negacyclic_multiply"]},
@@ -3307,8 +3501,9 @@ def main() -> int:
         "perop": {k: sum(c[k] for c in perop["launches"].values()) for k in KERNELS},
         "eager": {k: eager["launches"][k] for k in KERNELS},
         "examples": {k: sum(c[k] for c in examples["launches"].values()) for k in KERNELS},
-        "harness": {k: harness["launches"][k] for k in KERNELS}}
-    for path in ("client", "wire", "ring2k", "perop", "eager", "examples"):
+        "harness": {k: harness["launches"][k] for k in KERNELS},
+        "mesh": {k: sum(c[k] for c in mesh["launches"].values()) for k in KERNELS}}
+    for path in ("client", "wire", "ring2k", "perop", "eager", "examples", "mesh"):
         if not paths[path]["ntt_forward"] or not paths[path]["ntt_inverse"]:
             raise AssertionError(f"[results] the {path} path launched no NTT kernel")
     if not paths["ring2k"]["base_convert"]:

@@ -20,7 +20,8 @@ quickstart's Classical128; [ring2k] at matmul 4 x 5 x 6, conv2d 1 x 2 x 6
 x 6 -> 3 and 2 messages a helper flow; [wide] at n = 1024, batch 2 (its
 CPU twin then runs on the same device); [perop] at n = 1024, batch 2, 2
 repetitions; [eager] 1 repetition; [examples] with --device cpu at the
-twins' own sizes.  Times it prints are the CPU's and
+twins' own sizes; [mesh] over (data, limb) = (2, 1), (1, 2), (1, 3) at batch
+2, its one-rank multihost mesh on gloo.  Times it prints are the CPU's and
 mean nothing.
 """
 import contextlib
@@ -122,6 +123,7 @@ def install_fakes():
     cs.LARGE_BITS = [30] * 5
     cs.K4_DEGREES = (16, 1024)
     cs.RING2K_MATMUL, cs.RING2K_CONV, cs.RING2K_MESSAGES = (4, 5, 6), (1, 2, 3, 6, 6, 3, 3), 2
+    cs.MESH_LAYOUTS = ((2, 1), (1, 2), (1, 3))
     NTT.BLOCK_MAX_LOG_N = 11
     ntt_cuda.BLOCK_MAX_LOG_N = 11
     NTT.LARGE_BLOCK_LOG_N = 10

@@ -22,6 +22,7 @@ test_jax_contract_cache_fault pins the fault down."""
 
 import numpy as np
 import pytest
+import torch
 
 from troy_tpu.app.matmul import MatmulHelper as JMatmul, MatmulObjective as JObjective
 from troy_tpu.app.conv2d import Conv2dHelper as JConv2d
@@ -40,6 +41,7 @@ from troy_tpu_torch.core.decryptor import Decryptor
 from troy_tpu_torch.core.evaluator import Evaluator
 from troy_tpu_torch.core.batch_encoder import BatchEncoder
 from troy_tpu_torch.core.ckks_encoder import CKKSEncoder
+from troy_tpu_torch.parallel import mesh as M
 
 from .test_torch_client import same
 from .test_torch_lwe import Pair, same_ct
@@ -57,6 +59,12 @@ def same_2d(j2d, t2d, compare=same_ct):
         assert len(jrow) == len(trow)
         for j, t in zip(jrow, trow):
             compare(j, t)
+
+
+def same_data(a, b):
+    """Two port ciphertexts are equal."""
+    assert torch.equal(a.data, b.data) and a.is_ntt_form == b.is_ntt_form
+    assert (a.scale, a.correction_factor) == (b.scale, b.correction_factor)
 
 
 def same_pt(jpt, pt):
@@ -284,13 +292,16 @@ def test_cipher2d_ops_and_refusals(A):
     same_2d(jseeded, seeded)
     assert all(c.seed is not None and c.seed == j.seed
                for row, jrow in zip(seeded.data, jseeded.data) for c, j in zip(row, jrow))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        th.matmul(p.ev, ta, th.encode_weights(A.ad, A.values((5, 4))), mesh=object())
+    # mesh= (tests/test_torch_app_mesh.py): equal to the run without a mesh
+    mesh = M.make_mesh(data=2, limb=2, devices=[torch.device("cpu")] * 4)
+    tw = th.encode_weights(A.ad, A.values((5, 4)))
+    same_2d(th.matmul(p.ev, ta, tw), th.matmul(p.ev, ta, tw, mesh=mesh), same_data)
     with pytest.raises(ValueError, match="pack_lwe"):
         th.pack_outputs(p.ev, A.glk, ta)
     packed = MatmulHelper(2, 5, 4, N, pack_lwe=True)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        packed.pack_outputs(p.ev, A.glk, Cipher2d([[ta[0][0], ta[0][0]]]), mesh=object())
+    pair = Cipher2d([[ta[0][0], ta[0][0]]])
+    same_2d(packed.pack_outputs(p.ev, A.glk, pair),
+            packed.pack_outputs(p.ev, A.glk, pair, mesh=mesh), same_data)
 
 
 def test_jax_contract_cache_fault(A):

@@ -14,6 +14,7 @@ path."""
 
 import numpy as np
 import pytest
+import torch
 
 from troy_tpu.core.evaluator import Evaluator as JEvaluator
 from troy_tpu.core.keygen import KeyGenerator as JKeyGen
@@ -24,6 +25,7 @@ from troy_tpu_torch.core.evaluator import Evaluator
 from troy_tpu_torch.core.lwe_ops import LweOpsMixin as TLweOpsMixin
 from troy_tpu_torch.core.keygen import KeyGenerator
 from troy_tpu_torch.utils.random import RandomGenerator
+from troy_tpu_torch.parallel import mesh as M
 
 from .test_torch_bgv import BothBGV
 from .test_torch_ckks import BothCKKS, SCALE
@@ -161,8 +163,12 @@ def test_multiply_plain_accumulate_and_contract(S):
     # out[0][1] = ct0 w1 + ct1 w3, through the scalar ops
     want = S.ev.add(S.ev.multiply_plain(tcts[0], tw[1]), S.ev.multiply_plain(tcts[1], tw[3]))
     same(want.data, tout[0][1].data)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        S.ev.multiply_plain_contract(tgrid, [[tw[0], tw[1]], [tw[2], tw[3]]], mesh=object())
+    # mesh= (tests/test_torch_app_mesh.py): rows over 'data', limbs over 'limb'
+    mesh = M.make_mesh(data=2, limb=2, devices=[torch.device("cpu")] * 4)
+    for trow, mrow in zip(tout, S.ev.multiply_plain_contract(
+            tgrid, [[tw[0], tw[1]], [tw[2], tw[3]]], mesh=mesh)):
+        for t, m in zip(trow, mrow):
+            assert torch.equal(t.data, m.data) and t.scale == m.scale
     with pytest.raises(ValueError, match="inner dims"):
         S.ev.multiply_plain_contract(tgrid, [[tw[0], tw[1]]])
 

@@ -1,11 +1,11 @@
 """The port's example twins under examples/torch/: one for each
-examples/*.py but 30_parallelism.py (which waits for the mesh), each named
-as its original, importing neither jax nor the JAX package, and differing
-from its original only in its imports, the device= argument of
-HeContext.create, jax.jit (15) and its arrays (jnp -> torch, 21); the
-memory-model twin (20) shows torch's caching allocator instead of XLA's
-placement.  The twins whose flows have no other port test run here on the
-CPU at their own sizes: 1, 2, 3, 6, 15 and 20."""
+examples/*.py, each named as its original, importing neither jax nor the
+JAX package, and differing from its original only in its imports, the
+device= argument of HeContext.create, jax.jit (15) and its arrays (jnp ->
+torch, 21), and for 30 its device list and the comments that named JAX's
+mechanisms; the memory-model twin (20) shows torch's caching allocator
+instead of XLA's placement.  The twins whose flows have no other port test
+run here on the CPU at their own sizes: 1, 2, 3, 6, 15, 20 and 30."""
 
 import contextlib
 import difflib
@@ -19,7 +19,7 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 JAX_DIR, TWINS = ROOT / "examples", ROOT / "examples" / "torch"
 ORIGINALS = sorted(p.name for p in JAX_DIR.glob("*.py") if p.name != "common.py")
-WAITING = {"30_parallelism.py": "the mesh (ROADMAP A16)"}
+WAITING: dict = {}
 REWRITTEN = {"20_memory_model.py": "shows torch's caching allocator, not XLA placement",
              "21_device_client_ops.py": "its arrays are torch tensors on the device, and "
                                         "its docstring quotes no TPU time"}
@@ -30,12 +30,24 @@ CHANGED_ORIGINAL = ("import common", "from troy_tpu", "context = HeContext.creat
 CHANGED_TWIN = ("from common import DEVICE", "from troy_tpu_torch", "context = HeContext.create(",
                 "ctx = HeContext.create(", "cctx = HeContext.create(",
                 "ctx_b = HeContext.create(", "step = batched.build_mul_relin_step(")
+# 30_parallelism: its device count, device lists, jit calls and the lines
+# that named JAX's mechanisms
+CHANGED_30 = (("Run with 8 virtual devices", "XLA_FLAGS=", "\"XLA_FLAGS=", "if jax.device_count()",
+               "print(f\"only {jax.device_count()}", "raise SystemExit(0)",
+               "data_axis = min(", "mesh = M.make_mesh(", "out = jax.jit(",
+               "M.replicate(keys, hmesh))", "# On a real pod", "# tests/parallel/",
+               "hmesh = M.make_multihost_mesh(", "# GSPMD partitions", "amesh = M.make_mesh("),
+              ("Run with 8 shards", "python3 examples/torch/", "DEVICES = ", "# Across hosts",
+               "# (scripts/torch_multiproc", "data_axis = min(", "mesh = M.make_mesh(",
+               "out = batched.build_mul_relin_step(", "# tests/test_torch_mesh.py",
+               "if len(DEVICES)", "hmesh = M.make_multihost_mesh(", "# the port splits",
+               "amesh = M.make_mesh(", "import torch"))
 
 
 def test_a_twin_for_every_example():
     twins = sorted(p.name for p in TWINS.glob("*.py") if p.name != "common.py")
     assert twins == [n for n in ORIGINALS if n not in WAITING]
-    assert len(twins) == 17
+    assert len(twins) == 18
 
 
 @pytest.mark.parametrize("name", [n for n in ORIGINALS if n not in WAITING])
@@ -51,11 +63,12 @@ def test_twin_differs_only_where_allowed(name):
     if name in REWRITTEN:
         return
     orig = (JAX_DIR / name).read_text().splitlines()
+    extra = CHANGED_30 if name == "30_parallelism.py" else ((), ())
     for d in difflib.ndiff(orig, src.splitlines()):
         if d.startswith("- "):
-            assert d[2:].lstrip().startswith(CHANGED_ORIGINAL), f"{name}: {d}"
+            assert d[2:].lstrip().startswith(CHANGED_ORIGINAL + extra[0]), f"{name}: {d}"
         elif d.startswith("+ "):
-            assert d[2:].lstrip().startswith(CHANGED_TWIN), f"{name}: {d}"
+            assert d[2:].lstrip().startswith(CHANGED_TWIN + extra[1]), f"{name}: {d}"
     for line in src.splitlines():
         if "HeContext.create(" in line:
             assert line.rstrip().split("#")[0].rstrip().endswith("device=DEVICE)"), line
@@ -84,7 +97,8 @@ def run_twin(name: str) -> list[str]:
     ("3_levels.py", "mod switch chain OK"),
     ("6_rotation.py", "rotations OK"),
     ("15_batched_operation.py", "batched multiply+relinearize of 4 ciphertexts OK"),
-    ("20_memory_model.py", "memory model OK")])
+    ("20_memory_model.py", "memory model OK"),
+    ("30_parallelism.py", "multi-device BumbleBee matmul (contraction + pack) OK")])
 def test_twin_runs_on_the_cpu(name, ok):
     lines = run_twin(name)
     assert lines and lines[-1].startswith(ok), lines[-3:]

@@ -41,6 +41,7 @@ from troy_tpu_torch.core.ckks_encoder import CKKSEncoder
 from troy_tpu_torch.core.ciphertext import Ciphertext
 from troy_tpu_torch.core.plaintext import Plaintext
 from troy_tpu_torch.utils.random import RandomGenerator
+from troy_tpu_torch.parallel import mesh as M
 
 from .test_torch_client import same
 
@@ -325,8 +326,12 @@ def test_errors(C):
     other = p.other_form(C.jct, C.ct)[1]
     with pytest.raises(ValueError, match="uniform"):
         ev.pack_rlwe_ciphertexts_batched([[C.ct], [other]], glk, 0, 4, 1)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ev.pack_rlwe_ciphertexts_batched([[C.ct], [C.ct]], glk, 0, 4, 1, mesh=object())
+    # mesh= (tests/test_torch_app_mesh.py): equal to the run without a mesh
+    mesh = M.make_mesh(data=2, limb=1, devices=[torch.device("cpu")] * 2)
+    for a, b in zip(ev.pack_rlwe_ciphertexts_batched([[C.ct], [C.ct]], glk, 0, 4, 1),
+                    ev.pack_rlwe_ciphertexts_batched([[C.ct], [C.ct]], glk, 0, 4, 1,
+                                                     mesh=mesh)):
+        assert torch.equal(a.data, b.data) and a.is_ntt_form == b.is_ntt_form
     with pytest.raises(ValueError, match="empty input"):
         ev.pack_lwe_ciphertexts_batched([tl, []], glk)
     with pytest.raises(ValueError, match="empty input"):

@@ -5,6 +5,7 @@ against the JAX package's unfused floor), BFV decrypt rounding, the
 encrypt-side scale_up, and the host CRT compose."""
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -59,15 +60,20 @@ def test_base_convert(log_n, L):
 @pytest.mark.parametrize("log_n,L", [(10, 3), (11, 6)])
 def test_hps_lift(log_n, L):
     """Over 2*2*n coefficients the float32 alpha estimate rounds the same way
-    in both packages; any difference would show as a residue off by Q mod b."""
+    in both packages; any difference would show as a residue off by Q mod b.
+    The JAX lift runs jitted, as the JAX package's evaluator and batched
+    steps run it (XLA fuses each product into the sum, which eager
+    operations do not)."""
     jt, tt = tools(log_n, L)
     x = residues((2, 2), tt.base_q.values, 1 << log_n)
-    same(jt.fast_b_conv_hps(jnp.asarray(x)), tt.fast_b_conv_hps(tensor(x)))
+    same(jax.jit(jt.materialize().fast_b_conv_hps)(jnp.asarray(x)),
+         tt.fast_b_conv_hps(tensor(x)))
 
 
 def test_hps_lift_near_half():
     """Inputs whose fraction sum_i y_i/q_i sits near k + 1/2, where the
-    rounding of alpha is decided by the last bits of the float32 sum."""
+    rounding of alpha is decided by the last bits of the float32 sum (the
+    JAX lift jitted, as in test_hps_lift)."""
     jt, tt = tools(10, 3)
     base = tt.base_q
     n = 1 << 10
@@ -75,7 +81,8 @@ def test_hps_lift_near_half():
     eps = RNG.integers(-(1 << 12), 1 << 12, size=n)
     vals = [(base.prod // 2 + int(e) * (base.prod >> 40)) % base.prod for e in eps]
     x = jt.base_q.decompose_array_host(vals)[None]
-    same(jt.fast_b_conv_hps(jnp.asarray(x)), tt.fast_b_conv_hps(tensor(x)))
+    same(jax.jit(jt.materialize().fast_b_conv_hps)(jnp.asarray(x)),
+         tt.fast_b_conv_hps(tensor(x)))
 
 
 @pytest.mark.parametrize("log_n,L", [(10, 3)])

@@ -23,7 +23,7 @@ MODULES = (
                            "context", "decryptor", "encryptor", "evaluator", "keygen", "keys",
                            "lwe", "lwe_ops", "modulus", "params", "plaintext", "rlwe")]
     + ["rns.rns_base", "rns.rns_tool", "rns.rns_tool64", "rns.scaling",
-       "parallel.batched", "utils.random", "utils.serialize", "utils.timer",
+       "parallel.batched", "parallel.mesh", "utils.random", "utils.serialize", "utils.timer",
        "utils.poly_string", "ops.reduction",
        "ops.poly", "ops.galois", "ops.ntt", "ops.u64", "ops.ntt64", "ops.rp", "ops.limb"]
     + [f"app.{m}" for m in ("cipher2d", "conv2d", "encoder_adapter", "matmul", "ring2k")])
@@ -64,7 +64,9 @@ PORT_ONLY = {
     ("core.encryptor", "Encryptor"): {
         "plain_payload": "the message term the BatchedClient encrypt steps share"},
     ("rns.rns_tool", None): {"LastPrimeTool": "the CKKS level's tool: the last-prime "
-                                              "divisions without t"},
+                                              "divisions without t",
+                             "F32Fold": "the HPS estimate's float32 sum as XLA fuses the "
+                                        "JAX package's jnp.sum, in int64 fixed point"},
     ("utils.random", None): {
         **{n: "jax.random's threefry, written out in torch (JAX uses jax.random)"
            for n in ("bits", "fold_in", "key", "threefry2x32")},
@@ -87,6 +89,24 @@ PORT_ONLY = {
     ("ops.ntt64", "NTT64Tables"): {n: "table accessors and the width marker"
                                    for n in ("max_modulus", "size", "take", "words")},
     ("ops.rp", None): {"mul_mod": "a per-limb product by constants at either width"},
+    ("parallel.mesh", None): {
+        "Mesh": "jax.sharding.Mesh's counterpart (torch devices, named axes, ranks)",
+        "Sharding": "NamedSharding's counterpart: a mesh and a PartitionSpec tuple",
+        "ShardedTensor": "the sharded jax.Array's counterpart: one contiguous shard a "
+                         "mesh device, gathered by .gather()",
+        "CollectiveRecord": "what collective_stats reads: the explicit partition's copies "
+                            "(the JAX function reads a compiled executable's HLO)",
+        "recording": "collects the records of every step inside a with block (the "
+                     "object API's mesh= paths return plain tensors)",
+        "shard": "jax.device_put with a NamedSharding",
+        "shard_slices": "the piece of each axis a mesh position holds",
+        "split": "the uneven split rule, the first shards larger"},
+}
+
+# functions whose parameters differ from the JAX package's: name -> reason
+SIGNATURES = {
+    ("parallel.mesh", "collective_stats"): "takes a CollectiveRecord or a sharded result, "
+                                           "not a compiled executable (there is no HLO)",
 }
 
 
@@ -124,6 +144,23 @@ def test_public_names_match_jax(name):
         if mod == name:     # every listed name really is the JAX package's
             owner = jmod if cls is None else getattr(jmod, cls)
             assert all(hasattr(owner, k) for k in names), (mod, cls)
+
+
+def test_mesh_signatures_against_jax():
+    """The mesh's functions take the JAX module's parameters, but for
+    SIGNATURES."""
+    from troy_tpu.parallel import mesh as JM
+    from troy_tpu_torch.parallel import mesh as TM
+
+    names = _defined(JM)
+    assert len(names) == 11
+    for n in sorted(names):
+        if ("parallel.mesh", n) in SIGNATURES:
+            continue
+        jp = list(inspect.signature(getattr(JM, n)).parameters)
+        tp = list(inspect.signature(getattr(TM, n)).parameters)
+        assert tp == jp, (n, tp, jp)
+    assert list(inspect.signature(TM.collective_stats).parameters) == ["record"]
 
 
 def test_left_out_names_stay_out():

@@ -13,7 +13,8 @@ block - kernel + 1), in the reference's layout:
 
 The wire format (ref: conv2d.h:113-114, conv2d.cu:719-803) ships only the
 coefficients that carry output pixels (sparse save_terms), as MatmulHelper
-does; mesh= is not ported.
+does.  conv2d(mesh=) splits the contraction over a parallel.mesh.Mesh
+(Evaluator.multiply_plain_contract).
 """
 
 from __future__ import annotations

@@ -17,8 +17,10 @@ EncryptRight (w encrypted, x plain), Crossed (both encrypted).
 The wire format (ref: matmul.cu serialize_outputs / deserialize_outputs):
 unpacked outputs travel as sparse terms (save_ciphertext(terms=), only the
 coefficients that carry outputs), packed ones whole; the encoded weights as
-plaintexts.  The bytes are the JAX package's.  Its mesh= sharding is not
-ported.
+plaintexts.  The bytes are the JAX package's.  matmul(mesh=) and
+pack_outputs(mesh=) split the contraction and the packing tree over a
+parallel.mesh.Mesh (Evaluator.multiply_plain_contract,
+pack_rlwe_ciphertexts_batched).
 """
 
 from __future__ import annotations

@@ -260,24 +260,32 @@ class Evaluator(LweOpsMixin):
                           x2: torch.Tensor | None) -> torch.Tensor:
         """BEHZ multiply on raw (..., size, L, n) tensors; x2=None squares x1."""
         tool = cd.rns_tool
-        qtab = cd.qtab()
-        btab = tool.bsk_ntt
+        d_q, d_b = self._bfv_tensor(cd, cd.qtab(), tool.bsk_ntt, None, x1, x1, x2, x2)
+        return tool.fast_floor_scale_fast_b_conv_sk(d_q, d_b)
+
+    def _bfv_tensor(self, cd: ContextData, qtab, btab, rows: tuple | None,
+                    x1: torch.Tensor, full1: torch.Tensor, x2: torch.Tensor | None,
+                    full2: torch.Tensor | None) -> tuple[torch.Tensor, torch.Tensor]:
+        """The tensor product of the multiply in the coefficient domain: over
+        the limb rows of qtab (x1, x2 hold them) and over the Bsk rows `rows`
+        of the lift (btab their tables; None: every row) from full1, full2,
+        which hold every limb (a limb shard's rows and its gathered operands,
+        parallel/partition.py).  x2 None squares."""
+        tool = cd.rns_tool
         lift = (tool.fast_b_conv_hps if self.lift == "hps"
                 else tool.fast_b_conv_m_tilde_sm_mrq)
 
-        def prep(x):
-            return R.ntt_forward(x, qtab), R.ntt_forward(lift(x), btab)
+        def prep(x, full):
+            return R.ntt_forward(x, qtab), R.ntt_forward(lift(full, rows), btab)
 
-        a_q, a_b = prep(x1)
+        a_q, a_b = prep(x1, full1)
         if x2 is None:
             d_q, d_b = R.dyadic_square(a_q, qtab), R.dyadic_square(a_b, btab)
         else:
-            b_q, b_b = prep(x2)
+            b_q, b_b = prep(x2, full2)
             d_q = R.dyadic_convolute(a_q, b_q, qtab)
             d_b = R.dyadic_convolute(a_b, b_b, btab)
-        d_q = R.ntt_inverse(d_q, qtab)
-        d_b = R.ntt_inverse(d_b, btab)
-        return tool.fast_floor_scale_fast_b_conv_sk(d_q, d_b)
+        return R.ntt_inverse(d_q, qtab), R.ntt_inverse(d_b, btab)
 
     # ------------------------------------------------------------------
     # keyswitching (ref: evaluator_keyswitching_core.cu:757)
@@ -319,6 +327,31 @@ class Evaluator(LweOpsMixin):
         cd._switch_cache = cache
         return cache
 
+    def _switch_rows(self, cd: ContextData, rows: tuple | None, special: bool) -> dict:
+        """The keyswitch tables of the level's output rows `rows` (None:
+        every row), with the special prime's row when `special`, cached: a
+        limb shard (parallel/partition.py) switches its own rows and one
+        shard the special prime's.  nq: the q rows; otab / idx: the output
+        rows' NTT tables and key rows."""
+        sw = self._switch_tables(cd)
+        cache = sw.setdefault("rows", {})
+        if (rows, special) in cache:
+            return cache[rows, special]
+        L = cd.coeff_modulus_size
+        q_rows = list(range(L)) if rows is None else list(rows)
+        out_rows = q_rows + ([L] if special else [])
+        part = dict(sw, nq=len(q_rows), qtab=cd.qtab())
+        del part["rows"]
+        if rows is not None or not special:
+            ix = torch.tensor(q_rows, dtype=torch.int64, device=cd.device)
+            part.update(qtab=cd.qtab().take(q_rows), otab=sw["otab"].take(out_rows),
+                        idx=sw["idx"][out_rows])
+            for k in ("sp_half_mod_q", "inv_sp_mod_q", "sp_mod_q", "inv_sp_mod_q_shoup"):
+                if k in sw:
+                    part[k] = sw[k][ix]
+        cache[rows, special] = part
+        return part
+
     def _switch_key_impl(self, cd: ContextData, target_coeff: torch.Tensor,
                          keys: torch.Tensor, out_ntt: bool = False) -> torch.Tensor:
         """Keyswitch: target (..., L, n) coefficient-domain poly, keys
@@ -327,79 +360,81 @@ class Evaluator(LweOpsMixin):
         below the first takes the key rows of its own primes and the special
         prime.  The division by the special prime subtracts the rounding term
         [last]_{q_sp} centred, or for BGV t [last t^-1]_{q_sp} centred, which
-        is last mod q_sp and 0 mod t (ref: ski_util7's t-correction)."""
-        if cd.wide:
-            return self._switch_key_impl_wide(cd, target_coeff, keys, out_ntt)
-        sw = self._switch_tables(cd)
-        L = cd.coeff_modulus_size
-        otab = sw["otab"]
-        n = target_coeff.shape[-1]
+        is last mod q_sp and 0 mod t (ref: ski_util7's t-correction).  The
+        stages between the transforms are _ks_digits, _ks_inner, _ks_round
+        and _ks_finish, which a partitioned plan runs on its shards."""
+        sw = self._switch_rows(cd, None, True)
+        nq = sw["nq"]
+        D_ = R.ntt_forward(self._ks_digits(cd, sw, target_coeff), sw["otab"])
+        acc = self._ks_inner(cd, sw, D_, keys)
+        last = R.ntt_inverse(acc[..., :, nq:, :].contiguous(), sw["sp_tab"])
+        tmp = self._ks_round(cd, sw, last)
+        if out_ntt:
+            body = acc[..., :, :nq, :]
+            tmp = R.ntt_forward(tmp, sw["qtab"])
+        else:
+            body = R.ntt_inverse(acc[..., :, :nq, :].contiguous(), sw["qtab"])
+        return self._ks_finish(cd, sw, body, tmp)
+
+    @staticmethod
+    def _ks_digits(cd: ContextData, sw: dict, target_coeff: torch.Tensor) -> torch.Tensor:
+        """Digits D[..., i, j, :] = [target_i] as a residue mod output prime
+        j, (..., L, rows, n), before the forward NTT.  At the fast width
+        every prime lies in (2^28, 2^30), so a digit < q_i < 2 p_j is a valid
+        [0, 2q) NTT input and needs no reduction; the wide width mixes prime
+        sizes and reduces per output prime (ref: fgk/switch_key.cu
+        set_accumulate)."""
+        n, L = target_coeff.shape[-1], target_coeff.shape[-2]
         lead = target_coeff.shape[:-2]
-        # digits D[..., i, j, :] = [target_i] as a lazy residue mod p_j: every
-        # fast-path prime lies in (2^28, 2^30), so a digit < q_i < 2 p_j is a
-        # valid [0, 2q) NTT input and needs no reduction
-        D_ = target_coeff[..., :, None, :].expand(*lead, L, L + 1, n).contiguous()
-        D_ = R.ntt_forward(D_, otab)
-        keys_sel = keys[:L][:, :, sw["idx"], :]                     # (L, 2, O, n)
-        q = otab.q.view(-1, 1)
-        acc = U.dot_mod([(D_[..., i, None, :, :], keys_sel[i]) for i in range(L)], q)
-        # acc: (..., 2, O, n); divide by the special prime
-        last = R.ntt_inverse(acc[..., :, L:, :].contiguous(), sw["sp_tab"])
-        qtab = cd.qtab()
+        D_ = target_coeff[..., :, None, :].expand(*lead, L, sw["otab"].size, n)
+        if cd.wide:
+            return torch.remainder(D_, sw["otab"].q.view(-1, 1))
+        return D_.contiguous()
+
+    @staticmethod
+    def _ks_inner(cd: ContextData, sw: dict, D_: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
+        """The key inner product over the L digits (NTT form): (..., 2, rows,
+        n).  The wide width sums (hi, lo) products, one Barrett per chunk
+        (ops/u64.dot_mod64)."""
+        L = D_.shape[-3]
+        keys_sel = keys[:L][:, :, sw["idx"], :]                     # (L, 2, rows, n)
+        pairs = [(D_[..., i, None, :, :], keys_sel[i]) for i in range(L)]
+        if cd.wide:
+            return W.dot_mod64(pairs, sw["otab"].k, sw["max_terms"])
+        return U.dot_mod(pairs, sw["otab"].q.view(-1, 1))
+
+    def _ks_round(self, cd: ContextData, sw: dict, last: torch.Tensor) -> torch.Tensor:
+        """The special prime's row `last` (..., 2, 1, n), coefficient domain
+        -> the rounding term in the q rows of sw, (..., 2, nq, n)."""
+        qtab = sw["qtab"]
         lq = qtab.q.view(-1, 1)
         q_sp = sw["q_sp"]
-        if cd.parms.scheme == SchemeType.BGV:
+        bgv = cd.parms.scheme == SchemeType.BGV
+        if cd.wide:
+            if bgv:
+                h = W.mul_mod64(last, sw["inv_t_mod_sp"], sw["sp_tab"].k)
+                h_mod = torch.remainder(h, lq)
+                h_c = torch.where(h > (q_sp >> 1), W.sub_mod64(h_mod, sw["sp_mod_q"], lq), h_mod)
+                return W.mul_mod64(h_c, cd.parms.plain_modulus.value, qtab.k)
+            last_plus = W.add_mod64(last, q_sp >> 1, q_sp)
+            return W.sub_mod64(torch.remainder(last_plus, lq), sw["sp_half_mod_q"], lq)
+        if bgv:
             h = U.mul_mod(last, sw["inv_t_mod_sp"], q_sp)
             h_mod = U.barrett_reduce(h, lq)
             h_c = torch.where(h > (q_sp >> 1), U.sub_mod(h_mod, sw["sp_mod_q"], lq), h_mod)
-            tmp = U.mul_mod(h_c, cd.parms.plain_modulus.value, lq)
-        else:
-            last_plus = U.add_mod(last, q_sp >> 1, q_sp)
-            tmp = U.sub_mod(U.barrett_reduce(last_plus, lq), sw["sp_half_mod_q"], lq)
-        if out_ntt:
-            body = acc[..., :, :L, :]
-            tmp = R.ntt_forward(tmp, qtab)
-        else:
-            body = R.ntt_inverse(acc[..., :, :L, :].contiguous(), qtab)
-        return U.mul_mod(U.sub_mod(body, tmp, lq), sw["inv_sp_mod_q"], lq)
+            return U.mul_mod(h_c, cd.parms.plain_modulus.value, lq)
+        last_plus = U.add_mod(last, q_sp >> 1, q_sp)
+        return U.sub_mod(U.barrett_reduce(last_plus, lq), sw["sp_half_mod_q"], lq)
 
-    def _switch_key_impl_wide(self, cd: ContextData, target_coeff: torch.Tensor,
-                              keys: torch.Tensor, out_ntt: bool = False) -> torch.Tensor:
-        """The keyswitch at the wide width, as _switch_key_impl.  The digits
-        are reduced per output prime: a wide chain mixes prime sizes, so the
-        fast path's q_i < 2 p_j shortcut does not hold (ref:
-        fgk/switch_key.cu set_accumulate).  The inner product sums (hi, lo)
-        products, one Barrett per chunk (ops/u64.dot_mod64)."""
-        sw = self._switch_tables(cd)
-        L = cd.coeff_modulus_size
-        otab = sw["otab"]
-        n = target_coeff.shape[-1]
-        lead = target_coeff.shape[:-2]
-        D_ = torch.remainder(target_coeff[..., :, None, :].expand(*lead, L, L + 1, n),
-                             otab.q.view(-1, 1))
-        D_ = R.ntt_forward(D_, otab)
-        keys_sel = keys[:L][:, :, sw["idx"], :]                     # (L, 2, O, n)
-        acc = W.dot_mod64([(D_[..., i, None, :, :], keys_sel[i]) for i in range(L)],
-                          otab.k, sw["max_terms"])
-        last = R.ntt_inverse(acc[..., :, L:, :], sw["sp_tab"])
-        qtab = cd.qtab()
-        lq = qtab.q.view(-1, 1)
-        q_sp = sw["q_sp"]
-        if cd.parms.scheme == SchemeType.BGV:
-            h = W.mul_mod64(last, sw["inv_t_mod_sp"], sw["sp_tab"].k)
-            h_mod = torch.remainder(h, lq)
-            h_c = torch.where(h > (q_sp >> 1), W.sub_mod64(h_mod, sw["sp_mod_q"], lq), h_mod)
-            tmp = W.mul_mod64(h_c, cd.parms.plain_modulus.value, qtab.k)
-        else:
-            last_plus = W.add_mod64(last, q_sp >> 1, q_sp)
-            tmp = W.sub_mod64(torch.remainder(last_plus, lq), sw["sp_half_mod_q"], lq)
-        if out_ntt:
-            body = acc[..., :, :L, :]
-            tmp = R.ntt_forward(tmp, qtab)
-        else:
-            body = R.ntt_inverse(acc[..., :, :L, :], qtab)
-        return W.shoup_mul64(W.sub_mod64(body, tmp, lq), sw["inv_sp_mod_q"],
-                             sw["inv_sp_mod_q_shoup"], lq)
+    @staticmethod
+    def _ks_finish(cd: ContextData, sw: dict, body: torch.Tensor,
+                   tmp: torch.Tensor) -> torch.Tensor:
+        """(body - tmp) q_sp^-1 in the q rows of sw, both in one domain."""
+        lq = sw["qtab"].q.view(-1, 1)
+        if cd.wide:
+            return W.shoup_mul64(W.sub_mod64(body, tmp, lq), sw["inv_sp_mod_q"],
+                                 sw["inv_sp_mod_q_shoup"], lq)
+        return U.mul_mod(U.sub_mod(body, tmp, lq), sw["inv_sp_mod_q"], lq)
 
     def relinearize(self, ct: Ciphertext, rlk: RelinKeys) -> Ciphertext:
         """size-s -> size-2: switch every poly c_k (k >= 2) with the key for
@@ -713,10 +748,14 @@ class Evaluator(LweOpsMixin):
         every input block goes to the NTT domain once, every product
         accumulates into one (bs, os, size, L, n) tensor (ref:
         evaluator_multiply_plain.cu:356, dyadic_broadcast_product_accumulate).
-        The JAX package's mesh= sharding is not ported."""
-        if mesh is not None:
-            raise NotImplementedError("[Evaluator.multiply_plain_contract] mesh= "
-                                      "sharding is not ported")
+
+        mesh: optional ('data', 'limb') parallel.mesh.Mesh (the reference's
+        --multiple-devices matmul, scripts/test_matmul.sh): the block rows
+        split over 'data' and the RNS limbs over 'limb', each where the
+        dimension divides (else a whole copy on each); each position
+        contracts its own rows and limbs with no collective
+        (parallel/partition.py:contract), and the result comes back
+        gathered."""
         bs, is_, os_ = len(cts), len(cts[0]), len(plains[0])
         if len(plains) != is_:
             raise ValueError("[Evaluator.multiply_plain_contract] "
@@ -738,21 +777,17 @@ class Evaluator(LweOpsMixin):
                 if p.is_ntt_form != p0.is_ntt_form or p.scale != p0.scale:
                     raise ValueError("[Evaluator.multiply_plain_contract] "
                                      "plaintexts must be uniform")
-        qtab = cd.qtab()
         A = torch.stack([torch.stack([ct.data for ct in row]) for row in cts])
         W_raw = torch.stack([torch.stack([p.data for p in row]) for row in plains])
-        if self._ckks() or self._is_rns_plain(p0):
-            W = W_raw if p0.is_ntt_form else R.ntt_forward(W_raw, qtab)
+        rns = self._ckks() or self._is_rns_plain(p0)
+        if mesh is not None:
+            from ..parallel import partition
+
+            out_data = partition.contract(self, cd, A, W_raw, rns, p0.is_ntt_form,
+                                          ct0.is_ntt_form, mesh)
         else:
-            W = R.ntt_forward(cd.scaler.centralize(W_raw[..., 0, :]), qtab)
-        A_ntt = A if ct0.is_ntt_form else R.ntt_forward(A, qtab)
-        acc = None
-        for i in range(is_):
-            a_i = A_ntt[:, i, None]                   # (bs, 1, size, L, n)
-            w_i = W[i][:, None]                       # (os, 1, L, n)
-            acc = (R.dyadic_broadcast_product(a_i, w_i, qtab) if acc is None
-                   else R.dyadic_broadcast_product_accumulate(a_i, w_i, acc, qtab))
-        out_data = acc if ct0.is_ntt_form else R.ntt_inverse(acc, qtab)
+            out_data = self._contract(cd, cd.qtab(), None, A, W_raw, rns, p0.is_ntt_form,
+                                      ct0.is_ntt_form)
         outs = []
         for b in range(bs):
             row = []
@@ -764,6 +799,27 @@ class Evaluator(LweOpsMixin):
                 row.append(o)
             outs.append(row)
         return outs
+
+    @staticmethod
+    def _contract(cd: ContextData, qtab, rows: tuple | None, A: torch.Tensor,
+                  W_raw: torch.Tensor, rns: bool, p_ntt: bool, ct_ntt: bool) -> torch.Tensor:
+        """The contraction over the level's limb rows `rows` (None: all; qtab
+        their tables): A (bs, is, size, L', n) holds those rows, W_raw (is,
+        os, L', n) too when rns, else it is the (is, os, 1, n) mod-t plane,
+        centred into every limb and cut to the rows."""
+        if rns:
+            W = W_raw if p_ntt else R.ntt_forward(W_raw, qtab)
+        else:
+            W = cd.scaler.centralize(W_raw[..., 0, :])
+            W = R.ntt_forward(W if rows is None else W[..., list(rows), :], qtab)
+        A_ntt = A if ct_ntt else R.ntt_forward(A, qtab)
+        acc = None
+        for i in range(A.shape[1]):
+            a_i = A_ntt[:, i, None]                   # (bs, 1, size, L, n)
+            w_i = W[i][:, None]                       # (os, 1, L, n)
+            acc = (R.dyadic_broadcast_product(a_i, w_i, qtab) if acc is None
+                   else R.dyadic_broadcast_product_accumulate(a_i, w_i, acc, qtab))
+        return acc if ct_ntt else R.ntt_inverse(acc, qtab)
 
     # ------------------------------------------------------------------
     # misc (ref: evaluator.h inline helpers)

@@ -93,14 +93,13 @@ class LweOpsMixin:
         """ct times factor^-1 mod q_i per limb, factor defaulting to n."""
         cd = self._cd(ct)
         k = cd.parms.poly_modulus_degree if factor is None else factor
-        cache = getattr(cd, "_inverse_factors", None)
-        if cache is None:
-            cache = cd._inverse_factors = {}
+        qtab = cd.qtab()
+        cache = qtab.__dict__.setdefault("_inverse_factors", {})
         if k not in cache:
-            cache[k] = torch.tensor([numth.invert_mod(k, q) for q in cd.base_q.values],
+            cache[k] = torch.tensor([numth.invert_mod(k, m.value) for m in qtab.moduli],
                                     dtype=torch.int64, device=cd.device).view(-1, 1)
         out = ct.clone()
-        out.data = R.mul_mod(ct.data, cache[k], cd.qtab())
+        out.data = R.mul_mod(ct.data, cache[k], qtab)
         return out
 
     # ------------------------------------------------------------------
@@ -190,11 +189,15 @@ class LweOpsMixin:
         group-stacked (G, 2, L, n) ciphertexts, so every round is one
         batched gather and keyswitch for all groups (ref: evaluator_lwes.cu
         pack_lwe_ciphertexts_batched, at the RLWE layer).  Missing slots
-        (None, ragged groups) pack as zero ciphertexts.  The JAX package's
-        mesh= sharding is not ported."""
-        if mesh is not None:
-            raise NotImplementedError("[Evaluator.pack_rlwe_ciphertexts_batched] mesh= "
-                                      "sharding is not ported")
+        (None, ragged groups) pack as zero ciphertexts.
+
+        mesh: optional ('data', 'limb') parallel.mesh.Mesh (the multi-device
+        half of the reference's --multiple-devices matmul bench): the groups
+        split over 'data' and the limbs over 'limb' where they divide; the
+        tree runs this evaluator's operations on each position's rows and
+        keyswitches its Galois rounds limb-partitioned
+        (parallel/partition.py:pack_groups).  The results come back
+        gathered."""
         if not groups:
             raise ValueError("[Evaluator.pack_rlwe_ciphertexts_batched] empty")
         if len(groups) == 1:
@@ -217,8 +220,15 @@ class LweOpsMixin:
             v.data = torch.stack([g[k].data if k < len(g) and g[k] is not None else zero
                                   for g in groups])              # (G, 2, L, n)
             positions.append(v)
-        packed = self.pack_rlwe_ciphertexts(positions, glk, shift, input_interval,
-                                            output_interval, apply_field_trace)
+        if mesh is not None:
+            from ..parallel import partition
+
+            packed = partition.pack_groups(self, self._cd(proto), positions, glk, shift,
+                                           input_interval, output_interval,
+                                           apply_field_trace, mesh)
+        else:
+            packed = self.pack_rlwe_ciphertexts(positions, glk, shift, input_interval,
+                                                output_interval, apply_field_trace)
         outs = []
         for gi in range(len(groups)):
             o = packed.clone()

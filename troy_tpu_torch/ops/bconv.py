@@ -60,6 +60,15 @@ class BConvTables:
             words.astype(np.uint32).view(np.int32)).to(self.device)
 
 
+def take_outputs(tabs: BConvTables, idx) -> BConvTables:
+    """The conversion into the output rows idx of tabs only (a limb shard's
+    rows, parallel/partition.py)."""
+    idx = [int(j) for j in idx]
+    p_out, mat = tabs.p_out.tolist(), tabs.mat.tolist()
+    return BConvTables(tabs.q_in.tolist(), tabs.ip.tolist(), [p_out[j] for j in idx],
+                       [mat[j] for j in idx], tabs.device)
+
+
 def base_convert_plain(x: torch.Tensor, tabs: BConvTables) -> torch.Tensor:
     """x: (..., L_in, n) residues in [0, q_i) -> (..., L_out, n) in [0, p_o).
     The dot's chunk is sized by the products' own bound (inputs below 2^30,

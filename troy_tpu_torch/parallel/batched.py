@@ -14,6 +14,12 @@ levels are the object API's concern; the steps return raw residues.
 BatchedClient builds the client's steps on the same layout: a batch of
 encryptions under the public or the secret key, a batch decrypt, and the
 BFV/BGV batch encode and decode (an NTT mod t).
+
+A BatchedEvaluator step also takes parallel.mesh.ShardedTensor stacks (the
+JAX steps take sharded arrays) and returns one sharded alike: multiply +
+relinearize and square + relinearize split over 'data', 'limb' or 'poly',
+the Galois steps over 'data' or 'limb', the mod switch and rescale over
+'data' (parallel/partition.py); each equals its unsharded run bit for bit.
 """
 
 from __future__ import annotations
@@ -31,6 +37,12 @@ from ..ops.galois import GaloisTool
 from ..utils.numth import naf
 from ..utils.random import (cbd_from_keys, fold_in_keys, ternary_from_keys,
                             uniform_from_keys)
+from . import partition
+from .mesh import ShardedTensor
+
+
+def _sharded(*args) -> bool:
+    return any(isinstance(a, ShardedTensor) for a in args)
 
 
 class BatchedEvaluator:
@@ -53,8 +65,10 @@ class BatchedEvaluator:
         return torch.stack([ct.data for ct in cts])
 
     def unstack(self, data: torch.Tensor, proto: Ciphertext) -> list[Ciphertext]:
-        """A (B, size, L, n) stack -> B ciphertexts with proto's metadata and
-        no seed."""
+        """A (B, size, L, n) stack (a sharded one gathered first) -> B
+        ciphertexts with proto's metadata and no seed."""
+        if isinstance(data, ShardedTensor):
+            data = data.gather()
         out = []
         for i in range(data.shape[0]):
             ct = proto.clone()
@@ -89,6 +103,8 @@ class BatchedEvaluator:
         multiply + relinearize step."""
 
         def step(d1, d2, keys):
+            if _sharded(d1, d2):
+                return partition.mul_relin(self, d1, d2, keys)
             return self.relinearize(self.multiply(d1, d2), keys)
 
         return step
@@ -97,6 +113,8 @@ class BatchedEvaluator:
         """Returns fn (d, keys) -> (..., 2, L, n): square + relinearize."""
 
         def step(d, keys):
+            if _sharded(d):
+                return partition.mul_relin(self, d, None, keys)
             return self.relinearize(self.multiply(d, None), keys)
 
         return step
@@ -123,6 +141,8 @@ class BatchedEvaluator:
                 tool.coeff_table(elt)
 
         def step(d, keys):
+            if _sharded(d):
+                return partition.galois(self, d, tuple(keys), elts)
             for elt, k in zip(elts, keys):
                 d = self.ev._apply_galois_impl(self.cd, d, k, elt, ntt_form=self.ntt_form)
             return d
@@ -149,8 +169,8 @@ class BatchedEvaluator:
             raise ValueError("[BatchedEvaluator.build_rescale_step] CKKS only")
         if self.cd.is_last():
             raise ValueError("[BatchedEvaluator.build_rescale_step] last level")
-        cd, qtab = self.cd, self.cd.qtab()
-        return lambda d: cd.rns_tool.divide_and_round_q_last_ntt(d, qtab)
+        return self._batch_split(lambda be: lambda d: be.cd.rns_tool.divide_and_round_q_last_ntt(
+            d, be.cd.qtab()))
 
     def build_mod_switch_step(self):
         """Returns fn d -> d at the next level (ref: evaluator_modswitch.cu:14):
@@ -159,13 +179,28 @@ class BatchedEvaluator:
         q_last^-1 stays with the object API)."""
         if self.cd.is_last():
             raise ValueError("[BatchedEvaluator.build_mod_switch_step] last level")
-        scheme, cd = self.cd.parms.scheme, self.cd
+        scheme = self.cd.parms.scheme
         if scheme == SchemeType.CKKS:
-            return lambda d: d[..., :-1, :]
+            return self._batch_split(lambda be: lambda d: d[..., :-1, :])
         if scheme == SchemeType.BGV:
-            qtab = cd.qtab()
-            return lambda d: cd.rns_tool.mod_t_and_divide_q_last_ntt(d, qtab)
-        return cd.rns_tool.divide_and_round_q_last
+            return self._batch_split(lambda be: lambda d: be.cd.rns_tool.mod_t_and_divide_q_last_ntt(
+                d, be.cd.qtab()))
+        return self._batch_split(lambda be: be.cd.rns_tool.divide_and_round_q_last)
+
+    def _batch_split(self, build):
+        """build(batched evaluator) -> step; the step run on each mesh
+        position's batch rows when handed a ShardedTensor (on that device's
+        tables), else on self's."""
+        step = build(self)
+
+        def run(d):
+            if _sharded(d):
+                return partition.per_shard(
+                    lambda dev: build(BatchedEvaluator(*partition.on_device(self.ev, self.cd,
+                                                                            dev))), (d,))
+            return step(d)
+
+        return run
 
 
 class BatchedClient:

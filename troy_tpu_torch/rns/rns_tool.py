@@ -36,6 +36,8 @@ JAX package, so both packages hold the same bases.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..core.modulus import Modulus
@@ -62,6 +64,37 @@ def _aux_primes(n: int, exclude: set[int], count: int, need_ntt: bool = True) ->
     if len(out) < count:
         raise ValueError("[RNSTool] not enough auxiliary primes")
     return out
+
+
+class F32Fold:
+    """sum_i y_i w_i over the limb axis in float32, for integers y_i in
+    [0, 1 / w_i] and float32 weights w_i, rounded as XLA on the CPU runs the
+    JAX package's jnp.sum of the products: a left fold with each product
+    fused into its addition, est = fma(y_i, w_i, est), one rounding a term
+    (y_i taken as a float32 first).  The bits agree with the JAX package's
+    HPS estimate at 2 to 8 limbs and n = 32 to 8192; the order the TPU
+    uses is not known.
+
+    It runs exactly in int64 fixed point.  With w_i = m_i 2^-K (K the largest
+    of the weights' last-bit exponents), every product and every rounded
+    partial sum is an integer multiple of 2^-K below L 2^(K+1), so each
+    est + y_i m_i is exact and one int64 -> float32 conversion rounds it as
+    the fma does, on any device."""
+
+    def __init__(self, w: list[float], device):
+        self.K = max(24 - math.frexp(v)[1] for v in w)
+        m = [v * 2.0 ** self.K for v in w]
+        if any(v != int(v) for v in m) or len(w) * 2 ** (self.K + 1) >= 1 << 63:
+            raise ValueError("[F32Fold] weights outside the fixed-point range")
+        self.m = torch.tensor([int(v) for v in m], dtype=torch.int64, device=device).view(-1, 1)
+
+    def __call__(self, y: torch.Tensor) -> torch.Tensor:
+        """y: (..., L, n) int64 -> (..., 1, n) float32."""
+        a = y.to(torch.float32).to(torch.int64) * self.m
+        est = a[..., 0:1, :].to(torch.float32)
+        for i in range(1, a.shape[-2]):
+            est = (est.to(torch.int64) + a[..., i:i + 1, :]).to(torch.float32)
+        return est * 2.0 ** -self.K
 
 
 def _col(values, dev) -> torch.Tensor:
@@ -184,6 +217,7 @@ class RNSTool(LastPrimeTool):
         self.hps_neg_q_mod_Bsk = col([(b - Q % b) % b for b in bsk_vals])
         self.hps_inv_q_f32 = torch.tensor([1.0 / q for q in q_values],
                                           dtype=torch.float32, device=dev)
+        self.hps_fold = F32Fold(self.hps_inv_q_f32.tolist(), dev)
 
         # ---- t-folded fast_floor: x_div = sum_i [d_i t q^_i^-1]_{q_i}
         # ((Q/q_i) Q^-1 mod b_j), a base conversion with folded tables -------
@@ -225,42 +259,70 @@ class RNSTool(LastPrimeTool):
     # ------------------------------------------------------------------
     # BFV multiply, HPS-style lift of base q to Bsk
     # ------------------------------------------------------------------
-    def fast_b_conv_hps(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (..., L, n) in base q -> (..., |Bsk|, n): a fast conversion
-        with alpha = round(sum_i y_i / q_i) estimated in float32 and folded
-        into the dot as one extra term.  Outputs represent x + d*q with d in
-        {-1, 0, +1}.  The float32 sum is an explicit left fold over limbs in
-        separate elementwise ops, so it rounds the same way on every device
-        (and as the JAX package's sum does)."""
+    def _rows(self, kind: str, rows: tuple | None) -> dict:
+        """The per-row constants of the Bsk output rows (kind "bsk": the
+        lifts and the floor) or the q output rows (kind "q": the SK
+        conversion) `rows`, every row when None; cached.  A limb shard
+        (parallel/partition.py) computes only its own rows."""
+        cache = self.__dict__.setdefault("_row_cache", {})
+        if (kind, rows) in cache:
+            return cache[kind, rows]
+        if kind == "bsk":
+            full = dict(q=self.base_Bsk.q.view(-1, 1), mat=self.conv_q_to_Bsk.tables.mat,
+                        hps_neg_q=self.hps_neg_q_mod_Bsk,
+                        behz=self.conv_q_to_Bsk_m_tilde.tables,
+                        prod_q=self.prod_q_mod_Bsk, prod_q_m_tilde=self.prod_q_m_tilde_mod_Bsk,
+                        inv_m_tilde=self.inv_m_tilde_mod_Bsk, ff=self.ff_tables,
+                        ff_t_qinv=self.ff_t_qinv_mod_Bsk)
+            if rows is not None:
+                ix = torch.tensor(rows, dtype=torch.int64, device=self.device)
+                m_tilde = self.base_Bsk_m_tilde.size - 1
+                full = {k: (v[ix] if isinstance(v, torch.Tensor) else
+                            BC.take_outputs(v, list(rows) + [m_tilde]) if k == "behz" else
+                            BC.take_outputs(v, rows)) for k, v in full.items()}
+        else:
+            full = dict(q=self.base_q.q.view(-1, 1), conv=self.conv_B_to_q.tables,
+                        prod_B=self.prod_B_mod_q, prod_B_m_sk=self.prod_B_m_sk_mod_q)
+            if rows is not None:
+                ix = torch.tensor(rows, dtype=torch.int64, device=self.device)
+                full = {k: (v[ix] if isinstance(v, torch.Tensor) else
+                            BC.take_outputs(v, rows)) for k, v in full.items()}
+        cache[kind, rows] = full
+        return full
+
+    def fast_b_conv_hps(self, x: torch.Tensor, rows: tuple | None = None) -> torch.Tensor:
+        """x: (..., L, n) in base q -> (..., |Bsk|, n) (or the Bsk rows
+        `rows`): a fast conversion with alpha = round(sum_i y_i / q_i)
+        estimated in float32 and folded into the dot as one extra term.
+        Outputs represent x + d*q with d in {-1, 0, +1}.  The float32 sum
+        is F32Fold over all limbs, the same on every device."""
         tabs = self.conv_q_to_Bsk.tables
+        c = self._rows("bsk", rows)
         tmp = U.mul_mod(x, tabs.ip.view(-1, 1), tabs.q_in.view(-1, 1))
-        inv_q = self.hps_inv_q_f32
-        est = tmp[..., 0:1, :].to(torch.float32) * inv_q[0]
-        for i in range(1, tabs.L_in):
-            est = est + tmp[..., i:i + 1, :].to(torch.float32) * inv_q[i]
-        alpha = torch.round(est).to(torch.int64)
-        pairs = [(tmp[..., i:i + 1, :], tabs.mat[:, i:i + 1]) for i in range(tabs.L_in)]
-        pairs.append((alpha, self.hps_neg_q_mod_Bsk))
-        return U.dot_mod(pairs, self.base_Bsk.q.view(-1, 1))
+        alpha = torch.round(self.hps_fold(tmp)).to(torch.int64)
+        pairs = [(tmp[..., i:i + 1, :], c["mat"][:, i:i + 1]) for i in range(tabs.L_in)]
+        pairs.append((alpha, c["hps_neg_q"]))
+        return U.dot_mod(pairs, c["q"])
 
     # ------------------------------------------------------------------
     # BFV multiply, reference-exact BEHZ lift (steps 1-2)
     # ------------------------------------------------------------------
-    def fast_b_conv_m_tilde_sm_mrq(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (..., L, n) in base q -> (..., |Bsk|, n): the residues of a
-        value congruent to x with bounded overflow.  Step 1 converts m~ x to
-        Bsk u {m~}; step 2 (sm_mrq) adds Q r with r = [-x Q^-1]_{m~}, centred,
-        and divides by m~."""
+    def fast_b_conv_m_tilde_sm_mrq(self, x: torch.Tensor,
+                                   rows: tuple | None = None) -> torch.Tensor:
+        """x: (..., L, n) in base q -> (..., |Bsk|, n) (or the Bsk rows
+        `rows`): the residues of a value congruent to x with bounded
+        overflow.  Step 1 converts m~ x to Bsk u {m~}; step 2 (sm_mrq) adds
+        Q r with r = [-x Q^-1]_{m~}, centred, and divides by m~."""
         q = self.base_q.q.view(-1, 1)
-        conv = self.conv_q_to_Bsk_m_tilde.convert(U.mul_mod(x, M_TILDE, q))
+        c = self._rows("bsk", rows)
+        conv = BC.base_convert(U.mul_mod(x, M_TILDE, q), c["behz"])
         x_bsk = conv[..., :-1, :]
         r = conv[..., -1:, :] * self.neg_inv_prod_q_mod_m_tilde & (M_TILDE - 1)
-        b = self.base_Bsk.q.view(-1, 1)
-        y = U.add_mod(x_bsk, U.mul_mod(self.prod_q_mod_Bsk, r, b), b)
+        b = c["q"]
+        y = U.add_mod(x_bsk, U.mul_mod(c["prod_q"], r, b), b)
         # centring: r >= m~/2 means the true correction is r - m~
-        y = torch.where(r >= M_TILDE // 2,
-                        U.sub_mod(y, self.prod_q_m_tilde_mod_Bsk, b), y)
-        return U.mul_mod(y, self.inv_m_tilde_mod_Bsk, b)
+        y = torch.where(r >= M_TILDE // 2, U.sub_mod(y, c["prod_q_m_tilde"], b), y)
+        return U.mul_mod(y, c["inv_m_tilde"], b)
 
     # ------------------------------------------------------------------
     # BFV multiply: floor(t * d / Q) and Shenoy-Kumaresan back to q
@@ -269,24 +331,30 @@ class RNSTool(LastPrimeTool):
                                         d_bsk: torch.Tensor) -> torch.Tensor:
         """Inputs are the raw tensor-product residues d = c1*c2 (coefficient
         domain) in base q and Bsk; returns floor(t*d/Q) in base q."""
-        b = self.base_Bsk.q.view(-1, 1)
-        x_div = BC.base_convert(d_q, self.ff_tables)
-        w = U.mul_mod(d_bsk, self.ff_t_qinv_mod_Bsk, b)
-        return self._b_conv_sk(U.sub_mod(w, x_div, b))
+        return self._b_conv_sk(self._floor(d_q, d_bsk))
 
-    def _b_conv_sk(self, y: torch.Tensor) -> torch.Tensor:
-        """Shenoy-Kumaresan exact conversion Bsk -> q."""
+    def _floor(self, d_q: torch.Tensor, d_bsk: torch.Tensor,
+               rows: tuple | None = None) -> torch.Tensor:
+        """floor(t d / Q) in Bsk (or its rows `rows`; d_bsk holds those
+        rows), from d in all of base q."""
+        c = self._rows("bsk", rows)
+        x_div = BC.base_convert(d_q, c["ff"])
+        w = U.mul_mod(d_bsk, c["ff_t_qinv"], c["q"])
+        return U.sub_mod(w, x_div, c["q"])
+
+    def _b_conv_sk(self, y: torch.Tensor, rows: tuple | None = None) -> torch.Tensor:
+        """Shenoy-Kumaresan exact conversion Bsk -> q (or the q rows `rows`)."""
+        c = self._rows("q", rows)
         y_B = y[..., :-1, :].contiguous()
         y_msk = y[..., -1:, :]
-        u = self.conv_B_to_q.convert(y_B)
+        u = BC.base_convert(y_B, c["conv"])
         c_msk = self.conv_B_to_m_sk.convert(y_B)
         msk = self.m_sk.value
         alpha = U.mul_mod(U.sub_mod(c_msk, y_msk, msk), self.inv_prod_B_mod_m_sk, msk)
-        q = self.base_q.q.view(-1, 1)
-        res = U.sub_mod(u, U.mul_mod(self.prod_B_mod_q, alpha, q), q)
+        q = c["q"]
+        res = U.sub_mod(u, U.mul_mod(c["prod_B"], alpha, q), q)
         # alpha centered: alpha >= m_sk/2 means the true alpha is alpha - m_sk
-        return torch.where(alpha >= (msk >> 1),
-                           U.add_mod(res, self.prod_B_m_sk_mod_q, q), res)
+        return torch.where(alpha >= (msk >> 1), U.add_mod(res, c["prod_B_m_sk"], q), res)
 
     # ------------------------------------------------------------------
     # BFV decrypt

@@ -8,9 +8,10 @@ functions as rns/rns_tool.py's RNSTool, at the wide width:
     package's search (so both packages hold the same bases); m~ stays 2^16;
   * fast_b_conv_hps: the HPS lift q -> Bsk with alpha estimated in float32
     from the 32-bit words of each Shoup product, th (2^32 / q_i) + tl / q_i,
-    the limbs summed by explicit adds in order (the JAX package's float
-    operations in its order, so the CPU, the card and the JAX package round
-    alike);
+    the limbs summed by explicit adds in order, each product rounded, so
+    the CPU and the card round alike (XLA on the CPU orders the JAX
+    package's sum by shape: where the estimate sits within a few ulps of
+    k + 1/2 the two packages' alphas may differ, ROADMAP C);
   * fast_b_conv_m_tilde_sm_mrq: the BEHZ lift;
   * fast_floor_scale_fast_b_conv_sk: floor(t d / Q) with the x t scale folded
     into the tables, then the Shenoy-Kumaresan conversion back to q;
@@ -188,23 +189,64 @@ class RNSTool64:
     # ------------------------------------------------------------------
     # BFV multiply: the lifts q -> Bsk
     # ------------------------------------------------------------------
-    def fast_b_conv_m_tilde_sm_mrq(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (..., L, n) in base q -> (..., |Bsk|, n): the BEHZ lift (a fast
-        conversion of m~ x to Bsk u {m~}, then Montgomery's small reduction)."""
-        conv = self.conv_q_to_Bsk_m_tilde.convert(W.mul_mod64(x, M_TILDE, self.k_q))
+    def _rows(self, kind: str, rows: tuple | None) -> dict:
+        """The per-row constants of the Bsk output rows (kind "bsk": the
+        lifts and the floor) or the q output rows (kind "q": the SK
+        conversion) `rows`, every row when None; cached.  A limb shard
+        (parallel/partition.py) computes only its own rows."""
+        cache = self.__dict__.setdefault("_row_cache", {})
+        if (kind, rows) in cache:
+            return cache[kind, rows]
+        behz = self.conv_q_to_Bsk_m_tilde
+        if kind == "bsk":
+            full = dict(q=self.bsk_col, k=self.k_bsk, mat=self.conv_q_to_Bsk.mat,
+                        ok=self.conv_q_to_Bsk.ok, hps_neg_q=self.hps_neg_q_mod_Bsk,
+                        behz_mat=behz.mat, behz_ok=behz.ok, prod_q=self.prod_q_mod_Bsk,
+                        prod_q_m_tilde=self.prod_q_m_tilde_mod_Bsk,
+                        inv_m_tilde=self.inv_m_tilde_mod_Bsk)
+            if self.t is not None and not self.t.is_zero:
+                full.update(ff_mat=self.ff_mat_qinv, ff_t_qinv=self.ff_t_qinv_mod_Bsk)
+        else:
+            full = dict(q=self.q_col, k=self.k_q, mat=self.conv_B_to_q.mat,
+                        ok=self.conv_B_to_q.ok, prod_B=self.prod_B_mod_q,
+                        prod_B_m_sk=self.prod_B_m_sk_mod_q)
+        if rows is not None:
+            ix = torch.tensor(rows, dtype=torch.int64, device=self.device)
+            ix_behz = torch.tensor(list(rows) + [behz.obase.size - 1], dtype=torch.int64,
+                                   device=self.device)
+
+            def take(v, i):
+                return (v[i] if isinstance(v, torch.Tensor) else
+                        type(v)(take(c, i) for c in v))
+            full = {k: take(v, ix_behz if k.startswith("behz") else ix)
+                    for k, v in full.items()}
+        cache[kind, rows] = full
+        return full
+
+    def fast_b_conv_m_tilde_sm_mrq(self, x: torch.Tensor,
+                                   rows: tuple | None = None) -> torch.Tensor:
+        """x: (..., L, n) in base q -> (..., |Bsk|, n) (or the Bsk rows
+        `rows`): the BEHZ lift (a fast conversion of m~ x to Bsk u {m~},
+        then Montgomery's small reduction)."""
+        c = self._rows("bsk", rows)
+        conv = self.conv_q_to_Bsk_m_tilde
+        tmp = conv._shoup_terms(W.mul_mod64(x, M_TILDE, self.k_q))
+        conv = W.dot_mod64([(tmp[..., i:i + 1, :], c["behz_mat"][i])
+                            for i in range(self.base_q.size)], c["behz_ok"], conv.max_terms)
         x_bsk = conv[..., :-1, :]
         r = conv[..., -1:, :] * self.neg_inv_prod_q_mod_m_tilde & (M_TILDE - 1)
-        b = self.bsk_col
-        y = W.add_mod64(x_bsk, W.mul_mod64(self.prod_q_mod_Bsk, r, self.k_bsk), b)
+        b = c["q"]
+        y = W.add_mod64(x_bsk, W.mul_mod64(c["prod_q"], r, c["k"]), b)
         # centring: r >= m~/2 means the true correction is r - m~
-        y = torch.where(r >= M_TILDE // 2, W.sub_mod64(y, self.prod_q_m_tilde_mod_Bsk, b), y)
-        return W.shoup_mul64(y, *self.inv_m_tilde_mod_Bsk, b)
+        y = torch.where(r >= M_TILDE // 2, W.sub_mod64(y, c["prod_q_m_tilde"], b), y)
+        return W.shoup_mul64(y, *c["inv_m_tilde"], b)
 
-    def fast_b_conv_hps(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (..., L, n) in base q -> (..., |Bsk|, n) representing x + d q,
-        d in {-1, 0, +1}: the fast conversion with alpha estimated in float32
-        from the 32-bit words of each term and folded into the dot as one
-        extra term (HPS17 §4)."""
+    def fast_b_conv_hps(self, x: torch.Tensor, rows: tuple | None = None) -> torch.Tensor:
+        """x: (..., L, n) in base q -> (..., |Bsk|, n) (or the Bsk rows
+        `rows`) representing x + d q, d in {-1, 0, +1}: the fast conversion
+        with alpha estimated in float32 from the 32-bit words of each term
+        and folded into the dot as one extra term (HPS17 §4)."""
+        c = self._rows("bsk", rows)
         conv = self.conv_q_to_Bsk
         tmp = conv._shoup_terms(x)
         hi = self.hps_inv_q_hi_f32
@@ -215,9 +257,9 @@ class RNSTool64:
             term = (ti >> 32).to(torch.float32) * hi[i] + (ti & _M32).to(torch.float32) * lo[i]
             est = term if est is None else est + term
         alpha = torch.round(est).to(torch.int64)
-        pairs = [(tmp[..., i:i + 1, :], conv.mat[i]) for i in range(self.base_q.size)]
-        pairs.append((alpha, self.hps_neg_q_mod_Bsk))
-        return W.dot_mod64(pairs, conv.ok, conv.max_terms)
+        pairs = [(tmp[..., i:i + 1, :], c["mat"][i]) for i in range(self.base_q.size)]
+        pairs.append((alpha, c["hps_neg_q"]))
+        return W.dot_mod64(pairs, c["ok"], conv.max_terms)
 
     # ------------------------------------------------------------------
     # BFV multiply: floor(t d / Q) and Shenoy-Kumaresan back to q
@@ -226,25 +268,35 @@ class RNSTool64:
                                         d_bsk: torch.Tensor) -> torch.Tensor:
         """The tensor-product residues d in base q and Bsk (coefficient
         domain) -> floor(t d / Q) in base q."""
-        b = self.bsk_col
-        y = W.shoup_mul64(d_q, *self.ff_inv_punc_t, self.q_col)
-        pairs = [(y[..., i:i + 1, :], self.ff_mat_qinv[i]) for i in range(self.base_q.size)]
-        x_div = W.dot_mod64(pairs, self.k_bsk, self.ff_max_terms)
-        w = W.shoup_mul64(d_bsk, *self.ff_t_qinv_mod_Bsk, b)
-        return self._b_conv_sk(W.sub_mod64(w, x_div, b))
+        return self._b_conv_sk(self._floor(d_q, d_bsk))
 
-    def _b_conv_sk(self, y: torch.Tensor) -> torch.Tensor:
-        """Shenoy-Kumaresan exact conversion Bsk -> q."""
+    def _floor(self, d_q: torch.Tensor, d_bsk: torch.Tensor,
+               rows: tuple | None = None) -> torch.Tensor:
+        """floor(t d / Q) in Bsk (or its rows `rows`; d_bsk holds those
+        rows), from d in all of base q."""
+        c = self._rows("bsk", rows)
+        b = c["q"]
+        y = W.shoup_mul64(d_q, *self.ff_inv_punc_t, self.q_col)
+        pairs = [(y[..., i:i + 1, :], c["ff_mat"][i]) for i in range(self.base_q.size)]
+        x_div = W.dot_mod64(pairs, c["k"], self.ff_max_terms)
+        w = W.shoup_mul64(d_bsk, *c["ff_t_qinv"], b)
+        return W.sub_mod64(w, x_div, b)
+
+    def _b_conv_sk(self, y: torch.Tensor, rows: tuple | None = None) -> torch.Tensor:
+        """Shenoy-Kumaresan exact conversion Bsk -> q (or the q rows `rows`)."""
+        c = self._rows("q", rows)
         y_B = y[..., :-1, :]
-        u = self.conv_B_to_q.convert(y_B)
+        tmp = self.conv_B_to_q._shoup_terms(y_B)
+        u = W.dot_mod64([(tmp[..., i:i + 1, :], c["mat"][i]) for i in range(self.base_B.size)],
+                        c["ok"], self.conv_B_to_q.max_terms)
         c_msk = self.conv_B_to_m_sk.convert(y_B)
         msk = self.m_sk
         alpha = W.shoup_mul64(W.sub_mod64(c_msk, y[..., -1:, :], msk),
                               *self.inv_prod_B_mod_m_sk, msk)
-        q = self.q_col
-        res = W.sub_mod64(u, W.mul_mod64(self.prod_B_mod_q, alpha, self.k_q), q)
+        q = c["q"]
+        res = W.sub_mod64(u, W.mul_mod64(c["prod_B"], alpha, c["k"]), q)
         # alpha centred: alpha >= m_sk/2 means the true alpha is alpha - m_sk
-        return torch.where(alpha >= (msk >> 1), W.add_mod64(res, self.prod_B_m_sk_mod_q, q), res)
+        return torch.where(alpha >= (msk >> 1), W.add_mod64(res, c["prod_B_m_sk"], q), res)
 
     # ------------------------------------------------------------------
     # divisions by the last prime
