@@ -23,13 +23,16 @@ over bytes (seed-compressed inputs, the helpers' wire format); the ring2k
 encoder at the app bench's ring2k sizes; and the wide path at bench.py's
 {60, 40, 40, 60} chain; the per-operation benchmark matrix, the eager
 benchmark, the example twins and the timer, reductions and poly strings;
-and the mesh (the step and the app matmul split over shards of the card).
+the mesh (the step and the app matmul split over shards of the card); and
+the step and a rotation through K2's matrix-product NTT under
+set_ntt_backend("pallas_mxu"), the JAX package's bench.py setting.
 In phases:
 
   1. device   the card's name and power limit (fails without CUDA);
   2. build    nvcc builds every csrc/*.cu into one library under
               troy_tpu_torch/build/; beside it, nvcc -Xptxas -v on ntt.cu,
-              fused_mul.cu, fused_mul_large.cu and tensor_product.cu prints
+              fused_mul.cu, fused_mul_large.cu, tensor_product.cu and
+              ntt_mxu.cu prints
               each kernel's registers and spills, and the occupancy
               calculator its CTAs per SM (and each cluster kernel's
               clusters on the card);
@@ -242,7 +245,23 @@ In phases:
               with mesh=make_mesh(data=4, limb=1), equal to the unsharded run;
               a one-rank NCCL make_multihost_mesh(hosts=1) data-parallel step
               with no collective;
- 22. times    CUDA-event times of the chained steps against their all-plain
+ 22. mxu      K2, the matrix-product NTT (csrc/ntt_mxu.cu), under
+              set_ntt_backend("pallas_mxu"), restored after: forward and
+              inverse (lazy input) bit for bit against its plain version
+              (ops/ntt_mxu.py) and K1 at every degree 256 .. 131072 on 1 to 7
+              limbs, at the keyswitch digits (96, 7, 8192) and base q (16, 6,
+              8192) on lazy and canonical input; K2 against K1 in turns by
+              CUDA graphs at those shapes and (3, 2, 65536) beside the
+              transform's bound (ntt_bound, as K1's), K2's method terms
+              (mxu_terms: bytes with the table planes, int8 tensor-core and
+              int32 operations) and the plane products alone as
+              torch._int_mm calls (a yardstick, no route); [main]'s HPS
+              multiply + relinearize and rotate_rows(1) on a context built
+              under the backend: 5 forward and 4 inverse K2 launches a step
+              and no K1, each equal to the K1 step and to its all-plain run,
+              ciphertexts 0 and 15 decrypting, with the profiler's launches,
+              device ms, K2 ms and busy share beside the K1 step's;
+ 23. times    CUDA-event times of the chained steps against their all-plain
               versions (multiply + relinearize, the three rotations, the mod
               switch), the profiler's launches, device time, NTT kernel time
               and busy share of the HPS step and of one rotate_rows(1) and
@@ -259,7 +278,10 @@ In phases:
 Bounds: the least time the card could take for a launch's work, the larger
 of its bytes (each input read once, each output written once) over
 3.35 TB/s and its int32 operations over 132 SMs x 64 lanes x 1.98 GHz
-(the H100 SXM's published memory rate and boost clock).
+(the H100 SXM's published memory rate and boost clock); K2's bound is
+the transform's, as K1's, and its method's terms (mxu_terms: its table
+planes' bytes, int8 tensor-core operations over 1979 TOPS, the split and
+recombination's int32 operations) are printed beside it.
 
 Prints one JSON line of kernel results (each kernel's launches on the path
 that runs it, with every path's count under "paths"), then the nvidia-smi
@@ -309,13 +331,15 @@ MESH_LAYOUTS = ((8, 1), (4, 2), (2, 3))  # [mesh]: (data, limb) of the step's sh
 MESH_POLY = 4                         # [mesh]: coefficient shards of one ciphertext
 MESH_APP_DATA = 4                     # [mesh]: the app matmul over (data=4, limb=1)
 MESH_REPS = 5
-_FWD = "troy_tpu/ops/ntt_pallas.py:74, troy_tpu/ops/ntt_pallas.py:206"
-_INV = "troy_tpu/ops/ntt_pallas.py:89, troy_tpu/ops/ntt_pallas.py:228"
-KERNELS = {  # name: (source, the TPU kernels it replaces: K1 and K2 for the NTT)
+_FWD = "troy_tpu/ops/ntt_pallas.py:74"
+_INV = "troy_tpu/ops/ntt_pallas.py:89"
+KERNELS = {  # name: (source, the TPU kernel it replaces)
     "ntt_forward": ("troy_tpu_torch/csrc/ntt.cu", _FWD),
     "ntt_inverse": ("troy_tpu_torch/csrc/ntt.cu", _INV),
     "ntt_forward_cluster": ("troy_tpu_torch/csrc/ntt.cu", _FWD),
     "ntt_inverse_cluster": ("troy_tpu_torch/csrc/ntt.cu", _INV),
+    "ntt_forward_mxu": ("troy_tpu_torch/csrc/ntt_mxu.cu", "troy_tpu/ops/ntt_pallas.py:206"),
+    "ntt_inverse_mxu": ("troy_tpu_torch/csrc/ntt_mxu.cu", "troy_tpu/ops/ntt_pallas.py:228"),
     "base_convert": ("troy_tpu_torch/csrc/bconv.cu", "troy_tpu/ops/ntt_pallas.py:413"),
     "fused_negacyclic_multiply": ("troy_tpu_torch/csrc/fused_mul.cu",
                                   "troy_tpu/ops/fused_mul.py:75"),
@@ -323,6 +347,7 @@ KERNELS = {  # name: (source, the TPU kernels it replaces: K1 and K2 for the NTT
                         "troy_tpu/ops/fused_mul.py:75"),
 }
 NTT_KERNELS = [k for k in KERNELS if k.startswith("ntt_")]
+MXU_KERNELS = ("ntt_forward_mxu", "ntt_inverse_mxu")   # K2, under set_ntt_backend("pallas_mxu")
 # The cluster routes' yardsticks (the two-launch NTT pair and the tensor
 # product between its calls): timed against them in [large_n], held to their
 # plain versions in [kernels], launched on no path.
@@ -332,6 +357,22 @@ YARDSTICKS = ("ntt_forward_columns", "ntt_forward_blocks", "ntt_inverse_blocks",
 
 MEM_BYTES_PER_S = 3.35e12             # H100 SXM HBM3 (NVIDIA data sheet)
 INT32_OPS_PER_S = 132 * 64 * 1.98e9   # SMs x int32 lanes x boost clock
+INT8_OPS_PER_S = 1979e12              # H100 SXM dense INT8 tensor cores (data sheet)
+# K2's int32 operations a value, counted from csrc/ntt_mxu.cu (an add, a
+# subtract, a shift, a mask, a compare or a select each one; a Shoup
+# product x w - umulhi(x, w') q three: two multiplies and a multiply-add):
+# split_digits and its packing into the plane words, once a stage (the
+# conditional subtract 3, b0 and c0 2, b1 and c1 4, b2 and c2 4, three
+# digits 3 each, the top digit 2; 4 shifts and 4 ors), 32; recombine, once a
+# stage, by the pair fold (contraction <= 128: three folded sums 2 each, the
+# first shifted Shoup product 4, three more 4 each with an add and a
+# conditional subtract of 2q 3, the conditional subtract of q 3 and the
+# correction 5), 42, or by the 7 single diagonals, 60; the twiddle's
+# shoup_full once a transform, 6.  These are the work of K2's method, not of
+# the transform: the transform's bound is ntt_bound, as K1's.
+MXU_SPLIT_OPS = 32
+MXU_FOLD_OPS, MXU_DIAG_OPS = 42, 60
+MXU_TWIDDLE_OPS = 6
 NTT_BUTTERFLY_OPS = 8                 # Shoup product (3) + 2 adds + 2 reductions + 1
 
 
@@ -349,6 +390,24 @@ def ntt_bound(shape) -> tuple[float, str]:
     """An NTT of (..., n) int64: n values in and out, n/2 log2 n butterflies."""
     polys, n = int(np.prod(shape[:-1])), shape[-1]
     return bound_us(2 * polys * n * 8, polys * (n // 2) * (n.bit_length() - 1) * NTT_BUTTERFLY_OPS)
+
+
+def mxu_terms(shape) -> dict:
+    """The least times of K2's method on (..., L, n) int64, in microseconds,
+    beside the transform's own bound (ntt_bound): 'bytes', the values in and
+    out and the limbs' table planes and twiddles read once, over 3.35 TB/s;
+    'int8', the 16 plane products of both stages, 2 x 16 x n (n1 + n2)
+    operations a polynomial, over 1979 TOPS; 'int32', the split and
+    recombination of both stages and the twiddle (MXU_*_OPS) over 16.7 T/s."""
+    polys, n = int(np.prod(shape[:-1])), shape[-1]
+    a = (n.bit_length() - 1) // 2
+    n1, n2 = 1 << a, n >> a
+    nbytes = 2 * polys * n * 8 + shape[-2] * (4 * (n1 * n1 + n2 * n2) + 8 * n)
+    recombine = sum(MXU_FOLD_OPS if k <= 128 else MXU_DIAG_OPS for k in (n1, n2))
+    int32 = 2 * MXU_SPLIT_OPS + recombine + MXU_TWIDDLE_OPS
+    return {"bytes": nbytes / MEM_BYTES_PER_S * 1e6,
+            "int8": polys * 2 * 16 * n * (n1 + n2) / INT8_OPS_PER_S * 1e6,
+            "int32": polys * n * int32 / INT32_OPS_PER_S * 1e6}
 
 
 def bconv_bound(shape, l_out: int) -> tuple[float, str]:
@@ -390,6 +449,8 @@ PTXAS_NAMES = {  # a part of each kernel's mangled name: the name printed
     "ntt_forward_radix2": "ntt_forward radix-2 yardstick",
     "ntt_inverse_radix2": "ntt_inverse radix-2 yardstick",
     "fused_mul_kernelILi13E": "fused_negacyclic_multiply at n = 8192",
+    "ntt_mxu_kernelILb0": "ntt_forward_mxu", "ntt_mxu_kernelILb1": "ntt_inverse_mxu",
+    "ntt_mxu_stage_kernel": "ntt_mxu stage kernel (n > 32768)",
     "fused_mul_radix2": "fused_negacyclic_multiply radix-2 yardstick"}
 
 
@@ -435,15 +496,16 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def launch_counts() -> dict:
-    from troy_tpu_torch.ops import ntt_cuda, bconv_cuda, fused_mul_cuda
+    from troy_tpu_torch.ops import ntt_cuda, ntt_mxu_cuda, bconv_cuda, fused_mul_cuda
 
-    return {**ntt_cuda.LAUNCHES, **bconv_cuda.LAUNCHES, **fused_mul_cuda.LAUNCHES}
+    return {**ntt_cuda.LAUNCHES, **ntt_mxu_cuda.LAUNCHES, **bconv_cuda.LAUNCHES,
+            **fused_mul_cuda.LAUNCHES}
 
 
 def reset_launch_counts():
-    from troy_tpu_torch.ops import ntt_cuda, bconv_cuda, fused_mul_cuda
+    from troy_tpu_torch.ops import ntt_cuda, ntt_mxu_cuda, bconv_cuda, fused_mul_cuda
 
-    for mod in (ntt_cuda, bconv_cuda, fused_mul_cuda):
+    for mod in (ntt_cuda, ntt_mxu_cuda, bconv_cuda, fused_mul_cuda):
         mod.reset_launches()
 
 
@@ -927,7 +989,8 @@ PROFILED = {  # kernel: parts of its name in the profiler
     "ntt_forward_cluster": ("ntt_cluster_kernel<", ", false>"),
     "ntt_inverse_cluster": ("ntt_cluster_kernel<", ", true>"),
     "base_convert": ("bconv_kernel",), "fused_negacyclic_multiply": ("fused_mul_kernel",),
-    "fused_mul_large": ("fused_mul_large_kernel",)}
+    "fused_mul_large": ("fused_mul_large_kernel",),
+    "ntt_forward_mxu": ("ntt_mxu_kernel<false>",), "ntt_inverse_mxu": ("ntt_mxu_kernel<true>",)}
 
 
 def profile_step(fn, calls: int) -> dict:
@@ -988,7 +1051,7 @@ def launch_bound(name: str, shape, t) -> tuple[float, str]:
     (every NTT kernel of a path does a whole transform a launch)."""
     if name == "base_convert":
         return bconv_bound(shape, t.L_out)
-    return ntt_bound(shape)
+    return ntt_bound(shape)   # K1 and K2 alike: the same transform
 
 
 def graph_us(fn, launches: int = GRAPH_LAUNCHES) -> float:
@@ -3164,6 +3227,208 @@ def phase_harness(dev, gpu: str, qtab) -> dict:
     return {"launches": launches}
 
 
+MXU_DEGREES = range(8, 18)   # [mxu]: K2 at every degree 256 .. 131072, L = 1 .. 7
+MXU_LIMBS = 7
+MXU_LARGE = 16               # [mxu]: K2 against K1 at (3, 2, 2^16)
+
+
+def plane_products(x: torch.Tensor, t) -> list:
+    """The 16 plane products of both stages of a forward transform of x as
+    torch._int_mm calls (int8 x int8 -> int32), a stage a limb: a yardstick
+    of the tensor-core part alone, which no route of the port calls.
+    Returns the calls, each a function of no argument."""
+    from troy_tpu_torch.ops import ntt_mxu as MX
+
+    L = t.size
+    X = x.reshape(-1, L, t.n1, t.n2)
+    tabs = MX.plain_tables(t)
+    planes = MX.split_balanced(X, tabs["q"].view(1, -1, 1, 1))  # (4, P, L, n1, n2)
+    calls = []
+    for l in range(L):
+        p = planes[:, :, l]                                         # (4, P, n1, n2)
+        # left: (4 n1 x n1) W1 planes times the data (n1 x 4 P n2)
+        a = tabs["W1"][:, l].reshape(4 * t.n1, t.n1).contiguous()
+        b = p.permute(2, 0, 1, 3).reshape(t.n1, -1).contiguous()
+        # right: the data (4 P n1 x n2) times the W2 planes (n2 x 4 n2)
+        c = p.reshape(-1, t.n2).contiguous()
+        d = tabs["W2"][:, l].permute(1, 0, 2).reshape(t.n2, 4 * t.n2).contiguous()
+        calls += [lambda a=a, b=b: torch._int_mm(a, b), lambda c=c, d=d: torch._int_mm(c, d)]
+    return calls
+
+
+def phase_mxu(dev, gpu: str, main: dict, rot: dict) -> dict:
+    """K2 (csrc/ntt_mxu.cu) under set_ntt_backend("pallas_mxu"): bit for bit
+    against its plain version and K1 at every degree and limb count; at
+    the keyswitch digits and base q on lazy and canonical input; timed
+    against K1 in turns beside its three-term bound and the plane products
+    as torch._int_mm calls; then [main]'s HPS multiply + relinearize and
+    rotate_rows(1) on a context built under the backend, each equal to the
+    K1 step and the all-plain step, decrypting, with its launches."""
+    from troy_tpu_torch.core.modulus import Modulus
+    from troy_tpu_torch.core.evaluator import Evaluator
+    from troy_tpu_torch.ops import ntt as NTT, ntt_cuda, ntt_mxu as MX, ntt_mxu_cuda
+    from troy_tpu_torch.parallel.batched import BatchedEvaluator
+    from troy_tpu_torch.utils import numth
+
+    saved = NTT.get_ntt_backend()
+    NTT.set_ntt_backend("pallas_mxu")
+    try:
+        gen = torch.Generator(device=dev).manual_seed(14)
+        t0 = time.perf_counter()
+        worst = 0
+        for lg in MXU_DEGREES:
+            n = 1 << lg
+            full = NTT.NTTTables(lg, [Modulus(p) for p in numth.get_primes(2 * n, 30, MXU_LIMBS)],
+                                 dev)
+            for L in range(1, MXU_LIMBS + 1):
+                t = full.take(list(range(L))) if L < MXU_LIMBS else full
+                x = residues((1, L, n), t.q, gen, 2)
+                canon = x % t.q.view(-1, 1)
+                f = ntt_mxu_cuda.ntt_forward(x, t.mxu)
+                i_lazy = ntt_mxu_cuda.ntt_inverse(x, t.mxu)
+                i = ntt_mxu_cuda.ntt_inverse(f, t.mxu)
+                refs = (MX.ntt_forward_mxu(x, t.mxu), ntt_cuda.ntt_forward(x, t),
+                        MX.ntt_inverse_mxu(x, t.mxu), ntt_cuda.ntt_inverse(canon, t))
+                err = max(int((f - refs[0]).abs().max()), int((f - refs[1]).abs().max()),
+                          int((i_lazy - refs[2]).abs().max()),
+                          int((i_lazy - refs[3]).abs().max()))
+                worst = max(worst, err)
+                if err or not torch.equal(i, canon):
+                    raise AssertionError(f"[mxu] n = {n}, L = {L}: K2 != its plain version or "
+                                         f"K1 (max |err| {err}), or inverse(forward(x)) != x")
+            log(f"[mxu] n = {n} ({t.mxu.plan['launches']} launch(es) a transform), L = 1 .. "
+                f"{MXU_LIMBS}: K2 forward and inverse (lazy input) equal the plain version and "
+                f"K1 bit for bit, inverse(forward(x)) == x")
+        torch.cuda.synchronize()
+        log(f"[mxu] every degree 256 .. 131072 at L = 1 .. {MXU_LIMBS} in "
+            f"{time.perf_counter() - t0:.3f} s")
+
+        t0 = time.perf_counter()
+        ctx = build_context(dev)
+        cd = ctx.first_context_data()
+        ev = Evaluator(ctx)
+        be = BatchedEvaluator(ev, cd)
+        qtab, otab = cd.qtab(), ev._switch_tables(cd)["otab"]
+        if qtab.mxu is None or otab.mxu is None or cd.rns_tool.bsk_ntt.mxu is None:
+            raise AssertionError("[mxu] the context's tables lack the matrix-product route")
+        log(f"[mxu] context under pallas_mxu in {time.perf_counter() - t0:.3f} s")
+        cases = {"keyswitch digits": ((BATCH * L_DATA, L_DATA + 1, N), otab),
+                 "base q": ((BATCH, L_DATA, N), qtab)}
+        for label, (shape, t) in cases.items():
+            for lazy in (True, False):
+                x = residues(shape, t.q, gen, 2 if lazy else 1)
+                canon = x % t.q.view(-1, 1)
+                f, i = ntt_mxu_cuda.ntt_forward(x, t.mxu), ntt_mxu_cuda.ntt_inverse(x, t.mxu)
+                err = max(int((f - MX.ntt_forward_mxu(x, t.mxu)).abs().max()),
+                          int((f - ntt_cuda.ntt_forward(x, t)).abs().max()),
+                          int((i - MX.ntt_inverse_mxu(x, t.mxu)).abs().max()),
+                          int((i - ntt_cuda.ntt_inverse(canon, t)).abs().max()))
+                worst = max(worst, err)
+                log(f"[mxu] {label} {shape}, {'lazy' if lazy else 'canonical'} input: K2 "
+                    f"against its plain version and K1, max |err| {err}")
+                if err:
+                    raise AssertionError(f"[mxu] {label} {shape}: K2 disagrees")
+
+        # times: K2 against K1 in turns (K2, K1, K1, K2), graphs of 50
+        large = NTT.NTTTables(MXU_LARGE, [Modulus(p) for p in
+                                          numth.get_primes(2 << MXU_LARGE, 30, 2)], dev)
+        timing = {"keyswitch digits": cases["keyswitch digits"],
+                  "base q": cases["base q"], f"n = {1 << MXU_LARGE}": ((3, 2, 1 << MXU_LARGE),
+                                                                       large)}
+        times = {}
+        for label, (shape, t) in timing.items():
+            x = residues(shape, t.q, gen)
+            row = {}
+            for inverse in (False, True):
+                k2 = (lambda: ntt_mxu_cuda.ntt_inverse(x, t.mxu)) if inverse else \
+                    (lambda: ntt_mxu_cuda.ntt_forward(x, t.mxu))
+                k1 = (lambda: ntt_cuda.ntt_inverse(x, t)) if inverse else \
+                    (lambda: ntt_cuda.ntt_forward(x, t))
+                a1, b1, b2, a2 = graph_us(k2), graph_us(k1), graph_us(k1), graph_us(k2)
+                plain = (MX.ntt_inverse_mxu if inverse else MX.ntt_forward_mxu)
+                plain_us = graph_us(lambda: plain(x, t.mxu), PLAIN_REPS)
+                bound, by = ntt_bound(shape)
+                terms = mxu_terms(shape)
+                method = max(terms.values())
+                k2_us, k1_us = min(a1, a2), min(b1, b2)
+                name = "ntt_inverse_mxu" if inverse else "ntt_forward_mxu"
+                row[name] = dict(us=k2_us, k1_us=k1_us, plain_us=plain_us, bound=bound, by=by,
+                                 terms=terms)
+                log(f"[mxu] {gpu}: {name} {shape}: K2 {a1:.3f} / {a2:.3f} us, K1 {b1:.3f} / "
+                    f"{b2:.3f} us a launch (graph of {GRAPH_LAUNCHES}); plain {plain_us:.3f} us; "
+                    f"the transform's bound {bound:.3f} us ({by}, as K1's), its share K2 "
+                    f"{100 * bound / k2_us:.1f}%, K1 {100 * bound / k1_us:.1f}%; K2 / K1 "
+                    f"{k2_us / k1_us:.3f}; K2's method: "
+                    + ", ".join(f"{k} {v:.3f} us" for k, v in terms.items())
+                    + f", K2 at {100 * method / k2_us:.1f}% of their largest")
+            calls = plane_products(x, t.mxu)
+            try:
+                mm_us = graph_us(lambda: [c() for c in calls])
+            except RuntimeError as e:  # the yardstick only; no route calls it
+                mm_us = None
+                log(f"[mxu] torch._int_mm yardstick at {shape} not measured: {e}")
+            if mm_us is not None:
+                log(f"[mxu] {gpu}: yardstick, not a route: the 16 plane products of both "
+                    f"stages of one forward transform at {shape} as {len(calls)} torch._int_mm "
+                    f"calls: {mm_us:.3f} us (graph of {GRAPH_LAUNCHES})")
+            for v in row.values():
+                v["int_mm_us"] = mm_us
+            times[label] = row
+
+        # the flagship step and one rotation under the backend
+        keys, d1, d2 = main["keys"], main["d1"], main["d2"]
+        step = be.build_mul_relin_step(keys)
+        out, launches = run_step("mxu", f"HPS step {tuple(d1.shape)} under pallas_mxu",
+                                 lambda: step(d1, d2, keys),
+                                 ("ntt_forward_mxu", "ntt_inverse_mxu", "base_convert"))
+        per_step = (launches["ntt_forward_mxu"], launches["ntt_inverse_mxu"])
+        k1 = launches["ntt_forward"] + launches["ntt_inverse"]
+        if per_step != (5, 4) or k1:
+            raise AssertionError(f"[mxu] the HPS step launched K2 {per_step} (5 forward, 4 "
+                                 f"inverse expected) and K1 {k1} times")
+        if not torch.equal(out, main["out"]):
+            raise AssertionError("[mxu] the HPS step under pallas_mxu != the K1 step")
+        pick = [0, BATCH - 1]
+        check_decrypts("mxu", "products 0 and 15", out[pick], cd.parms_id,
+                       main["expected"][pick], main["encoder"], main["decryptor"])
+        log("[mxu] the HPS step under pallas_mxu equals the K1 step and the all-plain step "
+            "bit for bit; K2 5 forward and 4 inverse launches a step, K1 none")
+        (rstep, elts), r1 = be.build_rotate_rows_step(1), rot["steps"]["rotate_rows(1)"]
+        rkeys = tuple(rot["glk"].key(e) for e in elts)
+        rout, rlaunches = run_step("mxu", "rotate_rows(1) under pallas_mxu",
+                                   lambda: rstep(rot["d"], rkeys),
+                                   ("ntt_forward_mxu", "ntt_inverse_mxu"))
+        if not torch.equal(rout, r1["result"]):
+            raise AssertionError("[mxu] rotate_rows(1) under pallas_mxu != the K1 step")
+        check_decrypts("mxu", "rotate_rows(1), ciphertexts 0 and 15", rout[pick], cd.parms_id,
+                       rotated(rot["msgs"][pick], 1), main["encoder"], main["decryptor"])
+        profiles = {}
+        for label, fn, k1_fn in (
+                ("HPS step", lambda: step(d1, d2, keys), lambda: main["step"](d1, d2, keys)),
+                ("rotate_rows(1)", lambda: rstep(rot["d"], rkeys),
+                 lambda: r1["step"](rot["d"], r1["keys"]))):
+            chained = cuda_ms(fn, REPS)
+            k1_chained = cuda_ms(k1_fn, REPS)
+            prof, k1_prof = profile_step(fn, PROFILE_STEPS), profile_step(k1_fn, PROFILE_STEPS)
+            mxu_n = sum(prof[k][0] for k in MXU_KERNELS)
+            mxu_ms = sum(prof[k][1] for k in MXU_KERNELS)
+            k1_n, k1_ms = ntt_totals(k1_prof)
+            profiles[label] = dict(prof=prof, calls=record_launches(fn))
+            log(f"[mxu] {gpu}: profiler, {label} under pallas_mxu, {PROFILE_STEPS} steps: "
+                f"{prof['launches']:.0f} kernel launches and {prof['ms']:.4f} ms of device "
+                f"kernel time a step, of which K2 {mxu_n:.0f} launches {mxu_ms:.4f} ms; "
+                f"{chained:.4f} ms a step by events (repeated), busy share "
+                f"{100 * prof['ms'] / chained:.1f}%; the K1 step: {k1_prof['launches']:.0f} "
+                f"launches, {k1_prof['ms']:.4f} ms of device time, K1 {k1_n:.0f} launches "
+                f"{k1_ms:.4f} ms, {k1_chained:.4f} ms a step, busy "
+                f"{100 * k1_prof['ms'] / k1_chained:.1f}%")
+        return dict(err=worst, times=times, launches={"HPS step": launches,
+                                                      "rotate_rows(1)": rlaunches},
+                    profiles=profiles)
+    finally:
+        NTT.set_ntt_backend(saved)
+
+
 def main() -> int:
     # ---- 1. device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -3176,7 +3441,8 @@ def main() -> int:
         f"{torch.cuda.device_count()} device(s)")
 
     from troy_tpu_torch.ops import (_cuda_build, ntt as NTT, ntt_cuda, bconv as BC,
-                                    bconv_cuda, fused_mul as FM, fused_mul_cuda)
+                                    bconv_cuda, fused_mul as FM, fused_mul_cuda,
+                                    ntt_mxu as MX, ntt_mxu_cuda)
     from troy_tpu_torch.core.keygen import KeyGenerator
     from troy_tpu_torch.core.encryptor import Encryptor
     from troy_tpu_torch.core.decryptor import Decryptor
@@ -3192,7 +3458,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     ptxas = [ptxas_start(src) for src in ("ntt.cu", "fused_mul.cu", "fused_mul_large.cu",
-                                          "tensor_product.cu")]
+                                          "tensor_product.cu", "ntt_mxu.cu")]
     lib = _cuda_build.build()
     _cuda_build.load()
     log(f"[build] {lib.name} from {', '.join(p.name for p in _cuda_build.sources())} "
@@ -3225,6 +3491,18 @@ def main() -> int:
                     f"cudaOccupancyMaxActiveClusters)")
                 if info["clusters"] < 1:
                     raise AssertionError(f"[build] no cluster of the NTT fits at n = {deg}")
+    for lg in (N.bit_length() - 1, 15, 16):
+        plan = MX.kernel_plan(lg)
+        smem = max(plan["left"]["smem"], plan["right"]["smem"])
+        kernels = (((0, "ntt_forward_mxu"), (1, "ntt_inverse_mxu")) if plan["launches"] == 1
+                   else ((2, "ntt_mxu stage kernel"),))
+        for which, label in kernels:
+            info = ntt_mxu_cuda.kernel_info(which, smem)
+            log(f"[build] {label} at n = {1 << lg} ({plan['launches']} launch(es) a transform; "
+                f"K chunks {plan['left']['kc']} / {plan['right']['kc']}): {info} "
+                f"(cudaFuncGetAttributes, cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
+            if info["ctas_per_sm"] < 1 or info["local_bytes"]:
+                raise AssertionError(f"[build] K2's launch shape {info} fits no SM or spills")
     for lg, k in fused_mul_cuda.LARGE_SHAPES:
         info = fused_mul_cuda.large_info(lg, k)
         log(f"[build] fused_mul_large at n = {1 << lg}, clusters of {1 << k}: {info}")
@@ -3302,11 +3580,12 @@ def main() -> int:
     d2 = torch.stack(cts[BATCH:])
     expected = (msgs[:BATCH].astype(object) * msgs[BATCH:]) % t_val
     steps = {k: b.build_mul_relin_step(keys) for k, b in batched.items()}
-    launches = {}
+    launches, outs = {}, {}
     for lift, step in steps.items():
         out, launches[lift] = run_step(
             "main", f"{lift.upper()} step {tuple(d1.shape)} x {tuple(d2.shape)}",
             lambda: step(d1, d2, keys), ("ntt_forward", "ntt_inverse", "base_convert"))
+        outs[lift] = out
         check_decrypts("main", f"{lift.upper()} products m1 * m2 mod t", out, cd.parms_id,
                        expected, encoder, decryptor)
         budget = decryptor.invariant_noise_budget(Ciphertext(out[0], cd.parms_id))
@@ -3368,7 +3647,12 @@ def main() -> int:
                                      encoder=encoder, decryptor=decryptor,
                                      expected=expected), app)
 
-    # ---- 22. times ---------------------------------------------------------
+    # ---- 22. mxu ----------------------------------------------------------
+    mxu = phase_mxu(dev, gpu, dict(step=steps["hps"], d1=d1, d2=d2, keys=keys, cd=cd,
+                                   out=outs["hps"], encoder=encoder, decryptor=decryptor,
+                                   expected=expected), rot)
+
+    # ---- 23. times ---------------------------------------------------------
     def batch_ms(label: str, step, first, chain: bool = True):
         """Event-timed ms per call of step, with the kernels and all plain:
         chained (each output the next input) or repeated on first."""
@@ -3485,7 +3769,7 @@ def main() -> int:
             f"path (NTT kernel, torch dyadic_convolute, NTT kernel) {unfused_ms:.5f} ms "
             f"(device time per call, CUDA graph); kernel / unfused {ms / unfused_ms:.3f}")
 
-    # ---- 23. results -------------------------------------------------------
+    # ---- 24. results -------------------------------------------------------
     paths = {  # each main path's launch counts, read just after its run
         "hps": {**launches["hps"], "fused_negacyclic_multiply":
                 launches["fused"]["fused_negacyclic_multiply"]},
@@ -3502,7 +3786,8 @@ def main() -> int:
         "eager": {k: eager["launches"][k] for k in KERNELS},
         "examples": {k: sum(c[k] for c in examples["launches"].values()) for k in KERNELS},
         "harness": {k: harness["launches"][k] for k in KERNELS},
-        "mesh": {k: sum(c[k] for c in mesh["launches"].values()) for k in KERNELS}}
+        "mesh": {k: sum(c[k] for c in mesh["launches"].values()) for k in KERNELS},
+        "mxu": {k: sum(c[k] for c in mxu["launches"].values()) for k in KERNELS}}
     for path in ("client", "wire", "ring2k", "perop", "eager", "examples", "mesh"):
         if not paths[path]["ntt_forward"] or not paths[path]["ntt_inverse"]:
             raise AssertionError(f"[results] the {path} path launched no NTT kernel")
@@ -3515,6 +3800,11 @@ def main() -> int:
         "ntt_forward": ntt_bound(tuple(xq.shape)), "ntt_inverse": ntt_bound(tuple(xq.shape)),
         "base_convert": bconv_bound((BATCH, 3, floor_tabs.L_in, N), floor_tabs.L_out),
         "fused_negacyclic_multiply": fused_bound((BATCH, 2, L, N))}
+    for name in MXU_KERNELS:  # K2 at [times]' shape (16, 6, 8192), base q
+        row = mxu["times"]["base q"][name]
+        err[name] = mxu["err"]
+        times[name] = (row["us"] / 1e3, row["plain_us"] / 1e3)
+        timed[name] = (row["bound"], row["by"])
     for name in KERNELS:  # the cluster kernels at (3, 2, 65536) (K4: (3, 2, 2, 65536))
         if name not in timed:
             ms, plain_ms, bound_ms, by, _ = large["times"][(name, N_LARGE)]
@@ -3523,10 +3813,14 @@ def main() -> int:
     hps_kernels = ("ntt_forward", "ntt_inverse", "base_convert", "fused_negacyclic_multiply")
     results = []
     for name, (src, replaces) in KERNELS.items():
-        path = "hps" if name in hps_kernels else "large_n"
+        path = "hps" if name in hps_kernels else "mxu" if name in MXU_KERNELS else "large_n"
         if path == "hps":
             prof = profiles["HPS step"]
             mine = [(shape, t) for kname, shape, t in step_calls["HPS step"] if kname == name]
+        elif path == "mxu":  # per dispatch call of the step under pallas_mxu
+            prof = mxu["profiles"]["HPS step"]["prof"]
+            mine = [(shape, t) for kname, shape, t in mxu["profiles"]["HPS step"]["calls"]
+                    if name.startswith(kname)]
         else:  # per launch of the large step: a dispatch call runs columns and blocks
             prof = large["profile"]
             mine = [(shape, t) for kname, shape, t in large["calls"] if name.startswith(kname)]
@@ -3538,6 +3832,10 @@ def main() -> int:
             "path": path, "paths": {p: c[name] for p, c in paths.items()},
             "bound_us": sum(launch_bound(name, shape, t)[0] for shape, t in mine),
             "device_us": prof[name][1] * 1e3, "launches_per_step": len(mine)})
+        if name in MXU_KERNELS:  # K2's method terms, and the plane products alone as
+            row = mxu["times"]["base q"][name]  # torch._int_mm: a yardstick (null: not measured)
+            results[-1]["method_terms_ms"] = {k: v / 1e3 for k, v in row["terms"].items()}
+            results[-1]["int_mm_ms"] = None if row["int_mm_us"] is None else row["int_mm_us"] / 1e3
         if results[-1]["launches"] == 0:
             raise AssertionError(f"[results] {name} was not launched on its path ({path})")
     print(json.dumps({"kernels": results}))

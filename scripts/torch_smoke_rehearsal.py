@@ -21,7 +21,8 @@ x 6 -> 3 and 2 messages a helper flow; [wide] at n = 1024, batch 2 (its
 CPU twin then runs on the same device); [perop] at n = 1024, batch 2, 2
 repetitions; [eager] 1 repetition; [examples] with --device cpu at the
 twins' own sizes; [mesh] over (data, limb) = (2, 1), (1, 2), (1, 3) at batch
-2, its one-rank multihost mesh on gloo.  Times it prints are the CPU's and
+2, its one-rank multihost mesh on gloo; [mxu] at n = 256 .. 8192 on 1 to 3
+limbs, its timing at (3, 2, 8192) (K2's C call is its plain version).  Times it prints are the CPU's and
 mean nothing.
 """
 import contextlib
@@ -34,7 +35,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 from troy_tpu_torch.ops import (ntt as NTT, ntt_cuda, bconv as BC, bconv_cuda,  # noqa: E402
-                                fused_mul as FM, fused_mul_cuda, _cuda_build, dyadic as D)
+                                fused_mul as FM, fused_mul_cuda, _cuda_build, dyadic as D,
+                                ntt_mxu as MX, ntt_mxu_cuda)
 from troy_tpu_torch.core import coeff_modulus as CM  # noqa: E402
 
 def install_fakes():
@@ -108,8 +110,20 @@ def install_fakes():
         chk(x); bconv_cuda.LAUNCHES["base_convert"] += 1
         return BC.base_convert_plain(x, tabs)
     bconv_cuda.base_convert = fake_bconv
-    NTT.ntt_forward = lambda x, t: ntt_cuda.ntt_forward(x.contiguous(), t)
-    NTT.ntt_inverse = lambda x, t: ntt_cuda.ntt_inverse(x.contiguous(), t)
+    def fake_mxu_check(x, t):
+        chk(x); assert x.shape[-1] == t.n and x.shape[-2] == t.size and 8 <= t.log_n <= 17
+    ntt_mxu_cuda._check = fake_mxu_check
+    def fake_mxu_call(name, x, out, mid, w_left, w_right, t):
+        out.copy_(MX.ntt_inverse_mxu(x, t) if "inverse" in name else MX.ntt_forward_mxu(x, t))
+        return 0
+    ntt_mxu_cuda._call = fake_mxu_call
+    ntt_mxu_cuda.kernel_info = lambda w, smem: {"threads": 256, "smem": smem, "regs": 0,
+                                                "local_bytes": 0, "ctas_per_sm": 1}
+    def route(kernel, mxu_kernel):
+        return lambda x, t: (mxu_kernel(x.contiguous(), t.mxu) if getattr(t, "mxu", None)
+                             is not None else kernel(x.contiguous(), t))
+    NTT.ntt_forward = route(ntt_cuda.ntt_forward, ntt_mxu_cuda.ntt_forward)
+    NTT.ntt_inverse = route(ntt_cuda.ntt_inverse, ntt_mxu_cuda.ntt_inverse)
     BC.base_convert = lambda x, t: bconv_cuda.base_convert(x.contiguous(), t)
     FM.fused_negacyclic_multiply = lambda a, b, t: fused_mul_cuda.fused_negacyclic_multiply(
         a.contiguous(), b.contiguous(), t)
@@ -133,6 +147,7 @@ def install_fakes():
         return {1 << l: NTT.NTTTables(l, [Modulus(p) for p in numth.get_primes(2 << l, 30, 2)], dev) for l in range(1, 14)} | {cs.REFUSED_DEGREE: None}
     cs.other_degrees = small_degrees
     cs.PEROP_REPS, cs.EAGER_REPS = {"fast": 2, "wide": 2}, 1
+    cs.MXU_DEGREES, cs.MXU_LIMBS, cs.MXU_LARGE = range(8, 14), 3, 13
     from troy_tpu_torch.core.context import HeContext
     create = HeContext.create  # the context's default device, the card, is the CPU here
     HeContext.create = staticmethod(

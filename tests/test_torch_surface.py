@@ -25,7 +25,8 @@ MODULES = (
     + ["rns.rns_base", "rns.rns_tool", "rns.rns_tool64", "rns.scaling",
        "parallel.batched", "parallel.mesh", "utils.random", "utils.serialize", "utils.timer",
        "utils.poly_string", "ops.reduction",
-       "ops.poly", "ops.galois", "ops.ntt", "ops.u64", "ops.ntt64", "ops.rp", "ops.limb"]
+       "ops.poly", "ops.galois", "ops.ntt", "ops.ntt_mxu", "ops.u64", "ops.ntt64", "ops.rp",
+       "ops.limb"]
     + [f"app.{m}" for m in ("cipher2d", "conv2d", "encoder_adapter", "matmul", "ring2k")])
 
 # JAX names the port leaves out: (module, class or None) -> {name: reason}
@@ -44,9 +45,9 @@ LEFT_OUT = {
         "fast_floor_fast_b_conv_sk": "the unfused floor; the folded floor equals it",
         "materialize": TABLE_PACK},
     ("ops.poly", None): {"scalar_pack": TABLE_PACK},
-    ("ops.ntt", None): {"get_ntt_backend": BACKEND_KNOB, "set_ntt_backend": BACKEND_KNOB,
-                        "ntt_forward_sixstep": SIXSTEP, "ntt_inverse_sixstep": SIXSTEP},
+    ("ops.ntt", None): {"ntt_forward_sixstep": SIXSTEP, "ntt_inverse_sixstep": SIXSTEP},
     ("ops.ntt", "NTTTables"): {"host": TABLE_PACK, "pack": TABLE_PACK},
+    ("ops.ntt_mxu", "MxuNTTTables"): {"pack": TABLE_PACK, "pack_prefixed": TABLE_PACK},
     ("ops.u64", None): {"mul64_wide_k": "a measured negative on the TPU (ROADMAP)"},
     ("ops.ntt64", None): {"ntt_forward64_sixstep": SIXSTEP, "ntt_inverse64_sixstep": SIXSTEP},
     ("ops.ntt64", "NTT64Tables"): {"pack": TABLE_PACK},
@@ -83,6 +84,20 @@ PORT_ONLY = {
         "phase_entries", "phase_nodes", "phase_rows", "phase_slots")},
     ("ops.ntt", "NTTTables"): {n: "table accessors (JAX packs are dicts)"
                                for n in ("entries", "max_modulus", "size", "take")},
+    ("ops.ntt_mxu", None): {
+        "kernel_plan": "the Hopper kernel's launches, tiles and K chunks (csrc/ntt_mxu.cu)",
+        "plain_tables": "the kernel-layout tables under the JAX names, for the plain version",
+        **{n: "the recombination's parts, which the kernel-schedule emulation reuses"
+           for n in ("recombine_diagonals", "shoup_lazy")},
+        **{n: "the int32 bounds asserted at table build"
+           for n in ("check_int32", "diagonal_bounds")}},
+    ("ops.ntt_mxu", "MxuNTTTables"): {n: "table accessors (JAX packs are dicts)"
+                                      for n in ("max_modulus", "size", "take")},
+    ("rns.rns_tool64", None): {
+        "F32FmaSum": "the wide HPS estimate's float32 sum in the order XLA's CPU code "
+                     "gives the JAX package's jitted lift",
+        "fma32": "float32 fma, exact in float64 (F32FmaSum's step)",
+        "add32": "float32 add, exact in float64 (F32FmaSum's step)"},
     ("ops.u64", None): {"barrett_consts": "the port's Barrett tuple (2^62 split)",
                         "shoup62": "the port's Shoup companion floor(w 2^62 / q)"},
     ("ops.ntt64", None): {"WideScalarTables": "what wide_scalar_pack returns"},

@@ -363,3 +363,108 @@ def test_bfv_scaler64(T):
     np.testing.assert_array_equal(scaler.decentralize(cent).numpy(), m)
     with pytest.raises(ValueError, match="odd"):
         BFVScaler64(T.base, Modulus(1 << 20))
+
+
+# The shapes (lead, L, n) of the HPS lift held to XLA's CPU order for the
+# JAX package's jitted lift (rns_tool64.F32FmaSum), by the order each has:
+# a left fold of fmas over the limbs at L = 2, 3, 5 to 7, 9 to 15 (the wide
+# flagship step (16, 2, 3, 8192), the wide parity tests' {60, 40, 40, 60}
+# levels); a halving tree of per-limb fmas at L = 1, 4 (the mesh test's
+# (60, 40, 40, 40, 60), (4, 2000), (2, 4, 32)) and 8; 8 lanes of fmas, the
+# tree, then the leftover limbs one by one, at L = 16 to 19 and 24 to 32;
+# the same with 4 lanes at L = 20 to 23; windows of 32 added in order at
+# L = 33, 40, 64, 100 and 128.
+HPS_ORDER_SHAPES = [((16, 2), 3, 8192), ((2,), 3, 32), ((2, 2), 3, 32), ((), 2, 2000),
+                    ((), 5, 32), ((2,), 1, 32), ((2,), 4, 32), ((), 4, 2000), ((2,), 8, 32),
+                    ((2,), 16, 32)] + \
+                   [((2,), L, 32) for L in (6, 7, 9, 10, 11, 12, 13, 14, 15, 17, 18, 19, 20,
+                                            21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31, 32,
+                                            33, 64, 100, 128)] + [((), 40, 2000)]
+
+
+def _rounded_products_sum(tmp, hi, lo):
+    """The port's estimate before the repair: each product rounded, the
+    limbs added in order."""
+    est = None
+    for i in range(tmp.shape[-2]):
+        ti = tmp[..., i:i + 1, :]
+        term = (ti >> 32).to(torch.float32) * hi[i] + (ti & 0xFFFFFFFF).to(torch.float32) * lo[i]
+        est = term if est is None else est + term
+    return est
+
+
+def _swapped(hi, lo):
+    """F32FmaSum with the two words of a limb taken the other way round:
+    acc = fma(tl_i, lo_i, fma(th_i, hi_i, acc))."""
+    from troy_tpu_torch.rns.rns_tool64 import F32FmaSum, fma32
+
+    class Swapped(F32FmaSum):
+        def step(self, acc, th, tl, i0, i1):
+            acc = fma32(th[..., i0:i1, :], self.hi[i0:i1], acc)
+            return fma32(tl[..., i0:i1, :], self.lo[i0:i1], acc)
+
+    return Swapped(hi, lo)
+
+
+def hps_tie_terms(tool, count: int, rng) -> torch.Tensor:
+    """(L, <= count) HPS terms y (the Shoup products of the lift) whose sum
+    sum_i y_i / q_i sits at k + 1/2 closely enough that F32FmaSum rounds to
+    another alpha than one of the other orders: each product rounded and
+    the limbs added in order (the port's estimate before the repair), the
+    other vectorisation (a left fold for lanes, a tree for a fold at a
+    power-of-two L, 8 lanes for the windows), or the two words of a limb
+    fused the other way round.  The limbs but the last are random, the last scanned about the value
+    that brings the sum to k + 1/2."""
+    from troy_tpu_torch.rns.rns_tool64 import F32FmaSum
+
+    q = tool.base_q.values
+    L = len(q)
+    hi, lo = tool.hps_inv_q_hi_f32, tool.hps_inv_q_lo_f32
+    fold = F32FmaSum(hi, lo)
+    others = [lambda y: _rounded_products_sum(y, hi, lo), _swapped(hi, lo)]
+    if fold.windows or fold.lanes > 1 or L & (L - 1) == 0:
+        other = F32FmaSum(hi, lo)
+        other.windows, other.lanes = False, (8 if fold.windows else 1 if fold.lanes > 1 else L)
+        others.append(other)
+    found = []
+    for _ in range(40):
+        if sum(f.shape[1] for f in found) >= count:
+            break
+        head = torch.tensor([[int(v) for v in rng.integers(0, qi, 512, dtype=np.uint64)]
+                             for qi in q[:-1]], dtype=torch.int64).view(L - 1, 512)
+        s = sum(head[i].to(torch.float64) / q[i] for i in range(L - 1)) \
+            if L > 1 else torch.zeros(512, dtype=torch.float64)
+        c0 = ((torch.ceil(s - 0.5) + 0.5 - s) * q[-1]).to(torch.int64)
+        c = torch.cat([(c0 + j * max(1, q[-1] >> 30)).clamp(0, q[-1] - 1)
+                       for j in range(-24, 25)])
+        y = torch.cat([head.repeat(1, 49), c[None]])
+        new = torch.round(fold(y)[0])
+        hit = torch.zeros_like(new, dtype=torch.bool)
+        for f in others:
+            hit |= new != torch.round(f(y)[0])
+        found.append(y[:, hit])
+    return torch.cat(found, dim=1)[:, :count]
+
+
+@pytest.mark.parametrize("lead,L,n", HPS_ORDER_SHAPES)
+def test_hps_estimate_rounds_as_the_jitted_jax_lift(lead, L, n):
+    """The wide HPS lift at estimates built to sit at k + 1/2, where the
+    rounded-product sum and the other XLA order round apart, against the
+    jitted JAX lift, bit for bit (random terms fill the other columns)."""
+    T = Tools([60] + [40] * (L - 1), 5)
+    rng = np.random.default_rng(1000 * L + n)
+    cols = int(np.prod(lead, dtype=np.int64)) * n
+    ties = hps_tie_terms(T.tool, min(64, cols), rng)
+    y = torch.tensor([[int(v) for v in rng.integers(0, qi, cols, dtype=np.uint64)]
+                      for qi in T.primes], dtype=torch.int64)
+    y[:, :ties.shape[1]] = ties
+    assert ties.shape[1] >= min(0 if L == 1 else 64, cols), ties.shape
+    x = torch.tensor([[a * pow(ip, -1, q) % q for a in row] for row, ip, q in
+                      zip(y.tolist(), T.base.inv_punctured, T.primes)], dtype=torch.int64)
+    x = x.view(L, *lead, n).movedim(0, -2).contiguous()
+    terms = T.tool.conv_q_to_Bsk._shoup_terms(x).movedim(-2, 0).reshape(L, -1)
+    assert torch.equal(terms[:, :ties.shape[1]], ties)
+    arr = x.numpy().astype(np.uint64)
+    jx = jnp.stack(jpair(arr), axis=-3)
+    import jax
+    same_w(jax.jit(T.jtool.fast_b_conv_hps)(jx), T.tool.fast_b_conv_hps(x))

@@ -1,13 +1,11 @@
 // Negacyclic NTT / INTT over RNS limbs for NVIDIA Hopper (sm_90a).
 //
-// Replaces the TPU kernels of troy_tpu/ops/ntt_pallas.py:
-//   K1  _fwd_kernel / _inv_kernel (launcher _ntt_pallas): the fused six-step
-//       transform with Shoup-lazy VPU butterflies;
-//   K2  _fwd_kernel_mxu / _inv_kernel_mxu (launcher _ntt_pallas_mxu): the
-//       same transform with both sub-transforms as int8 MXU matmuls, which
-//       the TPU needed because it has no 32-bit mulhi.
-// Both compute one function; so do these kernels: output in [0, q), in the
-// NTT order "position p holds psi^(2*brv(p)+1)" (troy_tpu/ops/ntt.py).
+// Replaces the TPU kernel K1 of troy_tpu/ops/ntt_pallas.py: _fwd_kernel /
+// _inv_kernel (launcher _ntt_pallas), the fused six-step transform with
+// Shoup-lazy VPU butterflies.  Output in [0, q), in the NTT order "position
+// p holds psi^(2*brv(p)+1)" (troy_tpu/ops/ntt.py).  K2 (_fwd_kernel_mxu,
+// the same function as int8 matrix products) has its own kernel,
+// ntt_mxu.cu, under set_ntt_backend("pallas_mxu").
 //
 // Bound: one (row, limb) polynomial of n = 8192 moves 64 KiB in and 64 KiB
 // out as int64 and takes 13 * 4096 butterflies of about 8 int32 operations,

@@ -21,8 +21,18 @@ Two implementations of one function:
     launches over the same split (the column and block kernels) stay as
     that route's timing yardstick.
 
-ntt_forward / ntt_inverse dispatch on the tensor's device alone.  Callers use
-them through this module's attributes (NTT.ntt_forward), never by name import.
+A second route computes the same transform, selected as the JAX package
+selects it: set_ntt_backend("mxu") or ("pallas_mxu") (or TROY_NTT_BACKEND
+at import) makes every NTTTables built afterwards at n >= 256 carry
+MxuNTTTables (ops/ntt_mxu.py, K2's form: two modular matrix products on
+int8 digit planes); ntt_forward / ntt_inverse then take its Hopper kernel
+(ops/ntt_mxu_cuda.py, csrc/ntt_mxu.cu) on a CUDA tensor and its plain
+version on a CPU tensor.  "radix2", "sixstep" (the default) and "pallas"
+keep the route above; below n = 256 every backend does.
+
+ntt_forward / ntt_inverse dispatch on the tables and the tensor's device
+alone.  Callers use them through this module's attributes (NTT.ntt_forward),
+never by name import.
 
 Tables are built on the host with Python ints (NTTTables._rows copies the
 JAX table builder) and moved to the context's device.  The kernel's own
@@ -33,11 +43,35 @@ accepts lazy inputs in [0, 2q): keyswitch digits arrive unreduced.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
 from ..utils import numth
 from ..core.modulus import Modulus
+from . import ntt_mxu as MX
+
+# The JAX package's backend names; 'sixstep' is its default.  On the card
+# 'radix2', 'sixstep' and 'pallas' are the kernels of csrc/ntt.cu (the JAX
+# package's three forms of one transform), 'mxu' and 'pallas_mxu' the
+# matrix-product kernel of csrc/ntt_mxu.cu.
+_BACKENDS = ("radix2", "mxu", "sixstep", "pallas", "pallas_mxu")
+_BACKEND = os.environ.get("TROY_NTT_BACKEND", "sixstep")
+
+
+def set_ntt_backend(name: str):
+    """Select the transform of the NTTTables built afterwards: 'mxu' and
+    'pallas_mxu' the matrix-product route (n >= 256), 'radix2', 'sixstep'
+    and 'pallas' the butterfly route."""
+    global _BACKEND
+    if name not in _BACKENDS:
+        raise ValueError(f"[set_ntt_backend] unknown backend {name}")
+    _BACKEND = name
+
+
+def get_ntt_backend() -> str:
+    return _BACKEND
 
 
 def _shoup(values: np.ndarray, q: int) -> np.ndarray:
@@ -209,6 +243,9 @@ class NTTTables:
     2^block_log_n values (csrc/ntt.cu, csrc/fused_mul_large.cu).
     default_split(log_n) unless given; a split of 5 serves only the
     two-launch yardstick.
+    mxu: the matrix-product route's MxuNTTTables when the backend was
+      'mxu' or 'pallas_mxu' at construction, 256 <= n <= 131072 and every
+      q < 2^30 (K2's range), else None: the butterfly route.
     """
 
     _row_cache: dict = {}  # (log_n, q, split) -> per-modulus host rows
@@ -288,6 +325,9 @@ class NTTTables:
             barrett_ratio=torch.tensor([((1 << 64) - 1) // int(v) for v in q],
                                        dtype=torch.int64),
         )
+        self.mxu = (MX.MxuNTTTables(log_n, self.moduli, self.device)
+                    if _BACKEND in ("mxu", "pallas_mxu") and MX.MIN_LOG_N <= log_n <= MX.MAX_LOG_N
+                    and self.max_modulus < MX.MODULUS_BOUND else None)
 
     def _set(self, **tensors):
         for k, v in tensors.items():
@@ -323,6 +363,7 @@ class NTTTables:
                  column_phases=self.column_phases[:, ix],
                  block_scalars=self.block_scalars[:, ix],
                  barrett_ratio=self.barrett_ratio[ix])
+        out.mxu = self.mxu.take(idx) if self.mxu is not None else None
         return out
 
 
@@ -386,12 +427,20 @@ def ntt_inverse_plain(x: torch.Tensor, t: NTTTables) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Dispatch: a CPU tensor takes the plain version, a CUDA tensor the kernel
-# (a strided one made contiguous first, as the plain version takes any).
+# Dispatch: tables with the matrix-product route (t.mxu) take it, others
+# the butterfly route; a CPU tensor takes the plain version, a CUDA tensor
+# the kernel (a strided one made contiguous first, as the plain version
+# takes any).
 # ---------------------------------------------------------------------------
 
 def ntt_forward(x: torch.Tensor, t: NTTTables) -> torch.Tensor:
     """Forward NTT of (..., L, n) residues in [0, 2q) -> [0, q) NTT order."""
+    if getattr(t, "mxu", None) is not None:
+        if x.is_cuda:
+            from . import ntt_mxu_cuda
+
+            return ntt_mxu_cuda.ntt_forward(x.contiguous(), t.mxu)
+        return MX.ntt_forward_mxu(x, t.mxu)
     if x.is_cuda:
         from . import ntt_cuda
 
@@ -401,6 +450,12 @@ def ntt_forward(x: torch.Tensor, t: NTTTables) -> torch.Tensor:
 
 def ntt_inverse(x: torch.Tensor, t: NTTTables) -> torch.Tensor:
     """Inverse NTT of (..., L, n) residues in [0, q) -> [0, q) natural order."""
+    if getattr(t, "mxu", None) is not None:
+        if x.is_cuda:
+            from . import ntt_mxu_cuda
+
+            return ntt_mxu_cuda.ntt_inverse(x.contiguous(), t.mxu)
+        return MX.ntt_inverse_mxu(x, t.mxu)
     if x.is_cuda:
         from . import ntt_cuda
 

@@ -1,8 +1,9 @@
 """Wrapper of the Hopper NTT kernels (csrc/ntt.cu).
 
-Counterpart of troy_tpu/ops/ntt_pallas.py (K1 and K2: the VPU and MXU
-Pallas NTT kernels, which compute the same transform).  The plain PyTorch
-version is ops/ntt.py:ntt_forward_plain / ntt_inverse_plain.
+Counterpart of troy_tpu/ops/ntt_pallas.py's K1 (the VPU Pallas NTT
+kernel; K2, the MXU kernel of the same transform, is ops/ntt_mxu_cuda.py).
+The plain PyTorch version is ops/ntt.py:ntt_forward_plain /
+ntt_inverse_plain.
 
 Two routes, chosen by the tables' split (ops/ntt.py:default_split):
   * n from 2 to 32768 (split 0): the register-radix kernel troy_ntt_forward /

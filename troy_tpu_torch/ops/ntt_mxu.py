@@ -1,0 +1,465 @@
+"""The negacyclic NTT as two exact modular matrix products on int8 digit
+planes: the counterpart of troy_tpu/ops/ntt_mxu.py (K2's form).
+
+With n = n1 n2 and the polynomial viewed as an (n1, n2) matrix X (row
+major), the forward transform is
+
+    A = W1 X        (n1 x n1 times n1 x n2; the negacyclic twist folded in)
+    B = A o T       (elementwise twiddle)
+    C = B W2        (n1 x n2 times n2 x n2)
+
+with the bit reversals baked into W1 and W2, so that the flat C is exactly
+the NTT order of ops/ntt.py: the two routes are bit-interchangeable.  The
+inverse runs C = X W2i, B = C o Ti, A = W1i B, with n^-1 folded into W1i.
+
+Each modular product is exact on int8 tensor cores: both operands, residues
+below q < 2^30, are split into four balanced base-256 digits (three in
+[-128, 127], the top one in [0, 64]); the 16 plane products accumulate in
+int32, one sum per anti-diagonal s = i + j of the digit indices (7 sums);
+the sums are recombined mod q by Shoup multiplies by 2^(8s) mod q, or, for a
+contraction of at most 128 where P[2t] + 256 P[2t+1] still fits int32, by
+2^(16t) mod q on four pair-folded sums.  A uniform +2^31 shift makes each
+sum nonnegative for its Shoup multiply, and one constant per limb removes
+the excess.
+
+Two implementations of one function:
+
+  * ntt_forward_mxu / ntt_inverse_mxu: the plain PyTorch version.  The plane
+    products are float64 matrix products (every partial sum is an integer
+    below 2^25, so exact on the CPU and the card); the recombination runs
+    the kernel's u32 Shoup arithmetic in int64 (recombine_planes).  CPU
+    tensors take it; it is the reference the kernel is held to.
+  * ops/ntt_mxu_cuda.py: the hand-written Hopper kernel (csrc/ntt_mxu.cu),
+    which serves CUDA tensors when the NTT backend is "mxu" or
+    "pallas_mxu" (ops/ntt.py:set_ntt_backend).
+
+MxuNTTTables holds the tables once, in the kernel's layout, on the default
+split a = log2(n1) = log_n // 2: the digit planes of W1, W2, W1i, W2i with
+the right-hand factors stored transposed (K contiguous for an mma B
+operand) and every contraction padded to a multiple of 32 with zeros, the
+twiddles as (w, w') u32 pairs, and one row of scalars per limb.
+plain_tables reads them under the JAX package's names for the plain
+version.  The JAX package's Pallas kernel also keeps twiddle-folded
+weights (T16, Ti16, Tcorr, Ticorr); the port's kernel applies the twiddle
+by one Shoup product and keeps none.  kernel_plan gives the kernel's
+launches, shared-memory tiles and K chunks at each degree.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core.modulus import Modulus
+from ..utils import numth
+from . import u32 as U
+
+LIMB_BITS = 8
+N_LIMBS = 4  # balanced base-256 digits covering [0, 2^30)
+N_DIAGS = 2 * N_LIMBS - 1
+PAIR_FOLD_MAX_K = 128  # max contraction length for the pairwise int32 fold
+MIN_LOG_N = 8          # below, the JAX package keeps radix-2 (_MXU_MIN_LOG_N)
+MAX_LOG_N = 17
+MODULUS_BOUND = 1 << 30
+
+_HALF = 1 << 31
+_M32 = (1 << 32) - 1
+# the largest |digit| of each plane of a residue below 2^30
+DIGIT_BOUND = (128, 128, 128, 64)
+
+
+def _balance_const(m: np.ndarray) -> np.ndarray:
+    """(...,) host matrix (entries < 2^30) -> (4, ...) int8 balanced
+    base-256 digit planes."""
+    v = m.astype(np.int64)
+    out = np.empty((N_LIMBS,) + m.shape, dtype=np.int8)
+    for p in range(N_LIMBS):
+        d = v & 0xFF
+        carry = d >= 128
+        d = d - (carry << 8)
+        v = (v >> 8) + carry
+        out[p] = d.astype(np.int8)
+    assert (v == 0).all()
+    return out
+
+
+def split_balanced(x: torch.Tensor, q) -> torch.Tensor:
+    """(...,) int64 residues in [0, 2q) -> (4, ...) int8 balanced digit planes
+    of x mod q.  q broadcastable to x."""
+    v = U.cond_sub(x, q)
+    b0 = v & 255
+    b1 = (v >> 8) & 255
+    b2 = (v >> 16) & 255
+    b3 = v >> 24
+    c0 = (b0 >= 128).to(torch.int64)
+    d0 = b0 - (c0 << 8)
+    b1 = b1 + c0
+    c1 = (b1 >= 128).to(torch.int64)
+    d1 = b1 - (c1 << 8)
+    b2 = b2 + c1
+    c2 = (b2 >= 128).to(torch.int64)
+    d2 = b2 - (c2 << 8)
+    d3 = b3 + c2  # <= 64 for x < 2^30
+    return torch.stack([d.to(torch.int8) for d in (d0, d1, d2, d3)])
+
+
+def shoup_lazy(x: torch.Tensor, w, ws, q) -> torch.Tensor:
+    """The u32 Shoup product x w - floor(x ws / 2^32) q in [0, 2q), for
+    x < 2^32, w < q, ws = floor(w 2^32 / q), in int64: the high word of
+    x ws is taken in two 16-bit halves of x, so nothing passes 2^63."""
+    hi = ((x >> 16) * ws + (((x & 0xFFFF) * ws) >> 16)) >> 16
+    return x * w - hi * q
+
+
+def _diagonals(P: torch.Tensor) -> list:
+    """(4, 4, ...) plane-pair partials P[i, j] -> the 7 anti-diagonal sums."""
+    out = []
+    for s in range(N_DIAGS):
+        acc = None
+        for i in range(max(0, s - N_LIMBS + 1), min(N_LIMBS, s + 1)):
+            acc = P[i, s - i] if acc is None else acc + P[i, s - i]
+        out.append(acc)
+    return out
+
+
+def recombine_diagonals(diags: list, pow16, pow16_shoup, pow8, pow8_shoup,
+                        corr16, corr8, q, contraction: int) -> torch.Tensor:
+    """The 7 anti-diagonal int32 sums (as int64) -> (sum_s D[s] 2^(8s)) mod q
+    in [0, q), by the kernel's arithmetic: the pair fold for a contraction
+    of at most PAIR_FOLD_MAX_K, else the 7 single diagonals; each sum
+    shifted by +2^31 as a u32, Shoup-multiplied by its weight, the partial
+    results kept in [0, 2q), and the shift's excess corr removed."""
+    if contraction <= PAIR_FOLD_MAX_K:
+        groups = [diags[0] + (diags[1] << 8), diags[2] + (diags[3] << 8),
+                  diags[4] + (diags[5] << 8), diags[6]]
+        weights, wshoups, corr = pow16, pow16_shoup, corr16
+    else:
+        groups = diags
+        weights, wshoups, corr = pow8, pow8_shoup, corr8
+    two_q = 2 * q
+    acc = None
+    for t, g in enumerate(groups):
+        gu = (g + _HALF) & _M32  # the u32 view of g + 2^31: g + 2^31 in [0, 2^32)
+        contrib = shoup_lazy(gu, weights[t], wshoups[t], q)  # [0, 2q)
+        acc = contrib if acc is None else U.cond_sub(acc + contrib, two_q)
+    return U.sub_mod(U.cond_sub(acc, q), corr, q)
+
+
+def recombine_planes(P: torch.Tensor, pow16, pow16_shoup, pow8, pow8_shoup,
+                     corr16, corr8, q, contraction: int) -> torch.Tensor:
+    """P: (i, j, ...) int32 plane-pair partials (i, j = digit indices of the
+    two operands) -> (sum_ij P 2^(8(i+j))) mod q, elementwise over the
+    trailing shape.  pow16 / pow8: per-limb lists of 2^(16t) / 2^(8s) mod q
+    (with Shoup words) broadcastable to the output; corr16 / corr8: the
+    per-limb constant (sum_t 2^31 w_t) mod q removed after the uniform
+    +2^31 shift.  `contraction` selects the pairwise fold (exact for <= 128)
+    or the per-diagonal fallback."""
+    return recombine_diagonals(_diagonals(P.to(torch.int64)), pow16, pow16_shoup, pow8,
+                               pow8_shoup, corr16, corr8, q, contraction)
+
+
+def _pow_tables(moduli: list[Modulus]):
+    """Per-limb recombination constants: 2^(16t) and 2^(8s) mod q with Shoup
+    words, plus the shift corrections corr = (sum_t 2^31 w_t) mod q for
+    each weight set."""
+    L = len(moduli)
+    pow16 = np.zeros((L, N_LIMBS), dtype=np.uint32)
+    pow16_sh = np.zeros((L, N_LIMBS), dtype=np.uint32)
+    pow8 = np.zeros((L, N_DIAGS), dtype=np.uint32)
+    pow8_sh = np.zeros((L, N_DIAGS), dtype=np.uint32)
+    corr16 = np.zeros((L,), dtype=np.uint32)
+    corr8 = np.zeros((L,), dtype=np.uint32)
+    for l, mod in enumerate(moduli):
+        q = mod.value
+        for t in range(N_LIMBS):
+            c = pow(2, 16 * t, q)
+            pow16[l, t] = c
+            pow16_sh[l, t] = (c << 32) // q
+        for s in range(N_DIAGS):
+            c = pow(2, 8 * s, q)
+            pow8[l, s] = c
+            pow8_sh[l, s] = (c << 32) // q
+        corr16[l] = sum(_HALF * pow(2, 16 * t, q) for t in range(N_LIMBS)) % q
+        corr8[l] = sum(_HALF * pow(2, 8 * s, q) for s in range(N_DIAGS)) % q
+    return pow16, pow16_sh, pow8, pow8_sh, corr16, corr8
+
+
+def diagonal_bounds(contraction: int) -> list[int]:
+    """The largest |sum| of each anti-diagonal over a contraction of that
+    length, from DIGIT_BOUND: every plane product of both operands' digits."""
+    return [contraction * sum(DIGIT_BOUND[i] * DIGIT_BOUND[s - i]
+                              for i in range(max(0, s - N_LIMBS + 1), min(N_LIMBS, s + 1)))
+            for s in range(N_DIAGS)]
+
+
+def check_int32(contraction: int):
+    """Assert that every accumulator of a contraction of this length stays
+    inside int32: each diagonal sum, and with the pair fold (contraction <=
+    PAIR_FOLD_MAX_K) each folded sum P[2t] + 256 P[2t+1]."""
+    d = diagonal_bounds(contraction)
+    assert max(d) < _HALF, (contraction, d)
+    if contraction <= PAIR_FOLD_MAX_K:
+        folded = [d[0] + 256 * d[1], d[2] + 256 * d[3], d[4] + 256 * d[5], d[6]]
+        assert max(folded) < _HALF, (contraction, folded)
+
+
+def _powers(base: int, count: int, q: int) -> np.ndarray:
+    out = np.empty(count, dtype=np.uint64)
+    v = 1
+    for i in range(count):
+        out[i] = v
+        v = v * base % q
+    return out
+
+
+def _limb_matrices(log_n: int, a: int, q: int) -> tuple:
+    """W1, T, W2, W1i, Ti, W2i of one modulus (uint32), as the JAX tables
+    hold them, built from power tables: every entry is the same residue."""
+    n = 1 << log_n
+    n1, n2 = 1 << a, 1 << (log_n - a)
+    brv_a = np.array([numth.reverse_bits(i, a) for i in range(n1)], dtype=np.int64)
+    brv_b = np.array([numth.reverse_bits(i, log_n - a) for i in range(n2)], dtype=np.int64)
+    psi = numth.try_minimal_primitive_root(2 * n, q)
+    ipsi = numth.invert_mod(psi, q)
+    w, iw = psi * psi % q, ipsi * ipsi % q
+    n_inv = numth.invert_mod(n, q)
+    qq = np.uint64(q)
+    pw, piw = _powers(w, n, q), _powers(iw, n, q)      # w, iw have order n
+    ppsi, pipsi = _powers(psi, n2, q), _powers(ipsi, n2, q)
+    i1 = np.arange(n1, dtype=np.int64)
+    i2 = np.arange(n2, dtype=np.int64)
+    # w^n2 has order n1 and w^n1 order n2: exponents taken mod n
+    w1 = pw[(n2 * brv_a[:, None] * i1[None, :]) % n] * _powers(pow(psi, n2, q), n1, q)[None, :] % qq
+    t = pw[(brv_a[:, None] * i2[None, :]) % n] * ppsi[None, :] % qq
+    w2 = pw[(n1 * i2[:, None] * brv_b[None, :]) % n]
+    w2i = piw[(n1 * brv_b[:, None] * i2[None, :]) % n]
+    ti = piw[(i2[None, :] * brv_a[:, None]) % n] * pipsi[None, :] % qq
+    c = _powers(pow(ipsi, n2, q), n1, q) * np.uint64(n_inv) % qq
+    w1i = c[:, None] * piw[(n2 * i1[:, None] * brv_a[None, :]) % n] % qq
+    return tuple(m.astype(np.uint32) for m in (w1, t, w2, w1i, ti, w2i))
+
+
+def _shoup_rows(m: np.ndarray, moduli: list[Modulus]) -> np.ndarray:
+    out = np.zeros_like(m, dtype=np.uint32)
+    for l, mod in enumerate(moduli):
+        out[l] = ((m[l].astype(np.uint64) << np.uint64(32)) // np.uint64(mod.value)).astype(np.uint32)
+    return out
+
+
+def _pad_k(planes: np.ndarray) -> np.ndarray:
+    """Zero-pad the last (contraction) axis to a multiple of 32, the
+    depth of one m16n8k32 product."""
+    k = planes.shape[-1]
+    kp = -(-k // 32) * 32
+    if kp == k:
+        return np.ascontiguousarray(planes)
+    out = np.zeros(planes.shape[:-1] + (kp,), planes.dtype)
+    out[..., :k] = planes
+    return out
+
+
+SCALAR_SLOTS = 32  # u32 words a limb's kernel_scalars row holds (25 used)
+
+
+def _kernel_scalar_rows(moduli: list[Modulus]) -> np.ndarray:
+    """(L, 32) u32: q, pow16[4], pow16_shoup[4], corr16, pow8[7],
+    pow8_shoup[7], corr8, zeros: the kernel's per-limb constants."""
+    pow16, pow16_sh, pow8, pow8_sh, corr16, corr8 = _pow_tables(moduli)
+    q = np.array([m.value for m in moduli], dtype=np.uint32)
+    stacked = np.concatenate([q[:, None], pow16, pow16_sh, corr16[:, None], pow8, pow8_sh,
+                              corr8[:, None]], axis=1)
+    out = np.zeros((len(moduli), SCALAR_SLOTS), np.uint32)
+    out[:, :stacked.shape[1]] = stacked
+    return out
+
+
+# The kernel's plan (csrc/ntt_mxu.cu): a stage is out[r][c] = sum_k A[r][k]
+# Bt[c][k] with a data operand and a table operand; a CTA holds its block
+# of the data operand's digit planes in shared memory, split from the int64
+# values, and streams the table operand's planes in K chunks (the whole K
+# when it fits: the table is then loaded once).  Rows of both are padded by
+# SMEM_PAD bytes, so that the 8 row groups of a fragment load hit distinct
+# banks.
+SMEM_LIMIT = 232448 - 256   # the H100's 227 KB a CTA, less the static scalars
+SMEM_PAD = 16
+ONE_LAUNCH_MAX_LOG_N = 15   # one CTA a polynomial up to n = 32768
+TWO_LAUNCH_BLOCK = 32       # above, data rows (left) or columns (right) a CTA
+
+
+def _split_factors(log_n: int) -> tuple[int, int]:
+    """(n1, n2) of the default split a = log_n // 2."""
+    a = log_n // 2
+    return 1 << a, 1 << (log_n - a)
+
+
+def _stage_bytes(data_rows: int, kp: int, w_rows: int, kc: int) -> int:
+    """Shared bytes of a stage: 4 planes of the data block (data_rows x kp)
+    and of one K chunk of the table (w_rows x kc), rows padded."""
+    return 4 * data_rows * (kp + SMEM_PAD) + 4 * w_rows * (kc + SMEM_PAD)
+
+
+def _stage_plan(data_rows: int, w_rows: int, k: int, two_launch: bool) -> dict:
+    kp = max(32, k)
+    block = min(TWO_LAUNCH_BLOCK, data_rows) if two_launch else data_rows
+    kc = kp
+    while _stage_bytes(block, kp, w_rows, kc) > SMEM_LIMIT:
+        kc //= 2
+        if kc < 32:
+            raise ValueError(f"[ntt_mxu] no stage plan fits shared memory (k = {k})")
+    return dict(k=k, kp=kp, kc=kc, block=block, data_rows=data_rows, w_rows=w_rows,
+                smem=_stage_bytes(block, kp, w_rows, kc), fold=k <= PAIR_FOLD_MAX_K)
+
+
+def kernel_plan(log_n: int) -> dict:
+    """The kernel's launches at degree 2^log_n: 'launches' 1 (one CTA a
+    polynomial runs both stages, the first stage's result through the
+    output row) up to ONE_LAUNCH_MAX_LOG_N, else 2 (a launch a stage, through
+    a scratch tensor; a CTA a block of TWO_LAUNCH_BLOCK data rows or
+    columns).  'left': the stage W X (K = n1; the data is the B operand,
+    its columns the rows of Bt), 'right': X W (K = n2; the data is the A
+    operand).  Each: k, its padding kp, the K chunk kc of the table, the
+    data block, shared bytes, and whether the recombination folds pairs."""
+    n1, n2 = _split_factors(log_n)
+    two = log_n > ONE_LAUNCH_MAX_LOG_N
+    return dict(n1=n1, n2=n2, launches=2 if two else 1,
+                left=_stage_plan(n2, n1, n1, two), right=_stage_plan(n1, n2, n2, two))
+
+
+class MxuNTTTables:
+    """Per-(n, moduli) tables of the matrix-product transform on one device,
+    in the kernel's layout (u32 bit patterns as int32, planes int8):
+
+      kernel_w (fwd_left, fwd_right, inv_left, inv_right): the digit planes
+        of W1 (4, L, n1, n1p), W2 transposed (4, L, n2, n2p), W1i, W2i
+        transposed, the contraction padded to n1p, n2p = max(32, .);
+      kernel_twiddle (2, L, n1, n2, 2): (T, T') and (Ti, Ti') pairs;
+      kernel_scalars (L, 32): _kernel_scalar_rows.
+
+    The plain version reads them through plain_tables."""
+
+    _cache: dict = {}  # (log_n, q) -> the six uint32 matrices
+
+    def __init__(self, log_n: int, moduli: list[Modulus], device):
+        if not MIN_LOG_N <= log_n <= MAX_LOG_N:
+            raise ValueError(f"[MxuNTTTables] n = 2^{log_n} outside [2^{MIN_LOG_N}, "
+                             f"2^{MAX_LOG_N}]")
+        self.log_n = log_n
+        self.n = 1 << log_n
+        self.a = log_n // 2
+        self.b = log_n - self.a
+        self.n1, self.n2 = _split_factors(log_n)
+        self.moduli = list(moduli)
+        self.device = torch.device(device)
+        self.plan = kernel_plan(log_n)
+        check_int32(self.n1)
+        check_int32(self.n2)
+        mats = []
+        for mod in self.moduli:
+            key = (log_n, mod.value)
+            if key not in self._cache:
+                self._cache[key] = _limb_matrices(log_n, self.a, mod.value)
+            mats.append(self._cache[key])
+        W1, T, W2, W1i, Ti, W2i = (np.stack(m) for m in zip(*mats))
+        kernel_w = [_pad_k(_balance_const(W1)), _pad_k(_balance_const(W2).swapaxes(-1, -2)),
+                    _pad_k(_balance_const(W1i)), _pad_k(_balance_const(W2i).swapaxes(-1, -2))]
+        twiddle = np.stack([np.stack([T, _shoup_rows(T, self.moduli)], axis=-1),
+                            np.stack([Ti, _shoup_rows(Ti, self.moduli)], axis=-1)])
+        self.kernel_w = tuple(torch.from_numpy(w).to(self.device) for w in kernel_w)
+        self.kernel_twiddle = torch.from_numpy(twiddle.view(np.int32)).to(self.device)
+        self.kernel_scalars = torch.from_numpy(
+            _kernel_scalar_rows(self.moduli).view(np.int32)).to(self.device)
+
+    @property
+    def size(self) -> int:
+        return len(self.moduli)
+
+    @property
+    def max_modulus(self) -> int:
+        return max(m.value for m in self.moduli)
+
+    def take(self, idx: list[int]) -> "MxuNTTTables":
+        """The tables of the limb rows idx (the limb axis of every table)."""
+        out = object.__new__(MxuNTTTables)
+        for k in ("log_n", "n", "a", "b", "n1", "n2", "device", "plan"):
+            setattr(out, k, getattr(self, k))
+        out.moduli = [self.moduli[i] for i in idx]
+        ix = torch.tensor(idx, dtype=torch.int64, device=self.device)
+        out.kernel_w = tuple(w[:, ix].contiguous() for w in self.kernel_w)
+        out.kernel_twiddle = self.kernel_twiddle[:, ix].contiguous()
+        out.kernel_scalars = self.kernel_scalars[ix].contiguous()
+        return out
+
+
+def plain_tables(t: MxuNTTTables) -> dict:
+    """t's tables under the JAX package's MxuNTTTables names, read from the
+    kernel's layout: the planes W1, W2, W1i, W2i (4, L, ., .) int8 (views);
+    T, T_shoup, Ti, Ti_shoup (L, n1, n2), q (L,), pow16, pow16_shoup (L, 4),
+    pow8, pow8_shoup (L, 7), corr16, corr8 (L,) as int64."""
+    w = t.kernel_w
+    tw = t.kernel_twiddle.to(torch.int64) & _M32
+    sc = t.kernel_scalars.to(torch.int64) & _M32
+    return dict(W1=w[0][..., :t.n1], W2=w[1][..., :t.n2].transpose(-1, -2),
+                W1i=w[2][..., :t.n1], W2i=w[3][..., :t.n2].transpose(-1, -2),
+                T=tw[0, ..., 0], T_shoup=tw[0, ..., 1], Ti=tw[1, ..., 0], Ti_shoup=tw[1, ..., 1],
+                q=sc[:, 0], pow16=sc[:, 1:5], pow16_shoup=sc[:, 5:9], corr16=sc[:, 9],
+                pow8=sc[:, 10:17], pow8_shoup=sc[:, 17:24], corr8=sc[:, 24])
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions.  x has shape (..., L, n); t is an MxuNTTTables.
+# ---------------------------------------------------------------------------
+
+def _limb_col(v: torch.Tensor, ndim: int) -> torch.Tensor:
+    """(L,) -> broadcastable to (..., L, r, c) of ndim dimensions."""
+    return v.view((1,) * (ndim - 3) + (-1, 1, 1))
+
+
+def _recombine(P: torch.Tensor, t: dict, ndim: int, contraction: int) -> torch.Tensor:
+    col = lambda v: _limb_col(v, ndim)
+    return recombine_planes(
+        P, [col(t["pow16"][:, k]) for k in range(N_LIMBS)],
+        [col(t["pow16_shoup"][:, k]) for k in range(N_LIMBS)],
+        [col(t["pow8"][:, k]) for k in range(N_DIAGS)],
+        [col(t["pow8_shoup"][:, k]) for k in range(N_DIAGS)],
+        col(t["corr16"]), col(t["corr8"]), col(t["q"]), contraction)
+
+
+def _plane_products(a: torch.Tensor, b: torch.Tensor, eq: str) -> torch.Tensor:
+    """The 16 plane products, exact in float64 (|partial| < 2^25), as int64."""
+    return torch.einsum(eq, a.to(torch.float64), b.to(torch.float64)).to(torch.int64)
+
+
+def _modular_matmul_left(Wl: torch.Tensor, x: torch.Tensor, t: dict) -> torch.Tensor:
+    """C[..., L, a, c] = sum_b W[L, a, b] x[..., L, b, c] mod q.
+    Wl: (4, L, a, b) int8 planes; x: (..., L, b, c) int64 in [0, 2q);
+    t: plain_tables."""
+    xl = split_balanced(x, _limb_col(t["q"], x.dim()))
+    P = _plane_products(Wl, xl, "ilab,j...lbc->ij...lac")
+    return _recombine(P, t, x.dim(), x.shape[-2])
+
+
+def _modular_matmul_right(x: torch.Tensor, Wl: torch.Tensor, t: dict) -> torch.Tensor:
+    """C[..., L, a, d] = sum_c x[..., L, a, c] W[L, c, d] mod q."""
+    xl = split_balanced(x, _limb_col(t["q"], x.dim()))
+    P = _plane_products(Wl, xl, "ilcd,j...lac->ij...lad")
+    return _recombine(P, t, x.dim(), x.shape[-1])
+
+
+def ntt_forward_mxu(x: torch.Tensor, t: MxuNTTTables) -> torch.Tensor:
+    """Forward negacyclic NTT, bit-identical to ops/ntt.ntt_forward_plain.
+    x: (..., L, n) int64 in [0, 2q) -> [0, q) NTT order."""
+    p = plain_tables(t)
+    X = x.reshape(*x.shape[:-1], t.n1, t.n2)
+    A = _modular_matmul_left(p["W1"], X, p)
+    B = A * p["T"] % _limb_col(p["q"], A.dim())
+    return _modular_matmul_right(B, p["W2"], p).reshape(x.shape)
+
+
+def ntt_inverse_mxu(x: torch.Tensor, t: MxuNTTTables) -> torch.Tensor:
+    """Inverse negacyclic NTT, bit-identical to ops/ntt.ntt_inverse_plain.
+    x: (..., L, n) int64 in [0, 2q) NTT order -> [0, q) natural order."""
+    p = plain_tables(t)
+    X = x.reshape(*x.shape[:-1], t.n1, t.n2)
+    C = _modular_matmul_right(X, p["W2i"], p)
+    B = C * p["Ti"] % _limb_col(p["q"], C.dim())
+    return _modular_matmul_left(p["W1i"], B, p).reshape(x.shape)

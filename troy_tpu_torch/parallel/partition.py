@@ -29,6 +29,9 @@ runs only the groups it holds.
   each NTT is an all-to-all to shards of whole rows (the flattened batch x
   limb rows, each with its prime's tables), the transform, and the
   all-to-all back.
+Both take the route of the level's tables: under set_ntt_backend("mxu") or
+("pallas_mxu") a shard's rows go through the matrix-product kernel
+(ops/ntt_mxu_cuda.py), its tables cut to the rows by NTTTables.take.
 
 Every cross-shard copy is logged in the CollectiveRecord with the bytes the
 receiving shards get (a fast-path residue crosses as a 32-bit word); every
@@ -110,9 +113,9 @@ def _limb_part(ev, cd, K: int, k: int, dev) -> dict:
 
 
 def _launch_counts() -> dict:
-    from ..ops import bconv_cuda, ntt_cuda
+    from ..ops import bconv_cuda, ntt_cuda, ntt_mxu_cuda
 
-    return {**ntt_cuda.LAUNCHES, **bconv_cuda.LAUNCHES}
+    return {**ntt_cuda.LAUNCHES, **ntt_mxu_cuda.LAUNCHES, **bconv_cuda.LAUNCHES}
 
 
 # ---------------------------------------------------------------------------

@@ -8,10 +8,9 @@ functions as rns/rns_tool.py's RNSTool, at the wide width:
     package's search (so both packages hold the same bases); m~ stays 2^16;
   * fast_b_conv_hps: the HPS lift q -> Bsk with alpha estimated in float32
     from the 32-bit words of each Shoup product, th (2^32 / q_i) + tl / q_i,
-    the limbs summed by explicit adds in order, each product rounded, so
-    the CPU and the card round alike (XLA on the CPU orders the JAX
-    package's sum by shape: where the estimate sits within a few ulps of
-    k + 1/2 the two packages' alphas may differ, ROADMAP C);
+    summed over the limbs in the order and with the fused multiply-adds
+    that XLA's CPU code gives the JAX package's jitted sum (F32FmaSum), run
+    exactly in float64, so that the CPU and the card round alike;
   * fast_b_conv_m_tilde_sm_mrq: the BEHZ lift;
   * fast_floor_scale_fast_b_conv_sk: floor(t d / Q) with the x t scale folded
     into the tables, then the Shenoy-Kumaresan conversion back to q;
@@ -29,6 +28,8 @@ the folded floor computes the same integer.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..core.modulus import Modulus
@@ -40,6 +41,110 @@ from .rns_base import RNSBase, BaseConverter64
 M_TILDE = 1 << 16
 _M31 = (1 << 31) - 1
 _M32 = (1 << 32) - 1
+
+
+def _round32(s: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """The float32 nearest to the exact s + e (float64 s, and e its
+    rounding error, |e| <= half an ulp of s), ties to even, as a float64:
+    s rounds as s + e does unless s is a float32 midpoint, where the sign
+    of e decides."""
+    r = s.to(torch.float32)
+    r64 = r.to(torch.float64)
+    inf = torch.full_like(r, math.inf)
+    down = torch.where(r64 <= s, r, torch.nextafter(r, -inf)).to(torch.float64)
+    up = torch.where(r64 >= s, r, torch.nextafter(r, inf)).to(torch.float64)
+    mid = (s - down == up - s) & (down != up)
+    return torch.where(mid & (e > 0), up, torch.where(mid & (e < 0), down, r64))
+
+
+def _two_sum(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """a + b in float64 and its exact rounding error (Knuth's TwoSum)."""
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 fma(a, b, c) on float32 values held in float64: a b is exact
+    in float64 (24 + 24 bits), the sum's error is exact by TwoSum, and one
+    rounding to float32 follows."""
+    return _round32(*_two_sum(a * b, c))
+
+
+def add32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """float32 a + b on float32 values held in float64."""
+    return _round32(*_two_sum(a, b))
+
+
+class F32FmaSum:
+    """sum_i th_i hi_i + tl_i lo_i over the limb axis in float32 (th, tl
+    the 32-bit words of the HPS terms, hi_i = 2^32 / q_i and lo_i = 1 / q_i
+    as float32), rounded as XLA 0.9's CPU code (x86-64, AVX-512) runs the
+    JAX package's jitted jnp.sum of the products.  A limb's step is
+    acc = fma(th_i, hi_i, fma(tl_i, lo_i, acc)); the order depends on the
+    limb count L alone:
+
+      * L <= 32: the sum is vectorised over W lanes, lane j taking the
+        limbs i = j, j + W, ... of the whole groups of W from 0; the lanes
+        are added by halving (lane j + W/2 onto lane j), and the limbs past
+        the last whole group are stepped into that sum one by one.  W = L
+        at L = 1, 4, 8; W = 1 (a left fold) at the other L below 16; W = 4
+        at L = 20 to 23 and W = 8 at the other L from 16 to 32.
+      * L > 32 (XLA's tree reduction of a long reduce): each limb's step
+        from 0, the L values zero-padded into m = ceil(L / 32) windows of
+        32 ((32 m - L) // 2 zeros in front), each window added in order
+        from 0, and the m window sums added in order.
+
+    Read from the compiled code of the lift at L = 1 to 9, 12 and 16 (lead
+    shapes (), (2,), (2, 2) and (16, 2), n = 32, 2000 and 8192) and from its
+    HLO at L = 33; held against the jitted lift on columns built at
+    k + 1/2 at every L from 1 to 33 and at 40, 64, 100 and 128.  Above
+    L = 128 (more than 4 windows) the windows' order is not verified.
+
+    Every step runs exactly in float64 (fma32, add32), the same on every
+    device."""
+
+    def __init__(self, hi: torch.Tensor, lo: torch.Tensor):
+        L = hi.numel()
+        self.windows = L > 32
+        self.lanes = (L if L in (1, 4, 8) else 1 if L < 16 else
+                      4 if 20 <= L <= 23 else 8)
+        self.hi = hi.to(torch.float64).view(-1, 1)
+        self.lo = lo.to(torch.float64).view(-1, 1)
+
+    def step(self, acc, th, tl, i0: int, i1: int) -> torch.Tensor:
+        """Limbs i0 .. i1 - 1 (one a lane) stepped into acc."""
+        acc = fma32(tl[..., i0:i1, :], self.lo[i0:i1], acc)
+        return fma32(th[..., i0:i1, :], self.hi[i0:i1], acc)
+
+    def __call__(self, tmp: torch.Tensor) -> torch.Tensor:
+        """tmp: (..., L, n) int64 HPS terms below 2^61 -> (..., 1, n) float32."""
+        th = (tmp >> 32).to(torch.float32).to(torch.float64)
+        tl = (tmp & _M32).to(torch.float32).to(torch.float64)
+        L = tmp.shape[-2]
+        if self.windows:
+            zero = torch.zeros_like(th[..., :1, :])
+            vals = self.step(torch.zeros_like(th), th, tl, 0, L)
+            m = -(-L // 32)
+            front = (32 * m - L) // 2
+            total = zero
+            for k in range(m):
+                acc = zero
+                for i in range(max(0, 32 * k - front), min(L, 32 * (k + 1) - front)):
+                    acc = add32(acc, vals[..., i:i + 1, :])
+                total = add32(total, acc)
+            return total.to(torch.float32)
+        W = self.lanes
+        whole = L - L % W
+        acc = torch.zeros_like(th[..., :W, :])
+        for i0 in range(0, whole, W):
+            acc = self.step(acc, th, tl, i0, i0 + W)
+        while acc.shape[-2] > 1:
+            h = acc.shape[-2] // 2
+            acc = add32(acc[..., :h, :], acc[..., h:, :])
+        for i in range(whole, L):
+            acc = self.step(acc, th, tl, i, i + 1)
+        return acc.to(torch.float32)
 
 
 def _aux_primes_wide(n: int, exclude: set[int], count: int,
@@ -136,6 +241,7 @@ class RNSTool64:
                                              dtype=torch.float32, device=dev)
         self.hps_inv_q_lo_f32 = torch.tensor([1.0 / q for q in q_values],
                                              dtype=torch.float32, device=dev)
+        self.hps_sum = F32FmaSum(self.hps_inv_q_hi_f32, self.hps_inv_q_lo_f32)
 
         # ---- q_last division (mod switch / rescale) --------------------------
         if L > 1:
@@ -245,18 +351,12 @@ class RNSTool64:
         """x: (..., L, n) in base q -> (..., |Bsk|, n) (or the Bsk rows
         `rows`) representing x + d q, d in {-1, 0, +1}: the fast conversion
         with alpha estimated in float32 from the 32-bit words of each term
-        and folded into the dot as one extra term (HPS17 §4)."""
+        and folded into the dot as one extra term (HPS17 §4), the sum rounded
+        as the JAX package's jitted lift rounds it (F32FmaSum)."""
         c = self._rows("bsk", rows)
         conv = self.conv_q_to_Bsk
         tmp = conv._shoup_terms(x)
-        hi = self.hps_inv_q_hi_f32
-        lo = self.hps_inv_q_lo_f32
-        est = None
-        for i in range(self.base_q.size):
-            ti = tmp[..., i:i + 1, :]
-            term = (ti >> 32).to(torch.float32) * hi[i] + (ti & _M32).to(torch.float32) * lo[i]
-            est = term if est is None else est + term
-        alpha = torch.round(est).to(torch.int64)
+        alpha = torch.round(self.hps_sum(tmp)).to(torch.int64)
         pairs = [(tmp[..., i:i + 1, :], c["mat"][i]) for i in range(self.base_q.size)]
         pairs.append((alpha, c["hps_neg_q"]))
         return W.dot_mod64(pairs, c["ok"], conv.max_terms)
