@@ -31,8 +31,8 @@ In phases:
   1. device   the card's name and power limit (fails without CUDA);
   2. build    nvcc builds every csrc/*.cu into one library under
               troy_tpu_torch/build/; beside it, nvcc -Xptxas -v on ntt.cu,
-              fused_mul.cu, fused_mul_large.cu, tensor_product.cu and
-              ntt_mxu.cu prints
+              fused_mul.cu, fused_mul_large.cu, tensor_product.cu,
+              ntt_mxu.cu and ntt_mxu_wg.cu prints
               each kernel's registers and spills, and the occupancy
               calculator its CTAs per SM (and each cluster kernel's
               clusters on the card);
@@ -245,17 +245,20 @@ In phases:
               with mesh=make_mesh(data=4, limb=1), equal to the unsharded run;
               a one-rank NCCL make_multihost_mesh(hosts=1) data-parallel step
               with no collective;
- 22. mxu      K2, the matrix-product NTT (csrc/ntt_mxu.cu), under
-              set_ntt_backend("pallas_mxu"), restored after: forward and
-              inverse (lazy input) bit for bit against its plain version
-              (ops/ntt_mxu.py) and K1 at every degree 256 .. 131072 on 1 to 7
-              limbs, at the keyswitch digits (96, 7, 8192) and base q (16, 6,
-              8192) on lazy and canonical input; K2 against K1 in turns by
-              CUDA graphs at those shapes and (3, 2, 65536) beside the
-              transform's bound (ntt_bound, as K1's), K2's method terms
-              (mxu_terms: bytes with the table planes, int8 tensor-core and
-              int32 operations) and the plane products alone as
-              torch._int_mm calls (a yardstick, no route); [main]'s HPS
+ 22. mxu      K2, the matrix-product NTT, under set_ntt_backend("pallas_mxu"),
+              restored after: its route (the redesigned kernel
+              csrc/ntt_mxu_wg.cu to n = 16384, the first form csrc/ntt_mxu.cu
+              above) forward and inverse (lazy input) bit for bit against its
+              plain version (ops/ntt_mxu.py), K1 and, to 32768, the first
+              form's one-CTA kernel (the yardstick) at every degree 256 ..
+              131072 on 1 to 7 limbs, at the keyswitch digits (96, 7, 8192)
+              and base q (16, 6, 8192) on lazy and canonical input; the route
+              against the yardstick and K1 in turns by CUDA graphs at those
+              shapes and (3, 2, 65536) beside the transform's bound (ntt_bound,
+              as K1's), each K2 form's method terms (wg_terms, mxu_terms:
+              bytes with the table planes, int8 tensor-core and int32
+              operations) and the plane products alone as torch._int_mm calls
+              (a yardstick, no route); [main]'s HPS
               multiply + relinearize and rotate_rows(1) on a context built
               under the backend: 5 forward and 4 inverse K2 launches a step
               and no K1, each equal to the K1 step and to its all-plain run,
@@ -279,9 +282,10 @@ Bounds: the least time the card could take for a launch's work, the larger
 of its bytes (each input read once, each output written once) over
 3.35 TB/s and its int32 operations over 132 SMs x 64 lanes x 1.98 GHz
 (the H100 SXM's published memory rate and boost clock); K2's bound is
-the transform's, as K1's, and its method's terms (mxu_terms: its table
-planes' bytes, int8 tensor-core operations over 1979 TOPS, the split and
-recombination's int32 operations) are printed beside it.
+the transform's, as K1's, and its method's terms (wg_terms for the
+redesigned kernel, mxu_terms for the first form: its table planes' bytes,
+int8 tensor-core operations over 1979 TOPS, the split and recombination's
+int32 operations) are printed beside it.
 
 Prints one JSON line of kernel results (each kernel's launches on the path
 that runs it, with every path's count under "paths"), then the nvidia-smi
@@ -338,8 +342,8 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "ntt_inverse": ("troy_tpu_torch/csrc/ntt.cu", _INV),
     "ntt_forward_cluster": ("troy_tpu_torch/csrc/ntt.cu", _FWD),
     "ntt_inverse_cluster": ("troy_tpu_torch/csrc/ntt.cu", _INV),
-    "ntt_forward_mxu": ("troy_tpu_torch/csrc/ntt_mxu.cu", "troy_tpu/ops/ntt_pallas.py:206"),
-    "ntt_inverse_mxu": ("troy_tpu_torch/csrc/ntt_mxu.cu", "troy_tpu/ops/ntt_pallas.py:228"),
+    "ntt_forward_mxu": ("troy_tpu_torch/csrc/ntt_mxu_wg.cu", "troy_tpu/ops/ntt_pallas.py:206"),
+    "ntt_inverse_mxu": ("troy_tpu_torch/csrc/ntt_mxu_wg.cu", "troy_tpu/ops/ntt_pallas.py:228"),
     "base_convert": ("troy_tpu_torch/csrc/bconv.cu", "troy_tpu/ops/ntt_pallas.py:413"),
     "fused_negacyclic_multiply": ("troy_tpu_torch/csrc/fused_mul.cu",
                                   "troy_tpu/ops/fused_mul.py:75"),
@@ -348,6 +352,12 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
 }
 NTT_KERNELS = [k for k in KERNELS if k.startswith("ntt_")]
 MXU_KERNELS = ("ntt_forward_mxu", "ntt_inverse_mxu")   # K2, under set_ntt_backend("pallas_mxu")
+# K2's first form (csrc/ntt_mxu.cu's one-CTA kernel): the yardstick the
+# redesigned kernel is timed against, on no path at n <= 16384; listed in
+# the kernels line beside the route's two.
+MXU_YARDSTICKS = {
+    "ntt_forward_mxu_mma": ("troy_tpu_torch/csrc/ntt_mxu.cu", "troy_tpu/ops/ntt_pallas.py:206"),
+    "ntt_inverse_mxu_mma": ("troy_tpu_torch/csrc/ntt_mxu.cu", "troy_tpu/ops/ntt_pallas.py:228")}
 # The cluster routes' yardsticks (the two-launch NTT pair and the tensor
 # product between its calls): timed against them in [large_n], held to their
 # plain versions in [kernels], launched on no path.
@@ -358,7 +368,7 @@ YARDSTICKS = ("ntt_forward_columns", "ntt_forward_blocks", "ntt_inverse_blocks",
 MEM_BYTES_PER_S = 3.35e12             # H100 SXM HBM3 (NVIDIA data sheet)
 INT32_OPS_PER_S = 132 * 64 * 1.98e9   # SMs x int32 lanes x boost clock
 INT8_OPS_PER_S = 1979e12              # H100 SXM dense INT8 tensor cores (data sheet)
-# K2's int32 operations a value, counted from csrc/ntt_mxu.cu (an add, a
+# K2's first form's int32 operations a value, counted from csrc/ntt_mxu.cu (an add, a
 # subtract, a shift, a mask, a compare or a select each one; a Shoup
 # product x w - umulhi(x, w') q three: two multiplies and a multiply-add):
 # split_digits and its packing into the plane words, once a stage (the
@@ -373,6 +383,18 @@ INT8_OPS_PER_S = 1979e12              # H100 SXM dense INT8 tensor cores (data s
 MXU_SPLIT_OPS = 32
 MXU_FOLD_OPS, MXU_DIAG_OPS = 42, 60
 MXU_TWIDDLE_OPS = 6
+# The redesigned kernel's int32 operations a value, counted from
+# csrc/ntt_mxu_wg.cu with the same rule (a wide multiply-add two, a byte
+# permute, a funnel shift, a min one): split_item, once a transform (the
+# conditional subtract min(x, x - q) 2, eight byte permutes for four values
+# 2), 4; recombine, once a stage (the fold P4 + 2^8 P5 1, five wide
+# multiply-adds 10, the funnel shift 1, umulhi 1, the multiply-subtract 1),
+# 14; the twiddle, once (the Shoup product 3, a conditional subtract 2), 5;
+# the handoff of stage 1's values into stage 2's planes (two byte permutes
+# for two values), 1; the output's two conditional subtracts, 4.  At every
+# degree: 4 + 14 + 5 + 1 + 14 + 4 = 42.
+WG_SPLIT_OPS, WG_RECOMBINE_OPS, WG_TWIDDLE_OPS, WG_HANDOFF_OPS, WG_FINAL_OPS = 4, 14, 5, 1, 4
+WG_OPS = WG_SPLIT_OPS + 2 * WG_RECOMBINE_OPS + WG_TWIDDLE_OPS + WG_HANDOFF_OPS + WG_FINAL_OPS
 NTT_BUTTERFLY_OPS = 8                 # Shoup product (3) + 2 adds + 2 reductions + 1
 
 
@@ -408,6 +430,34 @@ def mxu_terms(shape) -> dict:
     return {"bytes": nbytes / MEM_BYTES_PER_S * 1e6,
             "int8": polys * 2 * 16 * n * (n1 + n2) / INT8_OPS_PER_S * 1e6,
             "int32": polys * n * int32 / INT32_OPS_PER_S * 1e6}
+
+
+def wg_grid(shape, ctas_per_sm: int) -> int:
+    """The redesigned kernel's CTAs on (..., L, n), as ntt_mxu_wg.cu:launch
+    sizes its grid: limbs x runs of a limb's rows, filling the card."""
+    L, batch = shape[-2], int(np.prod(shape[:-2]))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    runs = max(1, ctas_per_sm * sms // L)
+    per = -(-batch // runs)
+    return -(-batch // per) * L
+
+
+def wg_terms(shape, ctas: int, inverse: bool = False) -> dict:
+    """The least times of the redesigned kernel's method on (..., L, n)
+    int64, in microseconds, beside the transform's own bound (ntt_bound):
+    'bytes', the values in and out, each CTA's table planes loaded once
+    (wg_plan's t1 + t2, `ctas` CTAs) and a twiddle pair a value, over 3.35
+    TB/s; 'int8', the 16 plane products of both stages with the tables'
+    padding (2 x 16 x Mp x N x Kp a stage), over 1979 TOPS; 'int32', WG_OPS
+    a value over 16.7 T/s."""
+    from troy_tpu_torch.ops import ntt_mxu as MX
+
+    polys, n = int(np.prod(shape[:-1])), shape[-1]
+    p = MX.wg_plan(n.bit_length() - 1, inverse)
+    nbytes = 2 * polys * n * 8 + ctas * (p["t1"] + p["t2"]) + polys * n * 8
+    int8 = polys * 2 * 16 * (p["M1p"] * p["N1"] * p["K1p"] + p["M2p"] * p["N2"] * p["K2p"])
+    return {"bytes": nbytes / MEM_BYTES_PER_S * 1e6, "int8": int8 / INT8_OPS_PER_S * 1e6,
+            "int32": polys * n * WG_OPS / INT32_OPS_PER_S * 1e6}
 
 
 def bconv_bound(shape, l_out: int) -> tuple[float, str]:
@@ -449,8 +499,12 @@ PTXAS_NAMES = {  # a part of each kernel's mangled name: the name printed
     "ntt_forward_radix2": "ntt_forward radix-2 yardstick",
     "ntt_inverse_radix2": "ntt_inverse radix-2 yardstick",
     "fused_mul_kernelILi13E": "fused_negacyclic_multiply at n = 8192",
-    "ntt_mxu_kernelILb0": "ntt_forward_mxu", "ntt_mxu_kernelILb1": "ntt_inverse_mxu",
+    "ntt_mxu_kernelILb0": "ntt_forward_mxu_mma", "ntt_mxu_kernelILb1": "ntt_inverse_mxu_mma",
     "ntt_mxu_stage_kernel": "ntt_mxu stage kernel (n > 32768)",
+    "ntt_mxu_wg_kernelILb0ELb1": "ntt_forward_mxu (n <= 8192)",
+    "ntt_mxu_wg_kernelILb1ELb1": "ntt_inverse_mxu (n <= 8192)",
+    "ntt_mxu_wg_kernelILb0ELb0": "ntt_forward_mxu (n = 16384)",
+    "ntt_mxu_wg_kernelILb1ELb0": "ntt_inverse_mxu (n = 16384)",
     "fused_mul_radix2": "fused_negacyclic_multiply radix-2 yardstick"}
 
 
@@ -990,7 +1044,9 @@ PROFILED = {  # kernel: parts of its name in the profiler
     "ntt_inverse_cluster": ("ntt_cluster_kernel<", ", true>"),
     "base_convert": ("bconv_kernel",), "fused_negacyclic_multiply": ("fused_mul_kernel",),
     "fused_mul_large": ("fused_mul_large_kernel",),
-    "ntt_forward_mxu": ("ntt_mxu_kernel<false>",), "ntt_inverse_mxu": ("ntt_mxu_kernel<true>",)}
+    "ntt_forward_mxu": ("ntt_mxu_wg_kernel<false",), "ntt_inverse_mxu": ("ntt_mxu_wg_kernel<true",),
+    "ntt_forward_mxu_mma": ("ntt_mxu_kernel<false>",),
+    "ntt_inverse_mxu_mma": ("ntt_mxu_kernel<true>",)}
 
 
 def profile_step(fn, calls: int) -> dict:
@@ -3257,13 +3313,16 @@ def plane_products(x: torch.Tensor, t) -> list:
 
 
 def phase_mxu(dev, gpu: str, main: dict, rot: dict) -> dict:
-    """K2 (csrc/ntt_mxu.cu) under set_ntt_backend("pallas_mxu"): bit for bit
-    against its plain version and K1 at every degree and limb count; at
-    the keyswitch digits and base q on lazy and canonical input; timed
-    against K1 in turns beside its three-term bound and the plane products
-    as torch._int_mm calls; then [main]'s HPS multiply + relinearize and
-    rotate_rows(1) on a context built under the backend, each equal to the
-    K1 step and the all-plain step, decrypting, with its launches."""
+    """K2 under set_ntt_backend("pallas_mxu"): its route (the redesigned
+    kernel csrc/ntt_mxu_wg.cu to n = 16384, the first form csrc/ntt_mxu.cu
+    above) bit for bit against its plain version, K1 and the first form's
+    one-CTA kernel (the yardstick, to 32768) at every degree and limb count;
+    at the keyswitch digits and base q on lazy and canonical input; timed
+    against the yardstick and K1 in turns beside the transform's bound, each
+    form's method terms and the plane products as torch._int_mm calls; then
+    [main]'s HPS multiply + relinearize and rotate_rows(1) on a context
+    built under the backend, each equal to the K1 step and the all-plain
+    step, decrypting, with its launches."""
     from troy_tpu_torch.core.modulus import Modulus
     from troy_tpu_torch.core.evaluator import Evaluator
     from troy_tpu_torch.ops import ntt as NTT, ntt_cuda, ntt_mxu as MX, ntt_mxu_cuda
@@ -3280,6 +3339,7 @@ def phase_mxu(dev, gpu: str, main: dict, rot: dict) -> dict:
             n = 1 << lg
             full = NTT.NTTTables(lg, [Modulus(p) for p in numth.get_primes(2 * n, 30, MXU_LIMBS)],
                                  dev)
+            yard = lg <= MX.ONE_LAUNCH_MAX_LOG_N
             for L in range(1, MXU_LIMBS + 1):
                 t = full.take(list(range(L))) if L < MXU_LIMBS else full
                 x = residues((1, L, n), t.q, gen, 2)
@@ -3287,18 +3347,24 @@ def phase_mxu(dev, gpu: str, main: dict, rot: dict) -> dict:
                 f = ntt_mxu_cuda.ntt_forward(x, t.mxu)
                 i_lazy = ntt_mxu_cuda.ntt_inverse(x, t.mxu)
                 i = ntt_mxu_cuda.ntt_inverse(f, t.mxu)
-                refs = (MX.ntt_forward_mxu(x, t.mxu), ntt_cuda.ntt_forward(x, t),
-                        MX.ntt_inverse_mxu(x, t.mxu), ntt_cuda.ntt_inverse(canon, t))
-                err = max(int((f - refs[0]).abs().max()), int((f - refs[1]).abs().max()),
-                          int((i_lazy - refs[2]).abs().max()),
-                          int((i_lazy - refs[3]).abs().max()))
+                refs = [(f, MX.ntt_forward_mxu(x, t.mxu)), (f, ntt_cuda.ntt_forward(x, t)),
+                        (i_lazy, MX.ntt_inverse_mxu(x, t.mxu)),
+                        (i_lazy, ntt_cuda.ntt_inverse(canon, t))]
+                if yard:
+                    refs += [(f, ntt_mxu_cuda.mma_forward(x, t.mxu)),
+                             (i_lazy, ntt_mxu_cuda.mma_inverse(x, t.mxu))]
+                err = max(int((a - b).abs().max()) for a, b in refs)
                 worst = max(worst, err)
                 if err or not torch.equal(i, canon):
-                    raise AssertionError(f"[mxu] n = {n}, L = {L}: K2 != its plain version or "
-                                         f"K1 (max |err| {err}), or inverse(forward(x)) != x")
-            log(f"[mxu] n = {n} ({t.mxu.plan['launches']} launch(es) a transform), L = 1 .. "
-                f"{MXU_LIMBS}: K2 forward and inverse (lazy input) equal the plain version and "
-                f"K1 bit for bit, inverse(forward(x)) == x")
+                    raise AssertionError(f"[mxu] n = {n}, L = {L}: K2 != its plain version, K1 "
+                                         f"or the yardstick (max |err| {err}), or "
+                                         f"inverse(forward(x)) != x")
+            route = ("the redesigned kernel" if lg <= MX.WG_MAX_LOG_N else
+                     f"the first form, {t.mxu.plan['launches']} launch(es) a transform")
+            log(f"[mxu] n = {n} ({route}), L = 1 .. {MXU_LIMBS}: K2 forward and inverse (lazy "
+                f"input) equal the plain version, K1"
+                + (" and the first form's one-CTA kernel" if yard else "")
+                + " bit for bit, inverse(forward(x)) == x")
         torch.cuda.synchronize()
         log(f"[mxu] every degree 256 .. 131072 at L = 1 .. {MXU_LIMBS} in "
             f"{time.perf_counter() - t0:.3f} s")
@@ -3321,15 +3387,18 @@ def phase_mxu(dev, gpu: str, main: dict, rot: dict) -> dict:
                 f, i = ntt_mxu_cuda.ntt_forward(x, t.mxu), ntt_mxu_cuda.ntt_inverse(x, t.mxu)
                 err = max(int((f - MX.ntt_forward_mxu(x, t.mxu)).abs().max()),
                           int((f - ntt_cuda.ntt_forward(x, t)).abs().max()),
+                          int((f - ntt_mxu_cuda.mma_forward(x, t.mxu)).abs().max()),
                           int((i - MX.ntt_inverse_mxu(x, t.mxu)).abs().max()),
-                          int((i - ntt_cuda.ntt_inverse(canon, t)).abs().max()))
+                          int((i - ntt_cuda.ntt_inverse(canon, t)).abs().max()),
+                          int((i - ntt_mxu_cuda.mma_inverse(x, t.mxu)).abs().max()))
                 worst = max(worst, err)
                 log(f"[mxu] {label} {shape}, {'lazy' if lazy else 'canonical'} input: K2 "
-                    f"against its plain version and K1, max |err| {err}")
+                    f"against its plain version, K1 and the yardstick, max |err| {err}")
                 if err:
                     raise AssertionError(f"[mxu] {label} {shape}: K2 disagrees")
 
-        # times: K2 against K1 in turns (K2, K1, K1, K2), graphs of 50
+        # times: the route against the yardstick and K1 in turns (K2, first
+        # form, K1, K1, first form, K2), graphs of 50
         large = NTT.NTTTables(MXU_LARGE, [Modulus(p) for p in
                                           numth.get_primes(2 << MXU_LARGE, 30, 2)], dev)
         timing = {"keyswitch digits": cases["keyswitch digits"],
@@ -3338,29 +3407,42 @@ def phase_mxu(dev, gpu: str, main: dict, rot: dict) -> dict:
         times = {}
         for label, (shape, t) in timing.items():
             x = residues(shape, t.q, gen)
+            lg = shape[-1].bit_length() - 1
             row = {}
             for inverse in (False, True):
-                k2 = (lambda: ntt_mxu_cuda.ntt_inverse(x, t.mxu)) if inverse else \
-                    (lambda: ntt_mxu_cuda.ntt_forward(x, t.mxu))
-                k1 = (lambda: ntt_cuda.ntt_inverse(x, t)) if inverse else \
-                    (lambda: ntt_cuda.ntt_forward(x, t))
-                a1, b1, b2, a2 = graph_us(k2), graph_us(k1), graph_us(k1), graph_us(k2)
+                direction = "inverse" if inverse else "forward"
+                k2 = lambda: getattr(ntt_mxu_cuda, f"ntt_{direction}")(x, t.mxu)
+                yd = lambda: getattr(ntt_mxu_cuda, f"mma_{direction}")(x, t.mxu)
+                k1 = lambda: getattr(ntt_cuda, f"ntt_{direction}")(x, t)
+                a1, c1, b1, b2, c2, a2 = (graph_us(f) for f in (k2, yd, k1, k1, yd, k2))
                 plain = (MX.ntt_inverse_mxu if inverse else MX.ntt_forward_mxu)
                 plain_us = graph_us(lambda: plain(x, t.mxu), PLAIN_REPS)
                 bound, by = ntt_bound(shape)
-                terms = mxu_terms(shape)
+                if lg <= MX.WG_MAX_LOG_N:
+                    info = ntt_mxu_cuda.wg_info(inverse, lg)
+                    ctas = wg_grid(shape, info["ctas_per_sm"])
+                    terms = wg_terms(shape, ctas, inverse)
+                else:
+                    ctas, terms = None, mxu_terms(shape)
+                yard_terms = mxu_terms(shape)
                 method = max(terms.values())
-                k2_us, k1_us = min(a1, a2), min(b1, b2)
-                name = "ntt_inverse_mxu" if inverse else "ntt_forward_mxu"
-                row[name] = dict(us=k2_us, k1_us=k1_us, plain_us=plain_us, bound=bound, by=by,
-                                 terms=terms)
-                log(f"[mxu] {gpu}: {name} {shape}: K2 {a1:.3f} / {a2:.3f} us, K1 {b1:.3f} / "
-                    f"{b2:.3f} us a launch (graph of {GRAPH_LAUNCHES}); plain {plain_us:.3f} us; "
-                    f"the transform's bound {bound:.3f} us ({by}, as K1's), its share K2 "
-                    f"{100 * bound / k2_us:.1f}%, K1 {100 * bound / k1_us:.1f}%; K2 / K1 "
-                    f"{k2_us / k1_us:.3f}; K2's method: "
+                k2_us, k1_us, yd_us = min(a1, a2), min(b1, b2), min(c1, c2)
+                name = f"ntt_{direction}_mxu"
+                row[name] = dict(us=k2_us, k1_us=k1_us, yard_us=yd_us, plain_us=plain_us,
+                                 bound=bound, by=by, terms=terms, yard_terms=yard_terms,
+                                 ctas=ctas)
+                log(f"[mxu] {gpu}: {name} {shape}: K2 {a1:.3f} / {a2:.3f} us, the first form "
+                    f"(yardstick) {c1:.3f} / {c2:.3f} us, K1 {b1:.3f} / {b2:.3f} us a launch "
+                    f"(graph of {GRAPH_LAUNCHES}); plain {plain_us:.3f} us; the transform's "
+                    f"bound {bound:.3f} us ({by}, as K1's), its share K2 "
+                    f"{100 * bound / k2_us:.1f}%, the first form {100 * bound / yd_us:.1f}%, "
+                    f"K1 {100 * bound / k1_us:.1f}%; K2 / first form {k2_us / yd_us:.3f}, "
+                    f"K2 / K1 {k2_us / k1_us:.3f}; K2's method"
+                    + (f" ({ctas} CTAs, the table planes loaded once each)" if ctas else
+                       " (the first form's route)") + ": "
                     + ", ".join(f"{k} {v:.3f} us" for k, v in terms.items())
-                    + f", K2 at {100 * method / k2_us:.1f}% of their largest")
+                    + f", K2 at {100 * method / k2_us:.1f}% of their largest; the first form's: "
+                    + ", ".join(f"{k} {v:.3f} us" for k, v in yard_terms.items()))
             calls = plane_products(x, t.mxu)
             try:
                 mm_us = graph_us(lambda: [c() for c in calls])
@@ -3382,17 +3464,19 @@ def phase_mxu(dev, gpu: str, main: dict, rot: dict) -> dict:
                                  lambda: step(d1, d2, keys),
                                  ("ntt_forward_mxu", "ntt_inverse_mxu", "base_convert"))
         per_step = (launches["ntt_forward_mxu"], launches["ntt_inverse_mxu"])
-        k1 = launches["ntt_forward"] + launches["ntt_inverse"]
-        if per_step != (5, 4) or k1:
+        others = sum(launches[k] for k in ("ntt_forward", "ntt_inverse", "ntt_forward_mxu_mma",
+                                           "ntt_inverse_mxu_mma"))
+        if per_step != (5, 4) or others:
             raise AssertionError(f"[mxu] the HPS step launched K2 {per_step} (5 forward, 4 "
-                                 f"inverse expected) and K1 {k1} times")
+                                 f"inverse expected) and K1 or the first form {others} times")
         if not torch.equal(out, main["out"]):
             raise AssertionError("[mxu] the HPS step under pallas_mxu != the K1 step")
         pick = [0, BATCH - 1]
         check_decrypts("mxu", "products 0 and 15", out[pick], cd.parms_id,
                        main["expected"][pick], main["encoder"], main["decryptor"])
         log("[mxu] the HPS step under pallas_mxu equals the K1 step and the all-plain step "
-            "bit for bit; K2 5 forward and 4 inverse launches a step, K1 none")
+            "bit for bit; K2 (the redesigned kernel) 5 forward and 4 inverse launches a step, "
+            "K1 and the first form none")
         (rstep, elts), r1 = be.build_rotate_rows_step(1), rot["steps"]["rotate_rows(1)"]
         rkeys = tuple(rot["glk"].key(e) for e in elts)
         rout, rlaunches = run_step("mxu", "rotate_rows(1) under pallas_mxu",
@@ -3458,7 +3542,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     ptxas = [ptxas_start(src) for src in ("ntt.cu", "fused_mul.cu", "fused_mul_large.cu",
-                                          "tensor_product.cu", "ntt_mxu.cu")]
+                                          "tensor_product.cu", "ntt_mxu.cu", "ntt_mxu_wg.cu")]
     lib = _cuda_build.build()
     _cuda_build.load()
     log(f"[build] {lib.name} from {', '.join(p.name for p in _cuda_build.sources())} "
@@ -3491,11 +3575,23 @@ def main() -> int:
                     f"cudaOccupancyMaxActiveClusters)")
                 if info["clusters"] < 1:
                     raise AssertionError(f"[build] no cluster of the NTT fits at n = {deg}")
+    for lg in (N.bit_length() - 1, MX.WG_MAX_LOG_N):
+        for inverse in (False, True):
+            info = ntt_mxu_cuda.wg_info(inverse, lg)
+            plan = MX.wg_plan(lg, inverse)
+            log(f"[build] ntt_{'inverse' if inverse else 'forward'}_mxu at n = {1 << lg}: "
+                f"{info}; the table planes {info['t1'] + info['t2']} bytes, loaded "
+                f"{'once a CTA' if info['resident'] else 'before each stage'} "
+                f"(cudaFuncGetAttributes, cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
+            if (info["ctas_per_sm"] < 1 or info["local_bytes"] or info["smem"] != plan["smem"]
+                    or bool(info["resident"]) != plan["resident"]):
+                raise AssertionError(f"[build] K2's launch shape {info} fits no SM, spills, "
+                                     f"or is not the plan's {plan}")
     for lg in (N.bit_length() - 1, 15, 16):
         plan = MX.kernel_plan(lg)
         smem = max(plan["left"]["smem"], plan["right"]["smem"])
-        kernels = (((0, "ntt_forward_mxu"), (1, "ntt_inverse_mxu")) if plan["launches"] == 1
-                   else ((2, "ntt_mxu stage kernel"),))
+        kernels = (((0, "ntt_forward_mxu_mma"), (1, "ntt_inverse_mxu_mma"))
+                   if plan["launches"] == 1 else ((2, "ntt_mxu stage kernel"),))
         for which, label in kernels:
             info = ntt_mxu_cuda.kernel_info(which, smem)
             log(f"[build] {label} at n = {1 << lg} ({plan['launches']} launch(es) a transform; "
@@ -3838,6 +3934,15 @@ def main() -> int:
             results[-1]["int_mm_ms"] = None if row["int_mm_us"] is None else row["int_mm_us"] / 1e3
         if results[-1]["launches"] == 0:
             raise AssertionError(f"[results] {name} was not launched on its path ({path})")
+    for name, (src, replaces) in MXU_YARDSTICKS.items():  # on no path: timed, not launched
+        row = mxu["times"]["base q"][name.removesuffix("_mma")]
+        results.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": sum(c[name] for c in mxu["launches"].values()), "max_abs_err": mxu["err"],
+            "ms": row["yard_us"] / 1e3, "plain_ms": row["plain_us"] / 1e3,
+            "bound_ms": row["bound"] / 1e3, "bound_by": row["by"], "library_ms": None,
+            "path": None, "yardstick_of": name.removesuffix("_mma"),
+            "method_terms_ms": {k: v / 1e3 for k, v in row["yard_terms"].items()}})
     print(json.dumps({"kernels": results}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Variants of the matrix-product NTT kernel K2 (troy_tpu_torch/csrc/ntt_mxu.cu),
-built side by side and timed in turns on one GPU, to show where its time
-goes.
+"""Variants of the matrix-product NTT kernels K2, built side by side and
+timed in turns on one GPU, to show where their time goes.
 
-    python3 scripts/torch_mxu_variants.py [variant ...]
+    python3 scripts/torch_mxu_variants.py [variant ...]          # csrc/ntt_mxu_wg.cu
+    python3 scripts/torch_mxu_variants.py --first [variant ...]  # csrc/ntt_mxu.cu
 
-Each variant is csrc/ntt_mxu.cu with textual substitutions, built as
+Each variant is the kernel's source with textual substitutions, built as
 scripts/torch_ntt_variants.py builds its variants (its build(), all in
 parallel, into troy_tpu_torch/build/variants/).  At the keyswitch digits
 (96, 7, 8192) and base q (16, 6, 8192) of the flagship HPS step
@@ -14,6 +14,24 @@ the same input and are timed by CUDA events around a CUDA graph of 50
 launches, in the order listed and then in reverse, keeping the lower;
 "(wrong)" marks a result other than the plain transform's, as every
 measurement-only variant gives.
+
+The redesigned kernel (csrc/ntt_mxu_wg.cu, the route to n = 16384):
+
+  committed     the source as it is;
+  no_mma        no wgmma runs (each product replaced by one integer add of
+                its two descriptors into its accumulator): the kernel
+                without its tensor-core work;
+  no_recombine  each epilogue takes the sum of three diagonals for the
+                recombined value (no wide sum, no Barrett step);
+  no_split      no operand split: stage 1 reads the planes left from the
+                last polynomial (the staging row still arrives);
+  no_twiddle    stage 1's epilogue skips the twiddle's load and Shoup
+                product;
+  no_stagger    both warpgroups start their first products at once (no
+                named barrier between them);
+  no_store      stage 2's epilogue writes nothing to device memory.
+
+The first form (csrc/ntt_mxu.cu, with --first; the yardstick):
 
   committed     csrc/ntt_mxu.cu as it is;
   no_mma        the fragments load but no mma.sync runs (each product
@@ -47,6 +65,32 @@ from troy_tpu_torch.core.modulus import Modulus  # noqa: E402
 from troy_tpu_torch.ops import ntt_mxu as MX, ntt_mxu_cuda  # noqa: E402
 from troy_tpu_torch.utils import numth  # noqa: E402
 
+WG_VARIANTS = {
+    "committed": [],
+    "no_mma": [("        wgmma<NT>(acc[i + j], da[i], db[j], k > 0 || (i > 0 && j < 3));",
+                "        acc[i + j][0] += static_cast<int>(da[i] ^ db[j]);")],
+    "no_recombine": [("          v[e] = recombine(acc[0][r], acc[1][r], acc[2][r], acc[3][r], "
+                      "acc[4][r], acc[5][r],\n                           acc[6][r], c);",
+                      "          v[e] = acc[0][r] + acc[3][r] + acc[6][r];")],
+    "no_split": [("__device__ __forceinline__ void split_item(const Split& sp, int i) {\n",
+                  "__device__ __forceinline__ void split_item(const Split& sp, int i) {\n"
+                  "  if (sp.rows >= 0) return;\n")],
+    "no_twiddle": [("          tw[j][h] = m < M ? *reinterpret_cast<const uint4*>(\n"
+                    "                                 ep.twiddle + 2 * (static_cast<size_t>(m) * "
+                    "N + n))\n                           : make_uint4(0, 0, 0, 0);",
+                    "          tw[j][h] = make_uint4(0, 0, 0, 0);"),
+                   ("          v[0] = cond_sub(shoup(v[0], tw[j][h].x, tw[j][h].y, c.q), c.q);\n"
+                    "          v[1] = cond_sub(shoup(v[1], tw[j][h].z, tw[j][h].w, c.q), c.q);\n",
+                    "")],
+    "no_stagger": [("  asm volatile(\"bar.arrive 1, %0;\\n\" ::\"n\"(kThreads) : \"memory\");", ""),
+                   ("  asm volatile(\"bar.sync 1, %0;\\n\" ::\"n\"(kThreads) : \"memory\");", "")],
+    "no_store": [("              *reinterpret_cast<longlong2*>(ep.out + static_cast<size_t>(m) * "
+                  "ep.n2 + n) =\n                  make_longlong2(v[0], v[1]);",
+                  "              if (v[0] == 0xFFFFFFFFu) ep.out[0] = v[1];"),
+                 ("              ep.out[static_cast<size_t>(n) * ep.n2 + m] = v[0];\n"
+                  "              ep.out[static_cast<size_t>(n + 1) * ep.n2 + m] = v[1];",
+                  "              if (v[0] == 0xFFFFFFFFu) ep.out[0] = v[1];")],
+}
 VARIANTS = {
     "committed": [],
     "no_mma": [("              mma_s8(acc[j][i + jp], af[i], bf[jp][j][0], bf[jp][j][1]);",
@@ -65,14 +109,37 @@ def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("torch_mxu_variants: no CUDA device", file=sys.stderr)
         return 1
-    names = argv or list(VARIANTS)
+    first = "--first" in argv
+    argv = [a for a in argv if a != "--first"]
+    variants = VARIANTS if first else WG_VARIANTS
+    names = argv or list(variants)
     dev = chip_smoke.cuda_device()
     gpu = chip_smoke.gpu_line()
     print(f"[device] {gpu}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
-    libs = V.build(names, "ntt_mxu.cu", VARIANTS, ("ntt_mxu_kernel",))
+    if first:
+        libs = V.build(names, "ntt_mxu.cu", variants, ("ntt_mxu_kernel",))
+    else:
+        libs = V.build(names, "ntt_mxu_wg.cu", variants, ("ntt_mxu_wg_kernelILb0ELb1",
+                                                          "ntt_mxu_wg_kernelILb1ELb1"))
     gen = torch.Generator(device=dev).manual_seed(10)
+    kernel = "ntt_mxu" if first else "ntt_mxu_wg"
+
+    def launch_wg(name: str, inverse: bool, x: torch.Tensor, t: MX.MxuNTTTables):
+        fn = getattr(libs[name], f"troy_ntt_{'inverse' if inverse else 'forward'}_mxu_wg")
+        fn.argtypes = ntt_mxu_cuda._WG_ARGTYPES
+        fn.restype = ctypes.c_int
+        out = torch.empty_like(x)
+        t1, t2 = t.wg_w[2:] if inverse else t.wg_w[:2]
+        err = fn(x.data_ptr(), out.data_ptr(), t1.data_ptr(), t2.data_ptr(),
+                 t.wg_twiddle[int(inverse)].data_ptr(), t.wg_scalars.data_ptr(),
+                 x.numel() // t.n, t.size, t.a, t.b, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"[variants] {name} launch failed: CUDA error {err}")
+        return out
 
     def launch(name: str, inverse: bool, x: torch.Tensor, t: MX.MxuNTTTables) -> torch.Tensor:
+        if not first:
+            return launch_wg(name, inverse, x, t)
         fn = getattr(libs[name], f"troy_ntt_{'inverse' if inverse else 'forward'}_mxu")
         fn.argtypes = ntt_mxu_cuda._ARGTYPES
         fn.restype = ctypes.c_int
@@ -101,7 +168,7 @@ def main(argv: list[str]) -> int:
                 us = chip_smoke.graph_us(lambda: launch(name, inverse, x, t))
                 times[name] = min(us, times.get(name, us))
             bound, by = chip_smoke.ntt_bound(shape)
-            print(f"[variants] {gpu}: ntt_{'inverse' if inverse else 'forward'}_mxu {label} "
+            print(f"[variants] {gpu}: {kernel} {'inverse' if inverse else 'forward'} {label} "
                   f"{shape}, bound {bound:.3f} us ({by}): " + ", ".join(
                       f"{n} {times[n]:.3f} us{'' if right[n] else ' (wrong)'}" for n in names),
                   flush=True)

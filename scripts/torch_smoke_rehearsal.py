@@ -22,7 +22,8 @@ CPU twin then runs on the same device); [perop] at n = 1024, batch 2, 2
 repetitions; [eager] 1 repetition; [examples] with --device cpu at the
 twins' own sizes; [mesh] over (data, limb) = (2, 1), (1, 2), (1, 3) at batch
 2, its one-rank multihost mesh on gloo; [mxu] at n = 256 .. 8192 on 1 to 3
-limbs, its timing at (3, 2, 8192) (K2's C call is its plain version).  Times it prints are the CPU's and
+limbs, its timing at (3, 2, 8192) (the C calls of both K2 kernels are
+their plain version).  Times it prints are the CPU's and
 mean nothing.
 """
 import contextlib
@@ -117,6 +118,17 @@ def install_fakes():
         out.copy_(MX.ntt_inverse_mxu(x, t) if "inverse" in name else MX.ntt_forward_mxu(x, t))
         return 0
     ntt_mxu_cuda._call = fake_mxu_call
+    def fake_wg_call(name, x, out, t1, t2, twiddle, t):
+        assert t.wg_w is not None and t1.dtype == torch.uint8
+        return fake_mxu_call(name, x, out, None, t1, t2, t)
+    ntt_mxu_cuda._call_wg = fake_wg_call
+    def fake_wg_info(inverse, log_n):
+        p = MX.wg_plan(log_n, inverse)
+        return {"threads": 256, "smem": p["smem"], "regs": 0, "local_bytes": 0,
+                "ctas_per_sm": 1, "resident": int(p["resident"]),
+                **{k: p[k] for k in ("t1", "t2", "b1", "b2", "staging")}}
+    ntt_mxu_cuda.wg_info = fake_wg_info
+    torch.cuda.get_device_properties = lambda *a: types.SimpleNamespace(multi_processor_count=132)
     ntt_mxu_cuda.kernel_info = lambda w, smem: {"threads": 256, "smem": smem, "regs": 0,
                                                 "local_bytes": 0, "ctas_per_sm": 1}
     def route(kernel, mxu_kernel):

@@ -6,21 +6,30 @@ against the JAX package's troy_tpu/ops/ntt_mxu.py and its Pallas kernel K2
   the JAX tables at log_n 8-14, on the flagship chain's 7 x 30-bit primes
   and on 2 primes;
 * split_balanced and recombine_planes at the edges;
-* the plain ntt_forward_mxu / ntt_inverse_mxu against JAX's XLA form, its
-  interpret-mode kernel and the port's butterfly plain version at log_n
-  8-15, lead shapes (), (2,), (2, 3), lazy input;
-* emulate_mxu, the CUDA kernel's schedule (csrc/ntt_mxu.cu) replayed in
-  PyTorch from the kernel's own tables: kernel_plan's launches, blocks and K
-  chunks, the shared-memory operand layouts with their zero padding, the
-  warps' 16 x 16 tiles in passes, 7 diagonal accumulators asserted inside
-  int32, the recombination, the twiddle Shoup pass and the second stage
-  read back from the output row (or a scratch tensor, two launches), at
-  every degree 256-131072;
+* the plain ntt_forward_mxu / ntt_inverse_mxu against JAX's XLA form
+  (jitted), its interpret-mode kernel and the port's butterfly plain
+  version at log_n 8-15, lead shapes (), (2,), (2, 3), lazy input; the
+  references are computed once a degree on the (2, 3) batch (reference),
+  and the () and (2,) cases take their rows of it;
+* emulate_mxu, the first form of the CUDA kernel (csrc/ntt_mxu.cu, now
+  the yardstick and the route above 16384) replayed in PyTorch from its
+  own tables: kernel_plan's launches, blocks and K chunks, the
+  shared-memory operand layouts with their zero padding, the 16 x 16
+  tiles (computed together: they are independent), 7 diagonal accumulators
+  asserted inside int32 after every 32-deep K step, the recombination, the
+  twiddle Shoup pass and the second stage read back from the output row (or
+  a scratch tensor, two launches), at every degree 256-131072;
+* emulate_wg (test_torch_ntt_mxu_wg.py), the redesigned kernel
+  (csrc/ntt_mxu_wg.cu) replayed from its own tables, at every degree
+  256-131072: equal to the plain version and K1's, and at 256-32768 to the
+  JAX kernel in interpret mode on the same rows;
 * set_ntt_backend / get_ntt_backend against the JAX module's, and the
   BFV HPS multiply + relinearize, a rotation and a limb-sharded step on the
   CPU mesh under "pallas_mxu", against the JAX package's jitted steps;
 * the wrapper's refusals that need no card.
 The kernel itself runs only on the card (chip_smoke.py [mxu])."""
+
+import functools
 
 import numpy as np
 import jax
@@ -44,9 +53,21 @@ from troy_tpu_torch.ops import ntt as TNTT, ntt_mxu as MX, ntt_mxu_cuda
 from troy_tpu_torch.parallel import mesh as M
 from troy_tpu_torch.parallel.batched import BatchedEvaluator
 from troy_tpu_torch.utils import numth
+from tests.test_torch_ntt_mxu_wg import emulate_wg
 
 RNG = np.random.default_rng(2626)
 FLAGSHIP = 7  # bench.py's 7 x 30-bit chain
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """Each test on one torch thread: the suite runs a worker a core or so,
+    and the replays' many small float64 products thrash when every
+    worker's torch takes every core."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def primes_for(log_n: int, count: int) -> list[int]:
@@ -59,8 +80,14 @@ def residues(shape, primes, factor=1) -> np.ndarray:
             ).astype(np.uint32)
 
 
-def tables(log_n: int, primes: list[int]) -> MX.MxuNTTTables:
-    return MX.MxuNTTTables(log_n, [Modulus(p) for p in primes], "cpu")
+@functools.lru_cache(maxsize=None)
+def jax_tables(log_n: int, primes: tuple) -> JMX.MxuNTTTables:
+    """The JAX package's tables, built once for the file."""
+    return JMX.MxuNTTTables(log_n, [JModulus(p) for p in primes])
+
+
+def tables(log_n: int, primes: list[int], wg=False) -> MX.MxuNTTTables:
+    return MX.MxuNTTTables(log_n, [Modulus(p) for p in primes], "cpu", wg=wg)
 
 
 # The JAX tables the port keeps none of: its Pallas kernel's twiddle-folded
@@ -72,7 +99,7 @@ JAX_ONLY = {"T16", "T16_shoup", "Tcorr", "Ti16", "Ti16_shoup", "Ticorr"}
 @pytest.mark.parametrize("log_n", range(8, 15))
 def test_tables_match_jax(log_n, count):
     primes = primes_for(log_n, count)
-    jt = JMX.MxuNTTTables(log_n, [JModulus(p) for p in primes])
+    jt = jax_tables(log_n, tuple(primes))
     tt = tables(log_n, primes)
     plain = MX.plain_tables(tt)
     assert set(plain) | JAX_ONLY == set(jt._host)
@@ -180,48 +207,104 @@ def test_int32_bounds():
 
 
 def jax_pack(log_n: int, primes: list[int]) -> dict:
-    mods = [JModulus(p) for p in primes]
-    tabs = JNTT.NTTTables(log_n, mods)
-    pack = {k: jnp.asarray(v) for k, v in tabs.host.items()}
-    pack.update(tabs._sixstep_pack())
-    pack.update(JMX.MxuNTTTables(log_n, mods).pack_prefixed())
-    return pack
+    """The JAX tables its matrix-product transforms read: q and mxu_*."""
+    jt = jax_tables(log_n, tuple(primes))
+    return {"q": jnp.asarray(np.array(primes, np.uint32)),
+            **{k: jnp.asarray(v) for k, v in jt.pack_prefixed().items()}}
 
 
-@pytest.mark.parametrize("lead", [(), (2,), (2, 3)])
-@pytest.mark.parametrize("log_n", range(8, 16))
-def test_plain_matches_jax_and_k1(log_n, lead):
+@functools.lru_cache(maxsize=None)
+def reference(log_n: int) -> dict:
+    """One input batch a degree, lead (2, 3) on L = 2 limbs, lazy [0, 2q) and
+    canonical, and every reference the file holds the port's transforms
+    to, each computed once: the port's plain forward (lazy) and inverse
+    (canonical), K1's plain version (and its inverse of the lazy input
+    reduced), the JAX package's XLA form (jitted) on the batch, and
+    its Pallas kernel in interpret mode on rows [:, 0] (the lead (2,)
+    case).  A case of lead () or (2,) takes its rows of each."""
     n, L = 1 << log_n, 2
     primes = primes_for(log_n, L)
     tt = tables(log_n, primes)
     kt = TNTT.NTTTables(log_n, [Modulus(p) for p in primes], "cpu")
     pack = jax_pack(log_n, primes)
-    lazy = residues((*lead, L, n), primes, factor=2)
-    canon = residues((*lead, L, n), primes)
-    fwd = MX.ntt_forward_mxu(torch.from_numpy(lazy.astype(np.int64)), tt)
-    inv = MX.ntt_inverse_mxu(torch.from_numpy(canon.astype(np.int64)), tt)
-    assert torch.equal(fwd, TNTT.ntt_forward_plain(torch.from_numpy(lazy.astype(np.int64)), kt))
-    assert torch.equal(inv, TNTT.ntt_inverse_plain(torch.from_numpy(canon.astype(np.int64)), kt))
-    np.testing.assert_array_equal(
-        np.asarray(JMX.ntt_forward_mxu(jnp.asarray(lazy), pack, prefix="mxu_")), fwd.numpy())
-    np.testing.assert_array_equal(
-        np.asarray(JMX.ntt_inverse_mxu(jnp.asarray(canon), pack, prefix="mxu_")), inv.numpy())
-    if lead == (2,):   # interpret mode, compiled anew at each shape
-        np.testing.assert_array_equal(
-            np.asarray(ntt_forward_pallas_mxu(jnp.asarray(lazy), pack)), fwd.numpy())
-        np.testing.assert_array_equal(
-            np.asarray(ntt_inverse_pallas_mxu(jnp.asarray(canon), pack)), inv.numpy())
+    lazy = residues((2, 3, L, n), primes, factor=2)
+    canon = residues((2, 3, L, n), primes)
+    reduced = lazy % np.array(primes, np.uint32)[:, None]
+    t = lambda a: torch.from_numpy(a.astype(np.int64))
+    jfwd = jax.jit(JMX.ntt_forward_mxu, static_argnames=("prefix",))
+    jinv = jax.jit(JMX.ntt_inverse_mxu, static_argnames=("prefix",))
+    return dict(
+        primes=primes, tt=tt, lazy=lazy, canon=canon,
+        fwd=MX.ntt_forward_mxu(t(lazy), tt), inv=MX.ntt_inverse_mxu(t(canon), tt),
+        k1_fwd=TNTT.ntt_forward_plain(t(lazy), kt), k1_inv=TNTT.ntt_inverse_plain(t(canon), kt),
+        k1_inv_lazy=TNTT.ntt_inverse_plain(t(reduced), kt),
+        jax_fwd=np.asarray(jfwd(jnp.asarray(lazy), pack, prefix="mxu_")),
+        jax_inv=np.asarray(jinv(jnp.asarray(canon), pack, prefix="mxu_")),
+        # interpret mode, compiled anew at each shape
+        pallas_fwd=np.asarray(ntt_forward_pallas_mxu(jnp.asarray(lazy[:, 0]), pack)),
+        pallas_inv=np.asarray(ntt_inverse_pallas_mxu(jnp.asarray(canon[:, 0]), pack)))
+
+
+ROWS = {(): (0, 0), (2,): (slice(None), 0), (2, 3): (slice(None), slice(None))}
+
+
+@pytest.mark.parametrize("lead", [(), (2,), (2, 3)])
+@pytest.mark.parametrize("log_n", range(8, 16))
+def test_plain_matches_jax_and_k1(log_n, lead):
+    r = reference(log_n)
+    rows = ROWS[lead]
+    lazy, canon = r["lazy"][rows], r["canon"][rows]
+    fwd = MX.ntt_forward_mxu(torch.from_numpy(lazy.astype(np.int64)), r["tt"])
+    inv = MX.ntt_inverse_mxu(torch.from_numpy(canon.astype(np.int64)), r["tt"])
+    assert fwd.shape == (*lead, 2, 1 << log_n)
+    assert torch.equal(fwd, r["k1_fwd"][rows])
+    assert torch.equal(inv, r["k1_inv"][rows])
+    np.testing.assert_array_equal(r["jax_fwd"][rows], fwd.numpy())
+    np.testing.assert_array_equal(r["jax_inv"][rows], inv.numpy())
+    if lead == (2,):   # the JAX kernel in interpret mode
+        np.testing.assert_array_equal(r["pallas_fwd"], fwd.numpy())
+        np.testing.assert_array_equal(r["pallas_inv"], inv.numpy())
     # the inverse takes lazy input too
-    assert torch.equal(MX.ntt_inverse_mxu(torch.from_numpy(lazy.astype(np.int64)), tt),
-                       TNTT.ntt_inverse_plain(torch.from_numpy(
-                           (lazy % np.array(primes, np.uint32)[:, None]).astype(np.int64)), kt))
+    assert torch.equal(MX.ntt_inverse_mxu(torch.from_numpy(lazy.astype(np.int64)), r["tt"]),
+                       r["k1_inv_lazy"][rows])
+
+
+@pytest.mark.parametrize("log_n", range(8, 18))
+def test_wg_schedule_matches_plain_k1_and_jax(log_n):
+    """emulate_wg, the redesigned kernel's integer steps from its own
+    tables, equals the plain version, K1's plain version and (to 32768) the
+    JAX kernel in interpret mode, forward on lazy input, inverse on
+    canonical and lazy input; above the kernel's degrees (wg=True tables)
+    on one polynomial a limb."""
+    if log_n <= 15:
+        r = reference(log_n)
+        tt = r["tt"] if log_n <= MX.WG_MAX_LOG_N else tables(log_n, r["primes"], wg=True)
+        rows = ROWS[(2,)]
+        lazy = torch.from_numpy(r["lazy"][rows].astype(np.int64))
+        canon = torch.from_numpy(r["canon"][rows].astype(np.int64))
+        fwd, inv = emulate_wg(lazy, tt, False), emulate_wg(canon, tt, True)
+        for got, name in ((fwd, "fwd"), (inv, "inv")):
+            assert torch.equal(got, r[name][rows]) and torch.equal(got, r["k1_" + name][rows])
+            np.testing.assert_array_equal(got.numpy(), r["pallas_" + name])
+        assert torch.equal(emulate_wg(lazy, tt, True), r["k1_inv_lazy"][rows])
+        return
+    primes = primes_for(log_n, 1)
+    tt = tables(log_n, primes, wg=True)
+    kt = TNTT.NTTTables(log_n, [Modulus(p) for p in primes], "cpu")
+    x = torch.from_numpy(residues((1, 1, 1 << log_n), primes, factor=2).astype(np.int64))
+    fwd = emulate_wg(x, tt, False)
+    assert torch.equal(fwd, MX.ntt_forward_mxu(x, tt))
+    assert torch.equal(fwd, TNTT.ntt_forward_plain(x, kt))
+    inv = emulate_wg(x, tt, True)
+    assert torch.equal(inv, MX.ntt_inverse_mxu(x, tt))
+    assert torch.equal(inv, TNTT.ntt_inverse_plain(x % int(primes[0]), kt))
 
 
 # ---------------------------------------------------------------------------
 # The kernel's schedule (csrc/ntt_mxu.cu), replayed from its tables.
 # ---------------------------------------------------------------------------
 
-WARPS, TILE = 8, 16
+TILE = 16
 
 
 def _u32(t: torch.Tensor) -> torch.Tensor:
@@ -244,45 +327,37 @@ def _load_data(src: torch.Tensor, t, stage: dict, left: bool, base: int) -> torc
 
 
 def _run_stage(src, dst, t, stage: dict, left: bool, w: torch.Tensor, twiddle, base: int):
-    """run_stage for every polynomial's block at `base`: passes of WARPS
-    16 x 16 tiles, each over the table's K chunks, then the epilogue."""
+    """run_stage for every polynomial's block at `base`: the block's 16 x 16
+    tiles together (each warp's tile is independent of the others), over
+    the table's K chunks and 32-deep steps, then the epilogue."""
     polys = src.shape[0]
     limbs = torch.arange(polys) % t.size
-    D = _load_data(src, t, stage, left, base).to(torch.int64)
-    Wl = w[:, limbs].movedim(0, 1).to(torch.int64)       # (polys, 4, w_rows, kp)
-    rows = t.n1 if left else stage["block"]
-    cols = stage["block"] if left else t.n2
-    tiles_c = cols // TILE
-    tiles = rows // TILE * tiles_c
+    D = _load_data(src, t, stage, left, base).to(torch.float64)
+    Wl = w[:, limbs].movedim(0, 1).to(torch.float64)     # (polys, 4, w_rows, kp)
+    A, B = (Wl, D) if left else (D, Wl)                   # out[r][c] = sum_k A[r][k] B[c][k]
+    rows, cols = A.shape[2], B.shape[2]
+    assert rows % TILE == 0 and cols % TILE == 0
     sc = _u32(t.kernel_scalars)[limbs].view(polys, -1, 1, 1)
     q = sc[:, 0]
-    fold = stage["k"] <= MX.PAIR_FOLD_MAX_K
-    for t0 in range(0, tiles, WARPS):
-        for tile in range(t0, min(t0 + WARPS, tiles)):
-            tr, tc = divmod(tile, tiles_c)
-            acc = [torch.zeros(polys, TILE, TILE, dtype=torch.int64) for _ in range(7)]
-            for k0 in range(0, stage["kp"], stage["kc"]):
-                ks = slice(k0, k0 + stage["kc"])
-                A = (Wl if left else D)[:, :, TILE * tr:TILE * tr + TILE, ks]
-                B = (D if left else Wl)[:, :, TILE * tc:TILE * tc + TILE, ks]
-                for kk in range(0, stage["kc"], 32):
-                    a, b = A[..., kk:kk + 32], B[..., kk:kk + 32]
-                    for i in range(4):
-                        for j in range(4):
-                            acc[i + j] += a[:, i] @ b[:, j].transpose(-1, -2)
-                    assert all(int(v.abs().max()) < 1 << 31 for v in acc)
-            v = MX.recombine_diagonals(acc, [sc[:, 1 + s] for s in range(4)],
-                                       [sc[:, 5 + s] for s in range(4)],
-                                       [sc[:, 10 + s] for s in range(7)],
-                                       [sc[:, 17 + s] for s in range(7)],
-                                       sc[:, 9], sc[:, 24], q, stage["k"])
-            r0 = TILE * tr + (0 if left else base)
-            c0 = TILE * tc + (base if left else 0)
-            if twiddle is not None:
-                tw = _u32(twiddle[limbs, r0:r0 + TILE, c0:c0 + TILE])
-                v = MX.shoup_lazy(v, tw[..., 0], tw[..., 1], q)
-                v = torch.where(v >= q, v - q, v)
-            dst.view(polys, t.n1, t.n2)[:, r0:r0 + TILE, c0:c0 + TILE] = v
+    acc = [torch.zeros(polys, rows, cols, dtype=torch.int64) for _ in range(7)]
+    for k0 in range(0, stage["kp"], stage["kc"]):
+        for kk in range(k0, k0 + stage["kc"], 32):
+            a, b = A[..., kk:kk + 32], B[..., kk:kk + 32]
+            for i in range(4):
+                for j in range(4):
+                    acc[i + j] += (a[:, i] @ b[:, j].transpose(-1, -2)).to(torch.int64)
+            assert all(int(v.abs().max()) < 1 << 31 for v in acc)
+    v = MX.recombine_diagonals(acc, [sc[:, 1 + s] for s in range(4)],
+                               [sc[:, 5 + s] for s in range(4)],
+                               [sc[:, 10 + s] for s in range(7)],
+                               [sc[:, 17 + s] for s in range(7)],
+                               sc[:, 9], sc[:, 24], q, stage["k"])
+    r0, c0 = (0, base) if left else (base, 0)
+    if twiddle is not None:
+        tw = _u32(twiddle[limbs, r0:r0 + rows, c0:c0 + cols])
+        v = MX.shoup_lazy(v, tw[..., 0], tw[..., 1], q)
+        v = torch.where(v >= q, v - q, v)
+    dst.view(polys, t.n1, t.n2)[:, r0:r0 + rows, c0:c0 + cols] = v
 
 
 def emulate_mxu(x: torch.Tensor, t: MX.MxuNTTTables, inverse: bool) -> torch.Tensor:

@@ -90,7 +90,12 @@ PORT_ONLY = {
         **{n: "the recombination's parts, which the kernel-schedule emulation reuses"
            for n in ("recombine_diagonals", "shoup_lazy")},
         **{n: "the int32 bounds asserted at table build"
-           for n in ("check_int32", "diagonal_bounds")}},
+           for n in ("check_int32", "diagonal_bounds")},
+        "wg_plan": "the redesigned kernel's shared-memory plan (csrc/ntt_mxu_wg.cu)",
+        **{n: "the redesigned kernel's table layout (wgmma core matrices) and constants"
+           for n in ("wg_layout", "wg_unlayout", "wg_scalar_rows")},
+        **{n: "the unsigned planes' bounds and Barrett step, asserted at table build"
+           for n in ("byte_bounds", "wg_diagonal_bounds", "wg_barrett")}},
     ("ops.ntt_mxu", "MxuNTTTables"): {n: "table accessors (JAX packs are dicts)"
                                       for n in ("max_modulus", "size", "take")},
     ("rns.rns_tool64", None): {

@@ -209,10 +209,11 @@ def test_rp_width_dispatch():
 
 
 def make_base(bits, log_n):
-    primes = []
-    for b in bits:
-        p = numth.get_primes(2 * (1 << log_n), b, len(bits) + 4)
-        primes.append(next(q for q in p if q not in primes))
+    primes, pools = [], {}
+    for b in bits:  # one search a bit size
+        if b not in pools:
+            pools[b] = numth.get_primes(2 * (1 << log_n), b, len(bits) + 4)
+        primes.append(next(q for q in pools[b] if q not in primes))
     return primes
 
 
@@ -406,14 +407,41 @@ def _swapped(hi, lo):
     return Swapped(hi, lo)
 
 
-def hps_tie_terms(tool, count: int, rng) -> torch.Tensor:
+def _tree_windows(hi, lo):
+    """F32FmaSum with the window sums above 32 limbs added by halving (a
+    pairwise tree) instead of in order."""
+    from troy_tpu_torch.rns.rns_tool64 import F32FmaSum, add32
+
+    fold = F32FmaSum(hi, lo)
+
+    def estimate(tmp):
+        th = (tmp >> 32).to(torch.float32).to(torch.float64)
+        tl = (tmp & 0xFFFFFFFF).to(torch.float32).to(torch.float64)
+        L = tmp.shape[-2]
+        vals = fold.step(torch.zeros_like(th), th, tl, 0, L)
+        m = -(-L // 32)
+        front = (32 * m - L) // 2
+        sums = []
+        for k in range(m):
+            acc = torch.zeros_like(th[..., :1, :])
+            for i in range(max(0, 32 * k - front), min(L, 32 * (k + 1) - front)):
+                acc = add32(acc, vals[..., i:i + 1, :])
+            sums.append(acc)
+        while len(sums) > 1:
+            sums = [add32(sums[i], sums[i + 1]) if i + 1 < len(sums) else sums[i]
+                    for i in range(0, len(sums), 2)]
+        return sums[0].to(torch.float32)
+    return estimate
+
+
+def hps_tie_terms(tool, count: int, rng, extra=()) -> torch.Tensor:
     """(L, <= count) HPS terms y (the Shoup products of the lift) whose sum
     sum_i y_i / q_i sits at k + 1/2 closely enough that F32FmaSum rounds to
     another alpha than one of the other orders: each product rounded and
     the limbs added in order (the port's estimate before the repair), the
     other vectorisation (a left fold for lanes, a tree for a fold at a
     power-of-two L, 8 lanes for the windows), or the two words of a limb
-    fused the other way round.  The limbs but the last are random, the last scanned about the value
+    fused the other way round, or an order of `extra`.  The limbs but the last are random, the last scanned about the value
     that brings the sum to k + 1/2."""
     from troy_tpu_torch.rns.rns_tool64 import F32FmaSum
 
@@ -421,7 +449,7 @@ def hps_tie_terms(tool, count: int, rng) -> torch.Tensor:
     L = len(q)
     hi, lo = tool.hps_inv_q_hi_f32, tool.hps_inv_q_lo_f32
     fold = F32FmaSum(hi, lo)
-    others = [lambda y: _rounded_products_sum(y, hi, lo), _swapped(hi, lo)]
+    others = [lambda y: _rounded_products_sum(y, hi, lo), _swapped(hi, lo), *extra]
     if fold.windows or fold.lanes > 1 or L & (L - 1) == 0:
         other = F32FmaSum(hi, lo)
         other.windows, other.lanes = False, (8 if fold.windows else 1 if fold.lanes > 1 else L)
@@ -468,3 +496,49 @@ def test_hps_estimate_rounds_as_the_jitted_jax_lift(lead, L, n):
     jx = jnp.stack(jpair(arr), axis=-3)
     import jax
     same_w(jax.jit(T.jtool.fast_b_conv_hps)(jx), T.tool.fast_b_conv_hps(x))
+
+
+def jax_hps_estimate(jtool, jx):
+    """The JAX lift's alpha estimate, the lines of troy_tpu/rns/rns_tool64.py
+    fast_b_conv_hps before its 128-bit dot, as a function of their own: the
+    same ops and the same jnp.sum over the limb axis (jit it to get XLA's
+    order; the whole lift's compile grows with the dot's L x |Bsk| terms to
+    many minutes above 128 limbs)."""
+    from troy_tpu.ops import rp as JR
+
+    conv = jtool.conv_q_to_Bsk
+    h, l = JR.hi_lo(jx)
+    th, tl = JW.shoup_mul64(h, l, conv.inv_punc[0], conv.inv_punc[1], conv.inv_punc_shoup[0],
+                            conv.inv_punc_shoup[1], conv.iq[0], conv.iq[1])
+    lead = (1,) * (th.ndim - 2)
+    return jnp.sum(th.astype(jnp.float32) * jtool.hps_inv_q_hi_f32.reshape(lead + (-1, 1))
+                   + tl.astype(jnp.float32) * jtool.hps_inv_q_lo_f32.reshape(lead + (-1, 1)),
+                   axis=-2, keepdims=True)
+
+
+@pytest.mark.parametrize("L", [160, 256])
+def test_hps_estimate_above_128_rounds_as_the_jitted_jax_sum(L):
+    """Above 128 limbs (5 and 8 windows of 32): the port's estimate
+    (F32FmaSum, the window sums added in order) at terms built to sit at
+    k + 1/2, where the other orders and window sums added by a tree round
+    apart, equals the JAX lift's own estimate jitted, float32 bit for bit,
+    and so rounds to the same alpha."""
+    import jax
+
+    n, lead = 32, (2,)
+    T = Tools([60] + [40] * (L - 1), 5)
+    rng = np.random.default_rng(1000 * L + n)
+    cols = 2 * n
+    hi, lo = T.tool.hps_inv_q_hi_f32, T.tool.hps_inv_q_lo_f32
+    ties = hps_tie_terms(T.tool, cols, rng, extra=[_tree_windows(hi, lo)])
+    assert ties.shape[1] == cols, ties.shape
+    x = torch.tensor([[a * pow(ip, -1, q) % q for a in row] for row, ip, q in
+                      zip(ties.tolist(), T.base.inv_punctured, T.primes)], dtype=torch.int64)
+    x = x.view(L, *lead, n).movedim(0, -2).contiguous()
+    terms = T.tool.conv_q_to_Bsk._shoup_terms(x)
+    assert torch.equal(terms.movedim(-2, 0).reshape(L, -1), ties)
+    got = T.tool.hps_sum(terms).to(torch.float32)
+    jx = jnp.stack(jpair(x.numpy().astype(np.uint64)), axis=-3)
+    want = np.asarray(jax.jit(lambda a: jax_hps_estimate(T.jtool, a))(jx))
+    np.testing.assert_array_equal(got.numpy().reshape(-1), want.reshape(-1))
+    assert not torch.equal(got, _tree_windows(hi, lo)(terms))

@@ -29,9 +29,11 @@ Two implementations of one function:
     below 2^25, so exact on the CPU and the card); the recombination runs
     the kernel's u32 Shoup arithmetic in int64 (recombine_planes).  CPU
     tensors take it; it is the reference the kernel is held to.
-  * ops/ntt_mxu_cuda.py: the hand-written Hopper kernel (csrc/ntt_mxu.cu),
-    which serves CUDA tensors when the NTT backend is "mxu" or
-    "pallas_mxu" (ops/ntt.py:set_ntt_backend).
+  * ops/ntt_mxu_cuda.py: the hand-written Hopper kernels, which serve CUDA
+    tensors when the NTT backend is "mxu" or "pallas_mxu"
+    (ops/ntt.py:set_ntt_backend): csrc/ntt_mxu_wg.cu up to n = 2^WG_MAX_LOG_N
+    (wgmma on unsigned byte planes, the wg_* tables below), csrc/ntt_mxu.cu
+    above (the first form of the kernel, on the balanced planes).
 
 MxuNTTTables holds the tables once, in the kernel's layout, on the default
 split a = log2(n1) = log_n // 2: the digit planes of W1, W2, W1i, W2i with
@@ -43,6 +45,13 @@ version.  The JAX package's Pallas kernel also keeps twiddle-folded
 weights (T16, Ti16, Tcorr, Ticorr); the port's kernel applies the twiddle
 by one Shoup product and keeps none.  kernel_plan gives the kernel's
 launches, shared-memory tiles and K chunks at each degree.
+
+The redesigned kernel (csrc/ntt_mxu_wg.cu) takes its own tables, wg_*: the
+unsigned bytes of each stage's table (W1, W2^T, W2i^T, W1i, the wgmma A
+operand) in the core-matrix layout of wgmma (wg_layout), the twiddles in
+its first stage's output order, and per limb the recombination's
+constants (wg_scalar_rows: the Barrett shift and factor of wg_barrett and
+2^32, 2^48 mod q).  wg_plan gives its shared-memory plan.
 """
 
 from __future__ import annotations
@@ -325,6 +334,107 @@ def kernel_plan(log_n: int) -> dict:
                 left=_stage_plan(n2, n1, n1, two), right=_stage_plan(n1, n2, n2, two))
 
 
+# ---------------------------------------------------------------------------
+# The redesigned kernel (csrc/ntt_mxu_wg.cu): its plan, bounds and tables.
+# Every stage is D[m][n] = sum_k W[m][k] V[n][k], the table W the wgmma A
+# operand (M rows, zero-padded to 64, K to 32), the data V the B operand:
+#   forward  stage 1 W1 (M = n1), V = X^T (N = n2); stage 2 W2^T (M = n2),
+#            V = stage 1's output (N = n1);
+#   inverse  stage 1 W2i^T (M = n2), V = X (N = n1); stage 2 W1i (M = n1),
+#            V = stage 1's output (N = n2).
+# ---------------------------------------------------------------------------
+
+WG_MAX_LOG_N = 14                # above, the first form (csrc/ntt_mxu.cu) serves
+WG_SMEM_LIMIT = 232448 - 1024    # ntt_mxu_wg.cu kMaxSmem
+WG_SCALAR_SLOTS = 8              # q, mu, shift, c4, c6, 0, 0, 0
+
+
+def wg_plan(log_n: int, inverse: bool) -> dict:
+    """ntt_mxu_wg.cu:make_plan: stage 1's table M1 x M1 (padded M1p x K1p)
+    and data N1 rows, stage 2's M2 = N1 and N2 = M1; the bytes of the two
+    tables (t1, t2), the two operand plane sets (b1, b2) and the staging row
+    of the next polynomial's int64 values; 'resident' when all of them fit
+    (the tables then load once a CTA), else one table buffer reloaded before
+    each stage and no staging row."""
+    n1, n2 = _split_factors(log_n)
+    M1, N1 = (n2, n1) if inverse else (n1, n2)
+    M2, N2 = N1, M1
+    K1p, M1p, K2p, M2p = max(32, M1), max(64, M1), max(32, M2), max(64, M2)
+    t1, t2 = 4 * M1p * K1p, 4 * M2p * K2p
+    b1, b2 = 4 * N1 * K1p, 4 * N2 * K2p
+    full = t1 + t2 + b1 + b2 + 8 * n1 * n2
+    resident = full <= WG_SMEM_LIMIT
+    return dict(n1=n1, n2=n2, M1=M1, N1=N1, M2=M2, N2=N2, K1p=K1p, M1p=M1p, K2p=K2p,
+                M2p=M2p, t1=t1, t2=t2, b1=b1, b2=b2, staging=8 * n1 * n2 if resident else 0,
+                resident=resident,
+                smem=full if resident else max(t1, t2) + b1 + b2,
+                nt1=32 if N1 % 32 == 0 else 16, nt2=32 if N2 % 32 == 0 else 16)
+
+
+def byte_bounds(q: int) -> list[int]:
+    """The largest value of each byte of a residue in [0, q)."""
+    m = q - 1
+    return [255 if m >> (8 * (i + 1)) else (m >> (8 * i)) & 255 for i in range(N_LIMBS)]
+
+
+def wg_diagonal_bounds(contraction: int, q: int) -> list[int]:
+    """The largest sum of each diagonal s = i + j of the unsigned plane
+    products over a contraction of that length, both operands in [0, q)."""
+    b = byte_bounds(q)
+    return [contraction * sum(b[i] * b[s - i]
+                              for i in range(max(0, s - N_LIMBS + 1), min(N_LIMBS, s + 1)))
+            for s in range(N_DIAGS)]
+
+
+def wg_barrett(q: int, contraction: int) -> tuple[int, int, list[int]]:
+    """The recombination's constants for modulus q and contractions up to
+    `contraction`: the shift s and mu = floor(2^(s + 32) / q) of its Barrett
+    step, and c4 = 2^32 mod q, c6 = 2^48 mod q.  With v = sum_{s<4} P_s
+    2^(8s) + c4 (P4 + 2^8 P5) + c6 P6 (P4 + 2^8 P5 below 2^32, as c4 2^8 =
+    2^40 mod q) below 2^(s + 32) and 2^s < q, qhat = umulhi(v >> s, mu)
+    leaves v - qhat q in [0, 3q); every diagonal stays below 2^31 (all
+    asserted)."""
+    d = wg_diagonal_bounds(contraction, q)
+    assert max(d) < _HALF and d[4] + (d[5] << 8) <= _M32, (q, contraction, d)
+    c = [pow(2, 32, q), pow(2, 48, q)]
+    vmax = sum(d[s] << (8 * s) for s in range(4)) + (d[4] + (d[5] << 8)) * c[0] + d[6] * c[1]
+    shift = max(0, vmax.bit_length() - 32)
+    mu = (1 << (shift + 32)) // q
+    assert (1 << shift) < q and mu < 1 << 32 and 3 * q <= _M32, (q, contraction, shift)
+    return shift, mu, c
+
+
+def wg_scalar_rows(moduli: list[Modulus], contraction: int) -> np.ndarray:
+    """(L, 8) u32: q, mu, shift, c4, c6, 0, 0, 0 a limb (wg_barrett)."""
+    out = np.zeros((len(moduli), WG_SCALAR_SLOTS), np.uint32)
+    for l, mod in enumerate(moduli):
+        shift, mu, c = wg_barrett(mod.value, contraction)
+        out[l, :5] = [mod.value, mu, shift, *c]
+    return out
+
+
+def wg_layout(m: np.ndarray) -> np.ndarray:
+    """(L, M, K) u32 table -> (L, 4 Mp Kp) u8: its 4 unsigned byte planes,
+    zero-padded to Mp = max(64, M) rows and Kp = max(32, K), each in wgmma's
+    K-major core-matrix order (row group, K block of 16, row in group, byte):
+    element (p, r, k) at p Mp Kp + ((r / 8) (Kp / 16) + k / 16) 128 + (r % 8)
+    16 + k % 16."""
+    L, M, K = m.shape
+    Mp, Kp = max(64, M), max(32, K)
+    planes = np.zeros((L, N_LIMBS, Mp, Kp), np.uint8)
+    planes[:, :, :M, :K] = np.ascontiguousarray(m, dtype="<u4").view(np.uint8).reshape(
+        L, M, K, N_LIMBS).transpose(0, 3, 1, 2)
+    return np.ascontiguousarray(planes.reshape(L, N_LIMBS, Mp // 8, 8, Kp // 16, 16)
+                                .transpose(0, 1, 2, 4, 3, 5)).reshape(L, -1)
+
+
+def wg_unlayout(w: torch.Tensor, M: int, K: int) -> torch.Tensor:
+    """wg_layout's inverse: (L, 4 Mp Kp) u8 -> (L, 4, M, K) byte planes."""
+    Mp, Kp = max(64, M), max(32, K)
+    planes = w.reshape(-1, N_LIMBS, Mp // 8, Kp // 16, 8, 16).permute(0, 1, 2, 4, 3, 5)
+    return planes.reshape(-1, N_LIMBS, Mp, Kp)[:, :, :M, :K]
+
+
 class MxuNTTTables:
     """Per-(n, moduli) tables of the matrix-product transform on one device,
     in the kernel's layout (u32 bit patterns as int32, planes int8):
@@ -335,11 +445,22 @@ class MxuNTTTables:
       kernel_twiddle (2, L, n1, n2, 2): (T, T') and (Ti, Ti') pairs;
       kernel_scalars (L, 32): _kernel_scalar_rows.
 
+    Up to n = 2^WG_MAX_LOG_N, the redesigned kernel's (else None):
+
+      wg_w (forward stage 1, stage 2, inverse stage 1, stage 2): W1, W2^T,
+        W2i^T, W1i as (L, 4 Mp Kp) u8 (wg_layout);
+      wg_twiddle (2, L, 2n): T as (n1, n2, 2) and Ti transposed, (n2, n1,
+        2), (w, w') u32 pairs in each first stage's output order;
+      wg_scalars (L, 8): wg_scalar_rows for the contraction n2.
+
+    wg=True builds them above WG_MAX_LOG_N too (the CPU replay of the
+    kernel's integer steps).
+
     The plain version reads them through plain_tables."""
 
     _cache: dict = {}  # (log_n, q) -> the six uint32 matrices
 
-    def __init__(self, log_n: int, moduli: list[Modulus], device):
+    def __init__(self, log_n: int, moduli: list[Modulus], device, wg: bool = False):
         if not MIN_LOG_N <= log_n <= MAX_LOG_N:
             raise ValueError(f"[MxuNTTTables] n = 2^{log_n} outside [2^{MIN_LOG_N}, "
                              f"2^{MAX_LOG_N}]")
@@ -368,6 +489,15 @@ class MxuNTTTables:
         self.kernel_twiddle = torch.from_numpy(twiddle.view(np.int32)).to(self.device)
         self.kernel_scalars = torch.from_numpy(
             _kernel_scalar_rows(self.moduli).view(np.int32)).to(self.device)
+        self.wg_w = self.wg_twiddle = self.wg_scalars = None
+        if wg or log_n <= WG_MAX_LOG_N:
+            mats = (W1, W2.swapaxes(-1, -2), W2i.swapaxes(-1, -2), W1i)
+            self.wg_w = tuple(torch.from_numpy(wg_layout(m)).to(self.device) for m in mats)
+            tw = np.stack([twiddle[0].reshape(len(self.moduli), -1),
+                           twiddle[1].swapaxes(1, 2).reshape(len(self.moduli), -1)])
+            self.wg_twiddle = torch.from_numpy(tw.view(np.int32)).to(self.device)
+            self.wg_scalars = torch.from_numpy(
+                wg_scalar_rows(self.moduli, self.n2).view(np.int32)).to(self.device)
 
     @property
     def size(self) -> int:
@@ -387,6 +517,11 @@ class MxuNTTTables:
         out.kernel_w = tuple(w[:, ix].contiguous() for w in self.kernel_w)
         out.kernel_twiddle = self.kernel_twiddle[:, ix].contiguous()
         out.kernel_scalars = self.kernel_scalars[ix].contiguous()
+        out.wg_w = out.wg_twiddle = out.wg_scalars = None
+        if self.wg_w is not None:
+            out.wg_w = tuple(w[ix].contiguous() for w in self.wg_w)
+            out.wg_twiddle = self.wg_twiddle[:, ix].contiguous()
+            out.wg_scalars = self.wg_scalars[ix].contiguous()
         return out
 
 
