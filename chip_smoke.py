@@ -246,24 +246,34 @@ In phases:
               a one-rank NCCL make_multihost_mesh(hosts=1) data-parallel step
               with no collective;
  22. mxu      K2, the matrix-product NTT, under set_ntt_backend("pallas_mxu"),
-              restored after: its route (the redesigned kernel
-              csrc/ntt_mxu_wg.cu to n = 16384, the first form csrc/ntt_mxu.cu
-              above) forward and inverse (lazy input) bit for bit against its
-              plain version (ops/ntt_mxu.py), K1 and, to 32768, the first
-              form's one-CTA kernel (the yardstick) at every degree 256 ..
-              131072 on 1 to 7 limbs, at the keyswitch digits (96, 7, 8192)
-              and base q (16, 6, 8192) on lazy and canonical input; the route
-              against the yardstick and K1 in turns by CUDA graphs at those
-              shapes and (3, 2, 65536) beside the transform's bound (ntt_bound,
-              as K1's), each K2 form's method terms (wg_terms, mxu_terms:
-              bytes with the table planes, int8 tensor-core and int32
-              operations) and the plane products alone as torch._int_mm calls
-              (a yardstick, no route); [main]'s HPS
-              multiply + relinearize and rotate_rows(1) on a context built
-              under the backend: 5 forward and 4 inverse K2 launches a step
-              and no K1, each equal to the K1 step and to its all-plain run,
-              ciphertexts 0 and 15 decrypting, with the profiler's launches,
-              device ms, K2 ms and busy share beside the K1 step's;
+              restored after: its route (csrc/ntt_mxu_wg.cu to n = 16384,
+              the cluster kernel csrc/ntt_mxu_cluster.cu above: a polynomial
+              a cluster of 8 or 16 CTAs, one launch a transform) forward
+              and inverse (lazy input) bit for bit against its plain version
+              (ops/ntt_mxu.py), K1 and the first form (csrc/ntt_mxu.cu, the
+              yardstick: its one-CTA kernel to 32768, two launches of its
+              stage kernel above) at every degree 256 .. 131072 on 1 to 7
+              limbs, above 16384 in every cluster size the kernel takes; at
+              the keyswitch digits (96, 7, 8192) and base q (16, 6, 8192) on
+              lazy and canonical input; the cluster route's refusals (a
+              tensor off 16 bytes, clusters of 4 and 32, a CPU tensor); the
+              route against the yardstick and K1 in turns by CUDA graphs at
+              those shapes, (3, 2, n) for n = 32768, 65536, 131072 and the
+              n = 65536 step's digits (16, 9, 65536), beside the transform's
+              bound (ntt_bound, as K1's), each K2 form's method terms
+              (wg_terms, cl_terms, mxu_terms: bytes with the table planes,
+              int8 tensor-core and int32 operations) and the plane products
+              alone as torch._int_mm calls (a yardstick, no route); the
+              cluster sizes in turns at (3, 2, 65536) and the digits;
+              [main]'s HPS multiply + relinearize and rotate_rows(1) on a
+              context built under the backend: 5 forward and 4 inverse K2
+              launches a step and no K1, each equal to the K1 step and to
+              its all-plain run, ciphertexts 0 and 15 decrypting; and
+              [large_n]'s n = 65536 HPS step on a context built under the
+              backend: the cluster kernel 5 + 4 launches, K3 3, no K1 and no
+              first form, equal to the K1 step and the all-plain step, both
+              products decrypting; each with the profiler's launches, device
+              ms, K2 ms and busy share beside its K1 step's;
  23. times    CUDA-event times of the chained steps against their all-plain
               versions (multiply + relinearize, the three rotations, the mod
               switch), the profiler's launches, device time, NTT kernel time
@@ -282,10 +292,10 @@ Bounds: the least time the card could take for a launch's work, the larger
 of its bytes (each input read once, each output written once) over
 3.35 TB/s and its int32 operations over 132 SMs x 64 lanes x 1.98 GHz
 (the H100 SXM's published memory rate and boost clock); K2's bound is
-the transform's, as K1's, and its method's terms (wg_terms for the
-redesigned kernel, mxu_terms for the first form: its table planes' bytes,
-int8 tensor-core operations over 1979 TOPS, the split and recombination's
-int32 operations) are printed beside it.
+the transform's, as K1's, and its method's terms (wg_terms for the kernel
+to 16384, cl_terms for the cluster kernel, mxu_terms for the first form:
+its table planes' bytes, int8 tensor-core operations over 1979 TOPS, the
+split and recombination's int32 operations) are printed beside it.
 
 Prints one JSON line of kernel results (each kernel's launches on the path
 that runs it, with every path's count under "paths"), then the nvidia-smi
@@ -349,15 +359,25 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                                   "troy_tpu/ops/fused_mul.py:75"),
     "fused_mul_large": ("troy_tpu_torch/csrc/fused_mul_large.cu",
                         "troy_tpu/ops/fused_mul.py:75"),
+    "ntt_forward_mxu_cluster": ("troy_tpu_torch/csrc/ntt_mxu_cluster.cu",
+                                "troy_tpu/ops/ntt_pallas.py:206"),
+    "ntt_inverse_mxu_cluster": ("troy_tpu_torch/csrc/ntt_mxu_cluster.cu",
+                                "troy_tpu/ops/ntt_pallas.py:228"),
 }
 NTT_KERNELS = [k for k in KERNELS if k.startswith("ntt_")]
 MXU_KERNELS = ("ntt_forward_mxu", "ntt_inverse_mxu")   # K2, under set_ntt_backend("pallas_mxu")
-# K2's first form (csrc/ntt_mxu.cu's one-CTA kernel): the yardstick the
-# redesigned kernel is timed against, on no path at n <= 16384; listed in
-# the kernels line beside the route's two.
+MXU_CLUSTER_KERNELS = ("ntt_forward_mxu_cluster", "ntt_inverse_mxu_cluster")  # K2 above 16384
+# K2's first form (csrc/ntt_mxu.cu: its one-CTA kernel to n = 32768, two
+# launches of its stage kernel above): the yardstick the route's two kernels
+# are timed against, on no path at any degree; listed in the kernels line
+# beside the route's kernels.
 MXU_YARDSTICKS = {
     "ntt_forward_mxu_mma": ("troy_tpu_torch/csrc/ntt_mxu.cu", "troy_tpu/ops/ntt_pallas.py:206"),
-    "ntt_inverse_mxu_mma": ("troy_tpu_torch/csrc/ntt_mxu.cu", "troy_tpu/ops/ntt_pallas.py:228")}
+    "ntt_inverse_mxu_mma": ("troy_tpu_torch/csrc/ntt_mxu.cu", "troy_tpu/ops/ntt_pallas.py:228"),
+    "ntt_forward_mxu_stages": ("troy_tpu_torch/csrc/ntt_mxu.cu",
+                               "troy_tpu/ops/ntt_pallas.py:206"),
+    "ntt_inverse_mxu_stages": ("troy_tpu_torch/csrc/ntt_mxu.cu",
+                               "troy_tpu/ops/ntt_pallas.py:228")}
 # The cluster routes' yardsticks (the two-launch NTT pair and the tensor
 # product between its calls): timed against them in [large_n], held to their
 # plain versions in [kernels], launched on no path.
@@ -460,6 +480,28 @@ def wg_terms(shape, ctas: int, inverse: bool = False) -> dict:
             "int32": polys * n * WG_OPS / INT32_OPS_PER_S * 1e6}
 
 
+def cl_terms(shape, inverse: bool = False, log_c: int | None = None) -> dict:
+    """The least times of the cluster kernel's method (csrc/ntt_mxu_cluster.cu)
+    on (..., L, n) int64, in microseconds, beside the transform's own bound
+    (ntt_bound): 'bytes', the values in and out, a twiddle pair a value,
+    and both tables' planes streamed by every CTA of a polynomial's cluster
+    (C (4 M1 K1 + 4 M2 K2) a polynomial, from L2 where they stay), over
+    3.35 TB/s; 'int8', the 16 plane products of both stages (2 x 16 x M x N
+    x K a stage, no padding above 16384), over 1979 TOPS; 'int32', WG_OPS a
+    value (the same arithmetic as ntt_mxu_wg.cu), over 16.7 T/s.  The
+    hand-off across the cluster, 4 bytes a value over distributed shared
+    memory, has no published rate and no term."""
+    from troy_tpu_torch.ops import ntt_mxu as MX
+
+    polys, n = int(np.prod(shape[:-1])), shape[-1]
+    p = MX.cl_plan(n.bit_length() - 1, inverse, log_c)
+    tables = 4 * (p["M1"] * p["K1"] + p["M2"] * p["K2"])
+    nbytes = polys * (2 * n * 8 + n * 8 + p["C"] * tables)
+    int8 = polys * 2 * 16 * (p["M1"] * p["N1"] * p["K1"] + p["M2"] * p["N2"] * p["K2"])
+    return {"bytes": nbytes / MEM_BYTES_PER_S * 1e6, "int8": int8 / INT8_OPS_PER_S * 1e6,
+            "int32": polys * n * WG_OPS / INT32_OPS_PER_S * 1e6}
+
+
 def bconv_bound(shape, l_out: int) -> tuple[float, str]:
     """K3 on (..., L_in, n) -> (..., L_out, n): per column a Shoup scale of
     each input (3 ops), a 64-bit multiply-add per input and output (2), one
@@ -505,7 +547,13 @@ PTXAS_NAMES = {  # a part of each kernel's mangled name: the name printed
     "ntt_mxu_wg_kernelILb1ELb1": "ntt_inverse_mxu (n <= 8192)",
     "ntt_mxu_wg_kernelILb0ELb0": "ntt_forward_mxu (n = 16384)",
     "ntt_mxu_wg_kernelILb1ELb0": "ntt_inverse_mxu (n = 16384)",
-    "fused_mul_radix2": "fused_negacyclic_multiply radix-2 yardstick"}
+    "fused_mul_radix2": "fused_negacyclic_multiply radix-2 yardstick",
+    "ntt_mxu_cluster_kernelILb0ELi32ELi16E": "ntt_forward_mxu_cluster (n = 32768, C = 8)",
+    "ntt_mxu_cluster_kernelILb0ELi32ELi32E": "ntt_forward_mxu_cluster (R = 32)",
+    "ntt_mxu_cluster_kernelILb0ELi16ELi16E": "ntt_forward_mxu_cluster (R = 16)",
+    "ntt_mxu_cluster_kernelILb1ELi16ELi32E": "ntt_inverse_mxu_cluster (R1 = 16, R2 = 32)",
+    "ntt_mxu_cluster_kernelILb1ELi32ELi32E": "ntt_inverse_mxu_cluster (R = 32)",
+    "ntt_mxu_cluster_kernelILb1ELi16ELi16E": "ntt_inverse_mxu_cluster (R = 16)"}
 
 
 def ptxas_start(source: str) -> subprocess.Popen:
@@ -530,6 +578,13 @@ def ptxas_report(proc: subprocess.Popen):
             current = next((v for k, v in PTXAS_NAMES.items() if k in line), None)
         elif current and ("spill" in line or "registers" in line):
             log(f"[build] ptxas, {current}: {line.split(':', 1)[-1].strip()}")
+        elif "wgmma" in line:  # a serialized wgmma pipeline
+            log(f"[build] ptxas, {source_of(line)}: {line.split(':', 1)[-1].strip()}")
+
+
+def source_of(line: str) -> str:
+    """The kernel a ptxas line names, by PTXAS_NAMES, or the line's function."""
+    return next((v for k, v in PTXAS_NAMES.items() if k in line), "a kernel")
 
 
 def cuda_device() -> torch.device:
@@ -1046,38 +1101,86 @@ PROFILED = {  # kernel: parts of its name in the profiler
     "fused_mul_large": ("fused_mul_large_kernel",),
     "ntt_forward_mxu": ("ntt_mxu_wg_kernel<false",), "ntt_inverse_mxu": ("ntt_mxu_wg_kernel<true",),
     "ntt_forward_mxu_mma": ("ntt_mxu_kernel<false>",),
-    "ntt_inverse_mxu_mma": ("ntt_mxu_kernel<true>",)}
+    "ntt_inverse_mxu_mma": ("ntt_mxu_kernel<true>",),
+    "ntt_forward_mxu_cluster": ("ntt_mxu_cluster_kernel<false",),
+    "ntt_inverse_mxu_cluster": ("ntt_mxu_cluster_kernel<true",),
+    "ntt_mxu_stages": ("ntt_mxu_stage_kernel",)}
+
+
+PROFILER_ATTEMPTS = 5   # sessions a call, until a call's every session recorded nothing
+PROFILER_PAUSE_S = 1.0
+PROFILER = {"failed": 0}  # calls that took counted_step
+COUNTED = {**{name: (name,) for name in PROFILED},  # kernel: its wrappers' counters
+           "ntt_mxu_stages": ("ntt_forward_mxu_stages", "ntt_inverse_mxu_stages")}
+
+
+def profiler_kernels(fn, calls: int) -> list:
+    """One profiler session over `calls` calls of fn: the key averages of
+    its device kernels (the leading spin kernel left out)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        # the profiler at times drops a session's first kernel: let that be
+        # this spin_kernel, which is not counted either way
+        torch.cuda._sleep(1000)
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation
+            and "spin_kernel" not in e.key]
 
 
 def profile_step(fn, calls: int) -> dict:
     """Per call of fn, from the profiler's device events: kernel launches,
-    device milliseconds, and each port kernel's launches and milliseconds."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    for attempt in range(1, 4):
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
-            # the profiler at times drops a session's first kernel: let that be
-            # this spin_kernel, which is not counted either way
-            torch.cuda._sleep(1000)
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation
-                   and "spin_kernel" not in e.key]
+    device milliseconds, and each port kernel's launches and milliseconds.
+    The profiler at times records no device kernel in a session, and then in
+    every later one of the process: after PROFILER_ATTEMPTS such sessions
+    (one, once a call has failed) the port kernels' launches come from their
+    wrappers' counts and every device time and the step's launch count are
+    not measured (nan)."""
+    attempts = 1 if PROFILER["failed"] else PROFILER_ATTEMPTS
+    for attempt in range(1, attempts + 1):
+        kernels = profiler_kernels(fn, calls)
         if kernels:
             break
-        # and at times a short session's every kernel
-        log(f"[times] the profiler recorded no device kernels (attempt {attempt} of 3)")
+        log(f"[times] the profiler recorded no device kernels (attempt {attempt} of "
+            f"{attempts})")
+        time.sleep(PROFILER_PAUSE_S)
     else:
-        raise AssertionError("[times] the profiler recorded no device kernels")
+        PROFILER["failed"] += 1
+        return counted_step(fn, calls, attempts)
     out = {"launches": sum(e.count for e in kernels) / calls,
-           "ms": sum(e.self_device_time_total for e in kernels) / 1e3 / calls}
+           "ms": sum(e.self_device_time_total for e in kernels) / 1e3 / calls,
+           "profiled": True}
     for name, parts in PROFILED.items():
         mine = [e for e in kernels if all(p in e.key for p in parts)]
         out[name] = (sum(e.count for e in mine) / calls,
                      sum(e.self_device_time_total for e in mine) / 1e3 / calls)
     return out
+
+
+def counted_step(fn, calls: int, sessions: int) -> dict:
+    """profile_step's result where the profiler records nothing: each port
+    kernel's launches a call of fn by its wrappers' counts; the step's
+    launches and every device time nan (not measured)."""
+    before = launch_counts()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    after = launch_counts()
+    nan = float("nan")
+    log(f"[times] the profiler recorded no device kernels in {sessions} session(s): "
+        "the port kernels' launches from their counts, device times not measured")
+    out = {"launches": nan, "ms": nan, "profiled": False}
+    for name, keys in COUNTED.items():
+        out[name] = (sum(after[k] - before[k] for k in keys) / calls, nan)
+    return out
+
+
+def measured(x: float):
+    """x, or None where it was not measured (nan): JSON has no nan."""
+    return None if x != x else x
 
 
 def record_launches(fn) -> list:
@@ -1789,7 +1892,9 @@ def phase_large_n(dev, gpu: str, degrees: dict) -> dict:
     log(f"[large_n] {gpu}: the step's {len(ntt_calls)} transforms by cluster size, in turns: "
         + "; ".join(f"clusters of {1 << k}: {' / '.join(f'{v:.3f}' for v in got[k])} us, share "
                     f"of the bound {100 * step_us[2] / min(got[k]):.1f}%" for k in got))
-    return dict(launches=launches, k4=k4, times=times, profile=profile, calls=calls)
+    return dict(launches=launches, k4=k4, times=times, profile=profile, calls=calls,
+                step=step, d1=d1, d2=d2, rlk=rlk, out=out, expected=expected, encoder=encoder,
+                decryptor=decryptor, cd=cd, parms=parms)
 
 
 def aes_context(dev, scheme: str, bits):
@@ -3285,7 +3390,8 @@ def phase_harness(dev, gpu: str, qtab) -> dict:
 
 MXU_DEGREES = range(8, 18)   # [mxu]: K2 at every degree 256 .. 131072, L = 1 .. 7
 MXU_LIMBS = 7
-MXU_LARGE = 16               # [mxu]: K2 against K1 at (3, 2, 2^16)
+MXU_LARGE = (15, 16, 17)     # [mxu]: K2 against the first form and K1 at (3, 2, 2^lg)
+MXU_SWEEP_REPS = 20          # [mxu]: graph launches a turn of the cluster-size sweep
 
 
 def plane_products(x: torch.Tensor, t) -> list:
@@ -3312,18 +3418,23 @@ def plane_products(x: torch.Tensor, t) -> list:
     return calls
 
 
-def phase_mxu(dev, gpu: str, main: dict, rot: dict) -> dict:
-    """K2 under set_ntt_backend("pallas_mxu"): its route (the redesigned
-    kernel csrc/ntt_mxu_wg.cu to n = 16384, the first form csrc/ntt_mxu.cu
-    above) bit for bit against its plain version, K1 and the first form's
-    one-CTA kernel (the yardstick, to 32768) at every degree and limb count;
-    at the keyswitch digits and base q on lazy and canonical input; timed
-    against the yardstick and K1 in turns beside the transform's bound, each
-    form's method terms and the plane products as torch._int_mm calls; then
-    [main]'s HPS multiply + relinearize and rotate_rows(1) on a context
-    built under the backend, each equal to the K1 step and the all-plain
-    step, decrypting, with its launches."""
+def phase_mxu(dev, gpu: str, main: dict, rot: dict, large: dict) -> dict:
+    """K2 under set_ntt_backend("pallas_mxu"): its route (csrc/ntt_mxu_wg.cu
+    to n = 16384, the cluster kernel csrc/ntt_mxu_cluster.cu above) bit for
+    bit against its plain version, K1 and the first form (csrc/ntt_mxu.cu,
+    the yardstick) at every degree and limb count, and above 16384 in every
+    cluster size it takes; at the keyswitch digits and base q on lazy and
+    canonical input; the cluster route's refusals; timed against the
+    yardstick and K1 in turns beside the transform's bound, each form's
+    method terms and the plane products as torch._int_mm calls, at the
+    flagship's shapes, (3, 2, n) for n = 32768, 65536, 131072 and the n =
+    65536 step's digits, and the cluster sizes in turns; then [main]'s HPS
+    multiply + relinearize and rotate_rows(1), and [large_n]'s n = 65536
+    HPS step, each on a context built under the backend, each equal to its
+    K1 step and its all-plain step, decrypting, with its launches."""
     from troy_tpu_torch.core.modulus import Modulus
+    from troy_tpu_torch.core.coeff_modulus import SecurityLevel
+    from troy_tpu_torch.core.context import HeContext
     from troy_tpu_torch.core.evaluator import Evaluator
     from troy_tpu_torch.ops import ntt as NTT, ntt_cuda, ntt_mxu as MX, ntt_mxu_cuda
     from troy_tpu_torch.parallel.batched import BatchedEvaluator
@@ -3339,7 +3450,6 @@ def phase_mxu(dev, gpu: str, main: dict, rot: dict) -> dict:
             n = 1 << lg
             full = NTT.NTTTables(lg, [Modulus(p) for p in numth.get_primes(2 * n, 30, MXU_LIMBS)],
                                  dev)
-            yard = lg <= MX.ONE_LAUNCH_MAX_LOG_N
             for L in range(1, MXU_LIMBS + 1):
                 t = full.take(list(range(L))) if L < MXU_LIMBS else full
                 x = residues((1, L, n), t.q, gen, 2)
@@ -3349,22 +3459,26 @@ def phase_mxu(dev, gpu: str, main: dict, rot: dict) -> dict:
                 i = ntt_mxu_cuda.ntt_inverse(f, t.mxu)
                 refs = [(f, MX.ntt_forward_mxu(x, t.mxu)), (f, ntt_cuda.ntt_forward(x, t)),
                         (i_lazy, MX.ntt_inverse_mxu(x, t.mxu)),
-                        (i_lazy, ntt_cuda.ntt_inverse(canon, t))]
-                if yard:
-                    refs += [(f, ntt_mxu_cuda.mma_forward(x, t.mxu)),
-                             (i_lazy, ntt_mxu_cuda.mma_inverse(x, t.mxu))]
+                        (i_lazy, ntt_cuda.ntt_inverse(canon, t)),
+                        (f, ntt_mxu_cuda.mma_forward(x, t.mxu)),
+                        (i_lazy, ntt_mxu_cuda.mma_inverse(x, t.mxu))]
+                for k in MX.CL_SWEEP.get(lg, ()):  # every cluster size the kernel takes
+                    refs += [(f, ntt_mxu_cuda.cluster_forward(x, t.mxu, k)),
+                             (i_lazy, ntt_mxu_cuda.cluster_inverse(x, t.mxu, k))]
                 err = max(int((a - b).abs().max()) for a, b in refs)
                 worst = max(worst, err)
                 if err or not torch.equal(i, canon):
                     raise AssertionError(f"[mxu] n = {n}, L = {L}: K2 != its plain version, K1 "
                                          f"or the yardstick (max |err| {err}), or "
                                          f"inverse(forward(x)) != x")
-            route = ("the redesigned kernel" if lg <= MX.WG_MAX_LOG_N else
-                     f"the first form, {t.mxu.plan['launches']} launch(es) a transform")
+            route = ("the kernel to 16384" if lg <= MX.WG_MAX_LOG_N else
+                     "the cluster kernel in clusters of "
+                     + " and ".join(str(1 << k) for k in MX.CL_SWEEP[lg]))
             log(f"[mxu] n = {n} ({route}), L = 1 .. {MXU_LIMBS}: K2 forward and inverse (lazy "
-                f"input) equal the plain version, K1"
-                + (" and the first form's one-CTA kernel" if yard else "")
-                + " bit for bit, inverse(forward(x)) == x")
+                f"input) equal the plain version, K1 and the first form ("
+                + ("its one-CTA kernel" if lg <= MX.ONE_LAUNCH_MAX_LOG_N else
+                   "two launches of its stage kernel")
+                + ") bit for bit, inverse(forward(x)) == x")
         torch.cuda.synchronize()
         log(f"[mxu] every degree 256 .. 131072 at L = 1 .. {MXU_LIMBS} in "
             f"{time.perf_counter() - t0:.3f} s")
@@ -3397,65 +3511,118 @@ def phase_mxu(dev, gpu: str, main: dict, rot: dict) -> dict:
                 if err:
                     raise AssertionError(f"[mxu] {label} {shape}: K2 disagrees")
 
+        # the cluster route's refusals: a tensor off 16 bytes, cluster sizes
+        # it does not take, a CPU tensor
+        lg = MXU_LARGE[1]
+        t16 = NTT.NTTTables(lg, [Modulus(p) for p in numth.get_primes(2 << lg, 30, 2)], dev)
+        x = torch.zeros((1, 2, 1 << lg), dtype=torch.int64, device=dev)
+        shifted = torch.zeros(x.numel() + 1, dtype=torch.int64, device=dev)[1:].view(x.shape)
+        for inverse in (False, True):
+            fn = ntt_mxu_cuda.cluster_inverse if inverse else ntt_mxu_cuda.cluster_forward
+            expect_refusals(f"{fn.__name__} at n = {1 << lg}", lambda v: fn(*v), {
+                "not 16-byte aligned": ((shifted, t16.mxu, MX.CL_SWEEP[lg][0]), ValueError),
+                "cluster of 32 CTAs": ((x, t16.mxu, 5), ValueError),
+                "cluster of 4 CTAs": ((x, t16.mxu, 2), ValueError),
+                "CPU tensor": ((x.cpu(), t16.mxu, MX.CL_SWEEP[lg][0]), ValueError)})
+
+        # the n = 65536 step's context under the backend (its digits' tables
+        # are timed below)
+        t0 = time.perf_counter()
+        ctx_l = HeContext.create(large["parms"], True, SecurityLevel.Nil, device=dev)
+        cd_l = ctx_l.first_context_data()
+        ev_l = Evaluator(ctx_l)
+        otab_l = ev_l._switch_tables(cd_l)["otab"]
+        if otab_l.mxu is None or cd_l.qtab().mxu is None:
+            raise AssertionError("[mxu] the n = 65536 context lacks the matrix-product route")
+        log(f"[mxu] n = {N_LARGE} context under pallas_mxu in {time.perf_counter() - t0:.3f} s")
+
         # times: the route against the yardstick and K1 in turns (K2, first
-        # form, K1, K1, first form, K2), graphs of 50
-        large = NTT.NTTTables(MXU_LARGE, [Modulus(p) for p in
-                                          numth.get_primes(2 << MXU_LARGE, 30, 2)], dev)
-        timing = {"keyswitch digits": cases["keyswitch digits"],
-                  "base q": cases["base q"], f"n = {1 << MXU_LARGE}": ((3, 2, 1 << MXU_LARGE),
-                                                                       large)}
+        # form, K1, K1, first form, K2), graphs of 50 (of 20 above 16384)
+        timing = {"keyswitch digits": cases["keyswitch digits"], "base q": cases["base q"]}
+        for lg in MXU_LARGE:
+            timing[f"n = {1 << lg}"] = ((3, 2, 1 << lg), t16 if lg == MXU_LARGE[1] else
+                                        NTT.NTTTables(lg, [Modulus(p) for p in
+                                                           numth.get_primes(2 << lg, 30, 2)], dev))
+        timing[f"n = {N_LARGE} step's digits"] = ((LARGE_BATCH * (len(LARGE_BITS) - 1),
+                                                   len(LARGE_BITS), N_LARGE), otab_l)
         times = {}
         for label, (shape, t) in timing.items():
             x = residues(shape, t.q, gen)
             lg = shape[-1].bit_length() - 1
+            reps = GRAPH_LAUNCHES if ntt_mxu_cuda._wg_route(t.mxu) else 20
             row = {}
             for inverse in (False, True):
                 direction = "inverse" if inverse else "forward"
                 k2 = lambda: getattr(ntt_mxu_cuda, f"ntt_{direction}")(x, t.mxu)
                 yd = lambda: getattr(ntt_mxu_cuda, f"mma_{direction}")(x, t.mxu)
                 k1 = lambda: getattr(ntt_cuda, f"ntt_{direction}")(x, t)
-                a1, c1, b1, b2, c2, a2 = (graph_us(f) for f in (k2, yd, k1, k1, yd, k2))
+                a1, c1, b1, b2, c2, a2 = (graph_us(f, reps) for f in (k2, yd, k1, k1, yd, k2))
                 plain = (MX.ntt_inverse_mxu if inverse else MX.ntt_forward_mxu)
                 plain_us = graph_us(lambda: plain(x, t.mxu), PLAIN_REPS)
                 bound, by = ntt_bound(shape)
-                if lg <= MX.WG_MAX_LOG_N:
+                if ntt_mxu_cuda._wg_route(t.mxu):
                     info = ntt_mxu_cuda.wg_info(inverse, lg)
                     ctas = wg_grid(shape, info["ctas_per_sm"])
                     terms = wg_terms(shape, ctas, inverse)
+                    name = f"ntt_{direction}_mxu"
+                    how = f"{ctas} CTAs, the table planes loaded once each"
                 else:
-                    ctas, terms = None, mxu_terms(shape)
+                    log_c = ntt_mxu_cuda.route_log_c(x, t.mxu, inverse)
+                    ctas = (1 << log_c) * min(int(np.prod(shape[:-1])), ntt_mxu_cuda.cluster_info(
+                        inverse, lg, log_c)["clusters"])
+                    terms = cl_terms(shape, inverse, log_c)
+                    name = f"ntt_{direction}_mxu_cluster"
+                    how = f"clusters of {1 << log_c}, {ctas} CTAs, the tables streamed a row"
                 yard_terms = mxu_terms(shape)
                 method = max(terms.values())
                 k2_us, k1_us, yd_us = min(a1, a2), min(b1, b2), min(c1, c2)
-                name = f"ntt_{direction}_mxu"
                 row[name] = dict(us=k2_us, k1_us=k1_us, yard_us=yd_us, plain_us=plain_us,
                                  bound=bound, by=by, terms=terms, yard_terms=yard_terms,
                                  ctas=ctas)
                 log(f"[mxu] {gpu}: {name} {shape}: K2 {a1:.3f} / {a2:.3f} us, the first form "
                     f"(yardstick) {c1:.3f} / {c2:.3f} us, K1 {b1:.3f} / {b2:.3f} us a launch "
-                    f"(graph of {GRAPH_LAUNCHES}); plain {plain_us:.3f} us; the transform's "
+                    f"(graph of {reps}); plain {plain_us:.3f} us; the transform's "
                     f"bound {bound:.3f} us ({by}, as K1's), its share K2 "
                     f"{100 * bound / k2_us:.1f}%, the first form {100 * bound / yd_us:.1f}%, "
                     f"K1 {100 * bound / k1_us:.1f}%; K2 / first form {k2_us / yd_us:.3f}, "
-                    f"K2 / K1 {k2_us / k1_us:.3f}; K2's method"
-                    + (f" ({ctas} CTAs, the table planes loaded once each)" if ctas else
-                       " (the first form's route)") + ": "
+                    f"K2 / K1 {k2_us / k1_us:.3f}; K2's method ({how}): "
                     + ", ".join(f"{k} {v:.3f} us" for k, v in terms.items())
                     + f", K2 at {100 * method / k2_us:.1f}% of their largest; the first form's: "
                     + ", ".join(f"{k} {v:.3f} us" for k, v in yard_terms.items()))
             calls = plane_products(x, t.mxu)
             try:
-                mm_us = graph_us(lambda: [c() for c in calls])
+                mm_us = graph_us(lambda: [c() for c in calls], reps)
             except RuntimeError as e:  # the yardstick only; no route calls it
                 mm_us = None
                 log(f"[mxu] torch._int_mm yardstick at {shape} not measured: {e}")
             if mm_us is not None:
                 log(f"[mxu] {gpu}: yardstick, not a route: the 16 plane products of both "
                     f"stages of one forward transform at {shape} as {len(calls)} torch._int_mm "
-                    f"calls: {mm_us:.3f} us (graph of {GRAPH_LAUNCHES})")
+                    f"calls: {mm_us:.3f} us (graph of {reps})")
             for v in row.values():
                 v["int_mm_us"] = mm_us
             times[label] = row
+
+        # the cluster sizes in turns (each in order, then in reverse): forward
+        # + inverse at (3, 2, 65536) and at the step's digits
+        sweeps = {}
+        for label in (f"n = {N_LARGE}", f"n = {N_LARGE} step's digits"):
+            shape, t = timing[label]
+            x = residues(shape, t.q, gen)
+            fns = {k: (lambda k=k: ntt_mxu_cuda.cluster_inverse(
+                ntt_mxu_cuda.cluster_forward(x, t.mxu, k), t.mxu, k))
+                for k in MX.CL_SWEEP[t.log_n]}
+            got = {}
+            for k in list(fns) + list(fns)[::-1]:
+                got.setdefault(k, []).append(graph_us(fns[k], MXU_SWEEP_REPS))
+            sweeps[label] = got
+            bound = 2 * ntt_bound(shape)[0]
+            log(f"[mxu] {gpu}: the cluster kernel's forward + inverse at {shape} by cluster "
+                "size, in turns: " + "; ".join(
+                    f"clusters of {1 << k}: {' / '.join(f'{v:.3f}' for v in got[k])} us, share "
+                    f"of the bound {100 * bound / min(got[k]):.1f}%" for k in got)
+                + f"; the route takes clusters of "
+                f"{1 << ntt_mxu_cuda.route_log_c(x, t.mxu, False)} here")
 
         # the flagship step and one rotation under the backend
         keys, d1, d2 = main["keys"], main["d1"], main["d2"]
@@ -3506,9 +3673,73 @@ def phase_mxu(dev, gpu: str, main: dict, rot: dict) -> dict:
                 f"launches, {k1_prof['ms']:.4f} ms of device time, K1 {k1_n:.0f} launches "
                 f"{k1_ms:.4f} ms, {k1_chained:.4f} ms a step, busy "
                 f"{100 * k1_prof['ms'] / k1_chained:.1f}%")
+
+        # [large_n]'s n = 65536 HPS step on the context built under the
+        # backend: the cluster kernel 5 + 4 launches, K1 and the first form none
+        be_l = BatchedEvaluator(ev_l, cd_l)
+        rlk, ld1, ld2 = large["rlk"], large["d1"], large["d2"]
+        step_l = be_l.build_mul_relin_step(rlk)
+        lout, llaunches = run_step(
+            "mxu", f"n = {N_LARGE} HPS step {tuple(ld1.shape)} under pallas_mxu",
+            lambda: step_l(ld1, ld2, rlk), (*MXU_CLUSTER_KERNELS, "base_convert"))
+        per_step = tuple(llaunches[k] for k in MXU_CLUSTER_KERNELS)
+        others = {k: v for k, v in llaunches.items() if v and k not in (
+            *MXU_CLUSTER_KERNELS, "base_convert")}
+        if per_step != (5, 4) or others or llaunches["base_convert"] != 3:
+            raise AssertionError(f"[mxu] the n = {N_LARGE} step launched the cluster kernel "
+                                 f"{per_step} (5 forward, 4 inverse expected), K3 "
+                                 f"{llaunches['base_convert']} (3) and others {others}")
+        if not torch.equal(lout, large["out"]):
+            raise AssertionError(f"[mxu] the n = {N_LARGE} step under pallas_mxu != the K1 step")
+        check_decrypts("mxu", f"n = {N_LARGE} HPS products", lout, large["cd"].parms_id,
+                       large["expected"], large["encoder"], large["decryptor"], n=N_LARGE)
+        log(f"[mxu] the n = {N_LARGE} HPS step under pallas_mxu equals the K1 step and the "
+            "all-plain step bit for bit; the cluster kernel 5 forward and 4 inverse launches a "
+            "step, K1, the kernel to 16384 and the first form none, K3 3")
+        lcalls = record_launches(lambda: step_l(ld1, ld2, rlk))
+        for _ in range(2):
+            step_l(ld1, ld2, rlk)
+        chained = cuda_ms(lambda: step_l(ld1, ld2, rlk), 5)
+        k1_chained = cuda_ms(lambda: large["step"](ld1, ld2, rlk), 5)
+        prof = profile_step(lambda: step_l(ld1, ld2, rlk), 2)
+        k1_prof = profile_step(lambda: large["step"](ld1, ld2, rlk), 2)
+        cl_n = sum(prof[k][0] for k in MXU_CLUSTER_KERNELS)
+        cl_ms = sum(prof[k][1] for k in MXU_CLUSTER_KERNELS)
+        k1_n, k1_ms = ntt_totals(k1_prof)
+        bound_ms = sum(ntt_bound(shape)[0] for name, shape, _ in lcalls
+                       if name != "base_convert") / 1e3
+        log(f"[mxu] {gpu}: profiler, the n = {N_LARGE} HPS step under pallas_mxu, 2 steps: "
+            f"{prof['launches']:.0f} kernel launches and {prof['ms']:.4f} ms of device kernel "
+            f"time a step, of which K2 (the cluster kernel) {cl_n:.0f} launches {cl_ms:.4f} ms "
+            f"(the transforms' bound {bound_ms:.4f} ms, {100 * bound_ms / cl_ms:.1f}%) and K3 "
+            f"{prof['base_convert'][0]:.0f} launches {prof['base_convert'][1]:.4f} ms; "
+            f"{chained:.4f} ms a step by events (repeated), busy share "
+            f"{100 * prof['ms'] / chained:.1f}%; the K1 step: {k1_prof['launches']:.0f} "
+            f"launches, {k1_prof['ms']:.4f} ms of device time, K1 {k1_n:.0f} launches "
+            f"{k1_ms:.4f} ms, {k1_chained:.4f} ms a step, busy "
+            f"{100 * k1_prof['ms'] / k1_chained:.1f}%")
+        # every transform of the step by CUDA graphs, summed: the profiler at
+        # times drops a launch of a session
+        step_us, step_bound = 0.0, 0.0
+        for name, shape, t in lcalls:
+            if name == "base_convert":
+                continue
+            inverse = name == "ntt_inverse"
+            x = residues(shape, t.q, gen)
+            fn = ntt_mxu_cuda.ntt_inverse if inverse else ntt_mxu_cuda.ntt_forward
+            us = graph_us(lambda: fn(x, t.mxu), 20)
+            step_us, step_bound = step_us + us, step_bound + ntt_bound(shape)[0]
+            log(f"[mxu] {gpu}: the n = {N_LARGE} step's {name} at {shape}: the cluster kernel "
+                f"in clusters of {1 << ntt_mxu_cuda.route_log_c(x, t.mxu, inverse)}, "
+                f"{us:.3f} us a launch (graph of 20), bound {ntt_bound(shape)[0]:.3f} us")
+        log(f"[mxu] {gpu}: the n = {N_LARGE} step's {len(lcalls) - llaunches['base_convert']} "
+            f"K2 transforms by CUDA graphs: {step_us:.3f} us in all, bound {step_bound:.3f} us, "
+            f"share {100 * step_bound / step_us:.1f}%")
         return dict(err=worst, times=times, launches={"HPS step": launches,
                                                       "rotate_rows(1)": rlaunches},
-                    profiles=profiles)
+                    profiles=profiles, sweeps=sweeps,
+                    large=dict(launches=llaunches, prof=prof, calls=lcalls, ms=chained,
+                               k1_ms=k1_chained, k1_prof=k1_prof, k2_graph_us=step_us))
     finally:
         NTT.set_ntt_backend(saved)
 
@@ -3542,7 +3773,8 @@ def main() -> int:
     t0 = time.perf_counter()
     _cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     ptxas = [ptxas_start(src) for src in ("ntt.cu", "fused_mul.cu", "fused_mul_large.cu",
-                                          "tensor_product.cu", "ntt_mxu.cu", "ntt_mxu_wg.cu")]
+                                          "tensor_product.cu", "ntt_mxu.cu", "ntt_mxu_wg.cu",
+                                          "ntt_mxu_cluster.cu")]
     lib = _cuda_build.build()
     _cuda_build.load()
     log(f"[build] {lib.name} from {', '.join(p.name for p in _cuda_build.sources())} "
@@ -3587,6 +3819,19 @@ def main() -> int:
                     or bool(info["resident"]) != plan["resident"]):
                 raise AssertionError(f"[build] K2's launch shape {info} fits no SM, spills, "
                                      f"or is not the plan's {plan}")
+    for lg in sorted(MX.CL_SWEEP):
+        for inverse in (False, True):
+            for k in MX.CL_SWEEP[lg]:
+                info = ntt_mxu_cuda.cluster_info(inverse, lg, k)
+                plan = MX.cl_plan(lg, inverse, k)
+                log(f"[build] ntt_{'inverse' if inverse else 'forward'}_mxu_cluster at n = "
+                    f"{1 << lg}, clusters of {1 << k}: {info}; a warpgroup's ring {plan['slots']} "
+                    f"chunk(s) of {plan['chunk']} bytes, the tables streamed once a polynomial "
+                    f"(cudaFuncGetAttributes, cudaOccupancyMaxActiveClusters)")
+                if info["clusters"] < 1 or info["smem"] != plan["smem"] or \
+                        info["cluster"] != plan["C"]:
+                    raise AssertionError(f"[build] K2's cluster kernel {info} fits no cluster or "
+                                         f"is not the plan's {plan}")
     for lg in (N.bit_length() - 1, 15, 16):
         plan = MX.kernel_plan(lg)
         smem = max(plan["left"]["smem"], plan["right"]["smem"])
@@ -3746,7 +3991,7 @@ def main() -> int:
     # ---- 22. mxu ----------------------------------------------------------
     mxu = phase_mxu(dev, gpu, dict(step=steps["hps"], d1=d1, d2=d2, keys=keys, cd=cd,
                                    out=outs["hps"], encoder=encoder, decryptor=decryptor,
-                                   expected=expected), rot)
+                                   expected=expected), rot, large)
 
     # ---- 23. times ---------------------------------------------------------
     def batch_ms(label: str, step, first, chain: bool = True):
@@ -3883,7 +4128,8 @@ def main() -> int:
         "examples": {k: sum(c[k] for c in examples["launches"].values()) for k in KERNELS},
         "harness": {k: harness["launches"][k] for k in KERNELS},
         "mesh": {k: sum(c[k] for c in mesh["launches"].values()) for k in KERNELS},
-        "mxu": {k: sum(c[k] for c in mxu["launches"].values()) for k in KERNELS}}
+        "mxu": {k: sum(c[k] for c in mxu["launches"].values()) for k in KERNELS},
+        "mxu_large": {k: mxu["large"]["launches"][k] for k in KERNELS}}
     for path in ("client", "wire", "ring2k", "perop", "eager", "examples", "mesh"):
         if not paths[path]["ntt_forward"] or not paths[path]["ntt_inverse"]:
             raise AssertionError(f"[results] the {path} path launched no NTT kernel")
@@ -3901,6 +4147,11 @@ def main() -> int:
         err[name] = mxu["err"]
         times[name] = (row["us"] / 1e3, row["plain_us"] / 1e3)
         timed[name] = (row["bound"], row["by"])
+    for name in MXU_CLUSTER_KERNELS:  # K2's cluster kernel at (3, 2, 65536)
+        row = mxu["times"][f"n = {N_LARGE}"][name]
+        err[name] = mxu["err"]
+        times[name] = (row["us"] / 1e3, row["plain_us"] / 1e3)
+        timed[name] = (row["bound"], row["by"])
     for name in KERNELS:  # the cluster kernels at (3, 2, 65536) (K4: (3, 2, 2, 65536))
         if name not in timed:
             ms, plain_ms, bound_ms, by, _ = large["times"][(name, N_LARGE)]
@@ -3909,8 +4160,13 @@ def main() -> int:
     hps_kernels = ("ntt_forward", "ntt_inverse", "base_convert", "fused_negacyclic_multiply")
     results = []
     for name, (src, replaces) in KERNELS.items():
-        path = "hps" if name in hps_kernels else "mxu" if name in MXU_KERNELS else "large_n"
-        if path == "hps":
+        path = ("hps" if name in hps_kernels else "mxu" if name in MXU_KERNELS else
+                "mxu_large" if name in MXU_CLUSTER_KERNELS else "large_n")
+        if path == "mxu_large":  # per dispatch call of the n = 65536 step under pallas_mxu
+            prof = mxu["large"]["prof"]
+            mine = [(shape, t) for kname, shape, t in mxu["large"]["calls"]
+                    if name.startswith(kname)]
+        elif path == "hps":
             prof = profiles["HPS step"]
             mine = [(shape, t) for kname, shape, t in step_calls["HPS step"] if kname == name]
         elif path == "mxu":  # per dispatch call of the step under pallas_mxu
@@ -3927,22 +4183,32 @@ def main() -> int:
             "bound_ms": timed[name][0] / 1e3, "bound_by": timed[name][1], "library_ms": None,
             "path": path, "paths": {p: c[name] for p, c in paths.items()},
             "bound_us": sum(launch_bound(name, shape, t)[0] for shape, t in mine),
-            "device_us": prof[name][1] * 1e3, "launches_per_step": len(mine)})
-        if name in MXU_KERNELS:  # K2's method terms, and the plane products alone as
-            row = mxu["times"]["base q"][name]  # torch._int_mm: a yardstick (null: not measured)
+            "device_us": measured(prof[name][1] * 1e3), "launches_per_step": len(mine)})
+        if name in (*MXU_KERNELS, *MXU_CLUSTER_KERNELS):  # K2's method terms, and the plane
+            # products alone as torch._int_mm: a yardstick (null: not measured)
+            row = mxu["times"]["base q" if name in MXU_KERNELS else f"n = {N_LARGE}"][name]
             results[-1]["method_terms_ms"] = {k: v / 1e3 for k, v in row["terms"].items()}
             results[-1]["int_mm_ms"] = None if row["int_mm_us"] is None else row["int_mm_us"] / 1e3
         if results[-1]["launches"] == 0:
             raise AssertionError(f"[results] {name} was not launched on its path ({path})")
     for name, (src, replaces) in MXU_YARDSTICKS.items():  # on no path: timed, not launched
-        row = mxu["times"]["base q"][name.removesuffix("_mma")]
+        # the one-CTA kernel at base q (16, 6, 8192), the stage kernel's two
+        # launches at (3, 2, 65536)
+        of = (name.removesuffix("_mma") if name.endswith("_mma") else
+              name.removesuffix("_stages") + "_cluster")
+        row = mxu["times"]["base q" if name.endswith("_mma") else f"n = {N_LARGE}"][of]
         results.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": sum(c[name] for c in mxu["launches"].values()), "max_abs_err": mxu["err"],
+            "launches": sum(c[name] for c in (*mxu["launches"].values(),
+                                              mxu["large"]["launches"])),
+            "max_abs_err": mxu["err"],
             "ms": row["yard_us"] / 1e3, "plain_ms": row["plain_us"] / 1e3,
             "bound_ms": row["bound"] / 1e3, "bound_by": row["by"], "library_ms": None,
-            "path": None, "yardstick_of": name.removesuffix("_mma"),
+            "path": None, "yardstick_of": of,
             "method_terms_ms": {k: v / 1e3 for k, v in row["yard_terms"].items()}})
+    if PROFILER["failed"]:
+        log(f"[results] the profiler recorded no device kernel for {PROFILER['failed']} "
+            "profiled calls: their device times are not measured (device_us null)")
     print(json.dumps({"kernels": results}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

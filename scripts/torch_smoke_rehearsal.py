@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """CPU rehearsal of chip_smoke.py: every phase, at tiny sizes, on the CPU.
 
-    python3 scripts/torch_smoke_rehearsal.py
+    python3 scripts/torch_smoke_rehearsal.py [--no-profiler]
 
 chip_smoke.py runs only on a GPU.  This script fakes what the CPU lacks and
 runs its main() unchanged otherwise, to catch faults in the script's own
@@ -22,9 +22,12 @@ CPU twin then runs on the same device); [perop] at n = 1024, batch 2, 2
 repetitions; [eager] 1 repetition; [examples] with --device cpu at the
 twins' own sizes; [mesh] over (data, limb) = (2, 1), (1, 2), (1, 3) at batch
 2, its one-rank multihost mesh on gloo; [mxu] at n = 256 .. 8192 on 1 to 3
-limbs, its timing at (3, 2, 8192) (the C calls of both K2 kernels are
-their plain version).  Times it prints are the CPU's and
-mean nothing.
+limbs, the cluster route taking 4096 and 8192 (clusters of 4 and 8 at
+4096, of 8 at 8192; the refusals skipped), its timing at (3, 2, n) for n
+= 2048, 4096, 8192 and the large step's digits, the large step at 4096
+(the C calls of every K2 kernel are their plain version).  Times it prints are the CPU's and
+mean nothing.  With --no-profiler every profiler session records no device
+kernel, so each profile_step takes its fallback (counts, times nan).
 """
 import contextlib
 import sys
@@ -40,8 +43,9 @@ from troy_tpu_torch.ops import (ntt as NTT, ntt_cuda, bconv as BC, bconv_cuda,  
                                 ntt_mxu as MX, ntt_mxu_cuda)
 from troy_tpu_torch.core import coeff_modulus as CM  # noqa: E402
 
-def install_fakes():
-    """The fakes above, and the tiny sizes, on chip_smoke and the port."""
+def install_fakes(profiler: bool = True):
+    """The fakes above, and the tiny sizes, on chip_smoke and the port;
+    profiler False: a profiler that records no device kernel."""
     torch.cuda.is_available = lambda: True
     torch.cuda.synchronize = lambda *a, **k: None
     torch.cuda.get_device_name = lambda *a: "fake"
@@ -63,7 +67,12 @@ def install_fakes():
     cs.gpu_line = lambda: "fake GPU, 700.00 W"
     cs.ptxas_report = lambda p: None
     cs.ptxas_start = lambda s: None
-    cs.profile_step = lambda fn, calls: {"launches": 1, "ms": 1.0, **{k: (1, 0.1) for k in cs.PROFILED}}
+    if profiler:
+        cs.profile_step = lambda fn, calls: {"launches": 1, "ms": 1.0,
+                                             **{k: (1, 0.1) for k in cs.PROFILED}}
+    else:
+        cs.profiler_kernels = lambda fn, calls: [fn() for _ in range(calls)] and []
+        cs.PROFILER_PAUSE_S = 0.0
     ntt_cuda.kernel_info = lambda w, l: {"threads": 1}
     ntt_cuda.cluster_info = lambda inv, l, k, threads=256: {"threads": threads, "clusters": 1}
     fused_mul_cuda.kernel_info = lambda w, l: {"smem": fused_mul_cuda.shared_bytes(l), "clusters": 1}
@@ -128,6 +137,26 @@ def install_fakes():
                 "ctas_per_sm": 1, "resident": int(p["resident"]),
                 **{k: p[k] for k in ("t1", "t2", "b1", "b2", "staging")}}
     ntt_mxu_cuda.wg_info = fake_wg_info
+    def fake_cluster_call(name, x, out, t1, t2, twiddle, t, log_c):
+        assert t1.dtype == torch.uint8 and (1 << log_c) * 2 <= t.n
+        return fake_mxu_call(name, x, out, None, t1, t2, t)
+    ntt_mxu_cuda._call_cluster = fake_cluster_call
+    def fake_cluster_plan(t, inverse, log_c=None):
+        log_c = MX.CL_SWEEP[t.log_n][0] if log_c is None else log_c
+        if t.log_n not in MX.CL_SWEEP or log_c not in MX.CL_SWEEP[t.log_n]:
+            raise ValueError(f"[ntt_mxu_cuda] n = {t.n}: no cut in clusters of {1 << log_c} CTAs")
+        return {"C": 1 << log_c}
+    ntt_mxu_cuda.cluster_plan = fake_cluster_plan
+    def fake_cluster_info(inverse, log_n, log_c=None):
+        log_c = MX.CL_SWEEP[log_n][0] if log_c is None else log_c
+        p = MX.cl_plan(log_n, inverse, log_c)
+        return {"threads": 256, "smem": p["smem"], "regs": 0, "local_bytes": 0, "clusters": 3,
+                "cluster": p["C"]}
+    ntt_mxu_cuda.cluster_info = fake_cluster_info
+    ntt_mxu_cuda._wg_route = lambda t: t.log_n <= 11   # the cluster route at 4096 and 8192
+    MX.CL_MIN_LOG_N = 12
+    MX.CL_SWEEP = {12: (2, 3), 13: (3,)}
+    cs.expect_refusals = lambda *a: None
     torch.cuda.get_device_properties = lambda *a: types.SimpleNamespace(multi_processor_count=132)
     ntt_mxu_cuda.kernel_info = lambda w, smem: {"threads": 256, "smem": smem, "regs": 0,
                                                 "local_bytes": 0, "ctas_per_sm": 1}
@@ -159,7 +188,7 @@ def install_fakes():
         return {1 << l: NTT.NTTTables(l, [Modulus(p) for p in numth.get_primes(2 << l, 30, 2)], dev) for l in range(1, 14)} | {cs.REFUSED_DEGREE: None}
     cs.other_degrees = small_degrees
     cs.PEROP_REPS, cs.EAGER_REPS = {"fast": 2, "wide": 2}, 1
-    cs.MXU_DEGREES, cs.MXU_LIMBS, cs.MXU_LARGE = range(8, 14), 3, 13
+    cs.MXU_DEGREES, cs.MXU_LIMBS, cs.MXU_LARGE = range(8, 14), 3, (11, 12, 13)
     from troy_tpu_torch.core.context import HeContext
     create = HeContext.create  # the context's default device, the card, is the CPU here
     HeContext.create = staticmethod(
@@ -169,7 +198,7 @@ def install_fakes():
 
 
 if __name__ == "__main__":
-    install_fakes()
+    install_fakes(profiler="--no-profiler" not in sys.argv[1:])
     t0 = time.time()
     rc = cs.main()
     print(f"[rehearsal] main() returned {rc} in {time.time() - t0:.1f} s of CPU time")

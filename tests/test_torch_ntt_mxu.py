@@ -86,8 +86,8 @@ def jax_tables(log_n: int, primes: tuple) -> JMX.MxuNTTTables:
     return JMX.MxuNTTTables(log_n, [JModulus(p) for p in primes])
 
 
-def tables(log_n: int, primes: list[int], wg=False) -> MX.MxuNTTTables:
-    return MX.MxuNTTTables(log_n, [Modulus(p) for p in primes], "cpu", wg=wg)
+def tables(log_n: int, primes: list[int]) -> MX.MxuNTTTables:
+    return MX.MxuNTTTables(log_n, [Modulus(p) for p in primes], "cpu")
 
 
 # The JAX tables the port keeps none of: its Pallas kernel's twiddle-folded
@@ -274,11 +274,10 @@ def test_wg_schedule_matches_plain_k1_and_jax(log_n):
     """emulate_wg, the redesigned kernel's integer steps from its own
     tables, equals the plain version, K1's plain version and (to 32768) the
     JAX kernel in interpret mode, forward on lazy input, inverse on
-    canonical and lazy input; above the kernel's degrees (wg=True tables)
-    on one polynomial a limb."""
+    canonical and lazy input; above 32768 on one polynomial a limb."""
     if log_n <= 15:
         r = reference(log_n)
-        tt = r["tt"] if log_n <= MX.WG_MAX_LOG_N else tables(log_n, r["primes"], wg=True)
+        tt = r["tt"]
         rows = ROWS[(2,)]
         lazy = torch.from_numpy(r["lazy"][rows].astype(np.int64))
         canon = torch.from_numpy(r["canon"][rows].astype(np.int64))
@@ -289,7 +288,7 @@ def test_wg_schedule_matches_plain_k1_and_jax(log_n):
         assert torch.equal(emulate_wg(lazy, tt, True), r["k1_inv_lazy"][rows])
         return
     primes = primes_for(log_n, 1)
-    tt = tables(log_n, primes, wg=True)
+    tt = tables(log_n, primes)
     kt = TNTT.NTTTables(log_n, [Modulus(p) for p in primes], "cpu")
     x = torch.from_numpy(residues((1, 1, 1 << log_n), primes, factor=2).astype(np.int64))
     fwd = emulate_wg(x, tt, False)

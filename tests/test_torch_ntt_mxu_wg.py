@@ -176,12 +176,13 @@ def test_wg_plan_fits(log_n):
             16384, 65536, 32768, 32768, 65536, 212992)
 
 
-@pytest.mark.parametrize("log_n", [8, 10, 13, 14])
+@pytest.mark.parametrize("log_n", [8, 10, 13, 14, 15, 16, 17])
 def test_wg_tables_rebuild_jax_planes(log_n):
-    """The redesigned kernel's tables: each stage's unsigned byte planes,
+    """The redesigned kernels' tables: each stage's unsigned byte planes,
     read back from the core-matrix layout, rebuild the values the JAX
     package's balanced planes rebuild (W1, W2^T, W2i^T, W1i), zero past the
-    table; its twiddles are T and Ti transposed; its scalars wg_barrett's."""
+    table; above 16384 the cluster kernel's planes (cl_layout) hold the same
+    bytes; its twiddles are T and Ti transposed; its scalars wg_barrett's."""
     primes = primes_for(log_n, 3)
     jt = JMX.MxuNTTTables(log_n, [JModulus(p) for p in primes])._host
     tt = MX.MxuNTTTables(log_n, [Modulus(p) for p in primes], "cpu")
@@ -204,6 +205,10 @@ def test_wg_tables_rebuild_jax_planes(log_n):
         assert int(planes[:, 3].max()) <= 63
         got = (planes[:, :, :M, :K] * weights).sum(1)
         np.testing.assert_array_equal(got.numpy(), want, err_msg=name)
+        if log_n > MX.WG_MAX_LOG_N:   # cl_w: (tile, block, plane, row group, K block, row, byte)
+            cl = tt.cl_w[[w_ is w for w_ in tt.wg_w].index(True)]
+            blocks = cl.reshape(3, M // 64, K // 64, 4, 8, 4, 8, 16).permute(0, 3, 1, 4, 6, 2, 5, 7)
+            assert torch.equal(blocks.reshape(3, 4, M, K), planes), name
     tw = tt.wg_twiddle.numpy().view(np.uint32).reshape(2, 3, -1, 2)
     np.testing.assert_array_equal(tw[0, ..., 0].reshape(jt["T"].shape), jt["T"])
     np.testing.assert_array_equal(tw[1, ..., 0].reshape(3, tt.n2, tt.n1),
@@ -278,14 +283,13 @@ def test_wg_recombination_at_its_extremes(contraction):
 
 def test_wrapper_refuses_bad_input():
     """The route's refusals that need no card: CPU tensors and other tables,
-    at a degree of the redesigned kernel and above it (where the tables
-    carry none of its tables unless built for the replay)."""
+    at a degree of the redesigned kernel and above it (where the cluster
+    kernel takes the same tables)."""
     primes = primes_for(10, 2)
     tt = MX.MxuNTTTables(10, [Modulus(p) for p in primes], "cpu")
     big = MX.MxuNTTTables(15, [Modulus(p) for p in primes_for(15, 2)], "cpu")
     assert tt.wg_w is not None and tt.take([1]).wg_w[0].shape[0] == 1
-    assert big.wg_w is None and big.take([1]).wg_w is None
-    assert MX.MxuNTTTables(15, big.moduli, "cpu", wg=True).wg_w is not None
+    assert big.wg_w is not None and big.take([1]).wg_w[0].shape[0] == 1
     for t in (tt, big):
         x = torch.zeros(2, t.n, dtype=torch.int64)
         for fn in (ntt_mxu_cuda.ntt_forward, ntt_mxu_cuda.ntt_inverse,

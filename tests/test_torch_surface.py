@@ -92,6 +92,8 @@ PORT_ONLY = {
         **{n: "the int32 bounds asserted at table build"
            for n in ("check_int32", "diagonal_bounds")},
         "wg_plan": "the redesigned kernel's shared-memory plan (csrc/ntt_mxu_wg.cu)",
+        "cl_plan": "the cluster kernel's cut of a stage across a cluster (csrc/ntt_mxu_cluster.cu)",
+        "cl_layout": "the cluster kernel's table layout (64 x 64 blocks: a chunk one run)",
         **{n: "the redesigned kernel's table layout (wgmma core matrices) and constants"
            for n in ("wg_layout", "wg_unlayout", "wg_scalar_rows")},
         **{n: "the unsigned planes' bounds and Barrett step, asserted at table build"

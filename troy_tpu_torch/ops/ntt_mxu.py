@@ -32,8 +32,11 @@ Two implementations of one function:
   * ops/ntt_mxu_cuda.py: the hand-written Hopper kernels, which serve CUDA
     tensors when the NTT backend is "mxu" or "pallas_mxu"
     (ops/ntt.py:set_ntt_backend): csrc/ntt_mxu_wg.cu up to n = 2^WG_MAX_LOG_N
-    (wgmma on unsigned byte planes, the wg_* tables below), csrc/ntt_mxu.cu
-    above (the first form of the kernel, on the balanced planes).
+    (wgmma on unsigned byte planes, the wg_* tables below, a CTA a
+    polynomial) and csrc/ntt_mxu_cluster.cu above (the same planes and
+    tables, a polynomial a thread-block cluster: cl_plan).  The first form
+    of the kernel (csrc/ntt_mxu.cu, on the balanced planes) stays as their
+    yardstick at every degree.
 
 MxuNTTTables holds the tables once, in the kernel's layout, on the default
 split a = log2(n1) = log_n // 2: the digit planes of W1, W2, W1i, W2i with
@@ -46,12 +49,18 @@ weights (T16, Ti16, Tcorr, Ticorr); the port's kernel applies the twiddle
 by one Shoup product and keeps none.  kernel_plan gives the kernel's
 launches, shared-memory tiles and K chunks at each degree.
 
-The redesigned kernel (csrc/ntt_mxu_wg.cu) takes its own tables, wg_*: the
-unsigned bytes of each stage's table (W1, W2^T, W2i^T, W1i, the wgmma A
-operand) in the core-matrix layout of wgmma (wg_layout), the twiddles in
-its first stage's output order, and per limb the recombination's
-constants (wg_scalar_rows: the Barrett shift and factor of wg_barrett and
-2^32, 2^48 mod q).  wg_plan gives its shared-memory plan.
+The redesigned kernels (csrc/ntt_mxu_wg.cu, csrc/ntt_mxu_cluster.cu) take
+their own tables, wg_*: the unsigned bytes of each stage's table (W1, W2^T,
+W2i^T, W1i, the wgmma A operand) in the core-matrix layout of wgmma
+(wg_layout), the twiddles in the first stage's output order, and per limb
+the recombination's constants (wg_scalar_rows: the Barrett shift and factor
+of wg_barrett and 2^32, 2^48 mod q), at every degree.  wg_plan gives the
+shared-memory plan of the kernel to n = 16384, cl_plan the cut of a stage
+across a cluster above it: CTA r of C holds rows [r R, (r + 1) R) of each
+stage's data operand (R = N / C) and streams the whole table through a ring
+of 64-row chunks (cl_w, the tables in cl_layout: each chunk one contiguous
+run), stage 1's values written into the planes of the CTA that holds their
+row in stage 2.
 """
 
 from __future__ import annotations
@@ -344,7 +353,7 @@ def kernel_plan(log_n: int) -> dict:
 #            V = stage 1's output (N = n2).
 # ---------------------------------------------------------------------------
 
-WG_MAX_LOG_N = 14                # above, the first form (csrc/ntt_mxu.cu) serves
+WG_MAX_LOG_N = 14                # above, the cluster kernel (csrc/ntt_mxu_cluster.cu)
 WG_SMEM_LIMIT = 232448 - 1024    # ntt_mxu_wg.cu kMaxSmem
 WG_SCALAR_SLOTS = 8              # q, mu, shift, c4, c6, 0, 0, 0
 
@@ -369,6 +378,63 @@ def wg_plan(log_n: int, inverse: bool) -> dict:
                 resident=resident,
                 smem=full if resident else max(t1, t2) + b1 + b2,
                 nt1=32 if N1 % 32 == 0 else 16, nt2=32 if N2 % 32 == 0 else 16)
+
+
+# The cluster kernel (csrc/ntt_mxu_cluster.cu) at n = 32768 .. 131072: a
+# polynomial a cluster of 2^log_c CTAs, each stage cut by the data's rows.
+CL_MIN_LOG_N = WG_MAX_LOG_N + 1
+CL_BLOCK = 4 * 64 * 64           # a table block: 64 rows x 64 bytes of K, 4 planes
+CL_KC = 128                      # K bytes of a table chunk (4 steps of 32)
+CL_MAX_SLOTS = 4                 # chunks a warpgroup's ring holds
+CL_MAX_CLUSTER = 16              # the H100's largest cluster (8 is portable)
+CL_TILES = (16, 32)              # a CTA's data rows: one wgmma tile (N)
+CL_SWEEP = {15: (3,), 16: (3, 4), 17: (4,)}  # the cluster sizes (log2 C) the kernel takes
+
+
+def cl_plan(log_n: int, inverse: bool, log_c: int | None = None) -> dict:
+    """ntt_mxu_cluster.cu:make_plan at degree 2^log_n (WG_MAX_LOG_N <
+    log_n <= MAX_LOG_N) in clusters of C = 2^log_c CTAs (default the
+    smallest of CL_SWEEP): stage 1's table M1 x K1 (K1 = M1) against N1
+    data rows, R1 = N1 / C a CTA; stage 2's M2 = K2 = N1, N2 = M1, R2 = N2 / C.  Each CTA's
+    shared memory: its stage 1 and stage 2 operand planes v1 = 4 R1 K1,
+    v2 = 4 R2 K2 (V2 in core matrices by K block, then row group: each
+    CTA's block of it one run); stage 1's outgoing tiles, out = 4 M1 R1
+    (each tile's values as blocks of their destination CTAs, pushed by bulk
+    copies); and the two warpgroups' rings of 'slots' chunks each (as many
+    as fit, to CL_MAX_SLOTS), a chunk 64 table rows x kc = CL_KC bytes of
+    K.  'per_row': the chunks a warpgroup
+    streams a polynomial (it takes every other 64-row tile of each stage);
+    'ok' when the cut is one the kernel takes."""
+    log_c = CL_SWEEP[log_n][0] if log_c is None else log_c
+    n1, n2 = _split_factors(log_n)
+    C = 1 << log_c
+    M1, N1 = (n2, n1) if inverse else (n1, n2)
+    M2, N2 = N1, M1
+    K1, K2 = M1, M2
+    R1, R2 = N1 // C, N2 // C
+    v1, v2, out = 4 * R1 * K1, 4 * R2 * K2, 4 * M1 * R1
+    kc = CL_KC
+    slots = max(0, min(CL_MAX_SLOTS, (WG_SMEM_LIMIT - v1 - v2 - out) // (512 * kc)))
+    ok = (2 <= C <= CL_MAX_CLUSTER and R1 in CL_TILES and R2 in CL_TILES and slots >= 1
+          and M1 % 128 == 0 and M2 % 128 == 0 and K1 % kc == 0 and K2 % kc == 0)
+    return dict(n1=n1, n2=n2, C=C, M1=M1, N1=N1, K1=K1, R1=R1, M2=M2, N2=N2, K2=K2, R2=R2,
+                v1=v1, v2=v2, out=out, kc=kc, slots=slots,
+                chunk=256 * kc, smem=2 * slots * 256 * kc + v1 + v2 + out,
+                per_row=(M1 // 128) * (K1 // kc) + (M2 // 128) * (K2 // kc), ok=ok)
+
+
+def cl_layout(m: np.ndarray) -> np.ndarray:
+    """(L, M, K) u32 table -> (L, 4 M K) u8, the cluster kernel's layout: the
+    64 x 64 blocks (64 rows, 64 bytes of K; M and K multiples of 64) by row
+    tile, then K, each block's 4 unsigned byte planes together, each plane
+    in wgmma's K-major core-matrix order (row group, K block of 16, row in
+    group, byte).  Element (p, r, k) at ((r / 64 (K / 64) + k / 64) 4 + p)
+    4096 + (r % 64 / 8) 512 + (k % 64 / 16) 128 + (r % 8) 16 + k % 16: every
+    chunk of a row tile, any multiple of 64 deep, is one contiguous run."""
+    L, M, K = m.shape
+    planes = np.ascontiguousarray(m, dtype="<u4").view(np.uint8).reshape(
+        L, M // 64, 8, 8, K // 64, 4, 16, N_LIMBS)
+    return np.ascontiguousarray(planes.transpose(0, 1, 4, 7, 2, 5, 3, 6)).reshape(L, -1)
 
 
 def byte_bounds(q: int) -> list[int]:
@@ -445,7 +511,8 @@ class MxuNTTTables:
       kernel_twiddle (2, L, n1, n2, 2): (T, T') and (Ti, Ti') pairs;
       kernel_scalars (L, 32): _kernel_scalar_rows.
 
-    Up to n = 2^WG_MAX_LOG_N, the redesigned kernel's (else None):
+    The redesigned kernels' (csrc/ntt_mxu_wg.cu to n = 2^WG_MAX_LOG_N,
+    csrc/ntt_mxu_cluster.cu above), at every degree:
 
       wg_w (forward stage 1, stage 2, inverse stage 1, stage 2): W1, W2^T,
         W2i^T, W1i as (L, 4 Mp Kp) u8 (wg_layout);
@@ -453,14 +520,16 @@ class MxuNTTTables:
         2), (w, w') u32 pairs in each first stage's output order;
       wg_scalars (L, 8): wg_scalar_rows for the contraction n2.
 
-    wg=True builds them above WG_MAX_LOG_N too (the CPU replay of the
-    kernel's integer steps).
+    Above n = 2^WG_MAX_LOG_N also the cluster kernel's planes (else None):
+
+      cl_w (forward stage 1, stage 2, inverse stage 1, stage 2): W1, W2^T,
+        W2i^T, W1i as (L, 4 M K) u8 (cl_layout).
 
     The plain version reads them through plain_tables."""
 
     _cache: dict = {}  # (log_n, q) -> the six uint32 matrices
 
-    def __init__(self, log_n: int, moduli: list[Modulus], device, wg: bool = False):
+    def __init__(self, log_n: int, moduli: list[Modulus], device):
         if not MIN_LOG_N <= log_n <= MAX_LOG_N:
             raise ValueError(f"[MxuNTTTables] n = 2^{log_n} outside [2^{MIN_LOG_N}, "
                              f"2^{MAX_LOG_N}]")
@@ -489,15 +558,15 @@ class MxuNTTTables:
         self.kernel_twiddle = torch.from_numpy(twiddle.view(np.int32)).to(self.device)
         self.kernel_scalars = torch.from_numpy(
             _kernel_scalar_rows(self.moduli).view(np.int32)).to(self.device)
-        self.wg_w = self.wg_twiddle = self.wg_scalars = None
-        if wg or log_n <= WG_MAX_LOG_N:
-            mats = (W1, W2.swapaxes(-1, -2), W2i.swapaxes(-1, -2), W1i)
-            self.wg_w = tuple(torch.from_numpy(wg_layout(m)).to(self.device) for m in mats)
-            tw = np.stack([twiddle[0].reshape(len(self.moduli), -1),
-                           twiddle[1].swapaxes(1, 2).reshape(len(self.moduli), -1)])
-            self.wg_twiddle = torch.from_numpy(tw.view(np.int32)).to(self.device)
-            self.wg_scalars = torch.from_numpy(
-                wg_scalar_rows(self.moduli, self.n2).view(np.int32)).to(self.device)
+        mats = (W1, W2.swapaxes(-1, -2), W2i.swapaxes(-1, -2), W1i)
+        self.wg_w = tuple(torch.from_numpy(wg_layout(m)).to(self.device) for m in mats)
+        tw = np.stack([twiddle[0].reshape(len(self.moduli), -1),
+                       twiddle[1].swapaxes(1, 2).reshape(len(self.moduli), -1)])
+        self.wg_twiddle = torch.from_numpy(tw.view(np.int32)).to(self.device)
+        self.wg_scalars = torch.from_numpy(
+            wg_scalar_rows(self.moduli, self.n2).view(np.int32)).to(self.device)
+        self.cl_w = (tuple(torch.from_numpy(cl_layout(m)).to(self.device) for m in mats)
+                     if log_n >= CL_MIN_LOG_N else None)
 
     @property
     def size(self) -> int:
@@ -517,11 +586,10 @@ class MxuNTTTables:
         out.kernel_w = tuple(w[:, ix].contiguous() for w in self.kernel_w)
         out.kernel_twiddle = self.kernel_twiddle[:, ix].contiguous()
         out.kernel_scalars = self.kernel_scalars[ix].contiguous()
-        out.wg_w = out.wg_twiddle = out.wg_scalars = None
-        if self.wg_w is not None:
-            out.wg_w = tuple(w[ix].contiguous() for w in self.wg_w)
-            out.wg_twiddle = self.wg_twiddle[:, ix].contiguous()
-            out.wg_scalars = self.wg_scalars[ix].contiguous()
+        out.wg_w = tuple(w[ix].contiguous() for w in self.wg_w)
+        out.wg_twiddle = self.wg_twiddle[:, ix].contiguous()
+        out.wg_scalars = self.wg_scalars[ix].contiguous()
+        out.cl_w = None if self.cl_w is None else tuple(w[ix].contiguous() for w in self.cl_w)
         return out
 
 

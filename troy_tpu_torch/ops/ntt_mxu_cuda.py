@@ -1,5 +1,5 @@
-"""Wrapper of the Hopper matrix-product NTT kernels (csrc/ntt_mxu_wg.cu and
-csrc/ntt_mxu.cu).
+"""Wrapper of the Hopper matrix-product NTT kernels (csrc/ntt_mxu_wg.cu,
+csrc/ntt_mxu_cluster.cu and csrc/ntt_mxu.cu).
 
 Counterpart of troy_tpu/ops/ntt_pallas.py's K2 (_fwd_kernel_mxu /
 _inv_kernel_mxu): the negacyclic NTT as two modular matrix products on 8-bit
@@ -8,35 +8,43 @@ ntt_inverse_mxu; ops/ntt.py:ntt_forward / ntt_inverse route here for CUDA
 tensors when the tables carry the route (set_ntt_backend("mxu") or
 ("pallas_mxu")).
 
-The route (ntt_forward / ntt_inverse), by degree:
-  * n <= 2^WG_MAX_LOG_N (16384): the redesigned kernel troy_ntt_*_mxu_wg,
-    one launch a transform, wgmma on unsigned byte planes, a persistent
-    CTA a limb and a run of its polynomials (MxuNTTTables.wg_*);
-  * n = 32768: the first form's one-CTA kernel (troy_ntt_*_mxu, a CTA a
-    polynomial, mma.sync on balanced planes);
-  * n = 65536, 131072: the first form's two launches of its stage kernel
-    through a scratch tensor.
-The first form's one-CTA kernel is also the yardstick of the redesigned one
-at every degree it serves (mma_forward / mma_inverse, launched only by
-chip_smoke.py's A/B there).  The kernels are compiled at first use with the
-port's other kernels (ops/_cuda_build.py).  A failed build or launch raises:
-nothing falls back.
+The route (ntt_forward / ntt_inverse), one launch a transform at every
+degree:
+  * n <= 2^WG_MAX_LOG_N (16384): troy_ntt_*_mxu_wg, wgmma on unsigned byte
+    planes, a persistent CTA a limb and a run of its polynomials
+    (MxuNTTTables.wg_*);
+  * n = 32768, 65536, 131072: troy_ntt_*_mxu_cluster, the same planes and
+    tables (cl_w, wg_twiddle, wg_scalars), a polynomial a thread-block
+    cluster (ops/ntt_mxu.py:cl_plan), persistent clusters over the rows.
+    The cluster size is route_log_c's: the largest the kernel takes at the
+    degree where the card holds a cluster for every row at once, else the
+    smallest (at 65536: 16 CTAs for up to 7 rows on an H100, else 8).
+    Where the card holds no such cluster the launch is refused and this
+    raises.
+The first form (troy_ntt_*_mxu: a CTA a polynomial, mma.sync on balanced
+planes, to 32768; above, two launches of its stage kernel through a scratch
+tensor) is the yardstick of both at every degree (mma_forward /
+mma_inverse, launched only by chip_smoke.py's A/B); no route takes it.
+The kernels are compiled at first use with the port's other kernels
+(ops/_cuda_build.py).  A failed build or launch raises: nothing falls back.
 
 LAUNCHES counts each kernel's launches: ntt_forward_mxu / ntt_inverse_mxu
-the redesigned kernel, *_mma the first form's one-CTA kernel, *_stages its
-stage kernel (two a transform).
+the kernel to 16384, *_mxu_cluster the cluster kernel, *_mma the first
+form's one-CTA kernel, *_stages its stage kernel (two a transform).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
 
-from . import _cuda_build
+from . import _cuda_build, ntt_mxu as MX
 from .ntt_mxu import MAX_LOG_N, MIN_LOG_N, MODULUS_BOUND, WG_MAX_LOG_N, MxuNTTTables
 
 LAUNCHES = {"ntt_forward_mxu": 0, "ntt_inverse_mxu": 0,
+            "ntt_forward_mxu_cluster": 0, "ntt_inverse_mxu_cluster": 0,
             "ntt_forward_mxu_mma": 0, "ntt_inverse_mxu_mma": 0,
             "ntt_forward_mxu_stages": 0, "ntt_inverse_mxu_stages": 0}
 
@@ -49,6 +57,11 @@ _WG_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void
                 ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 WG_INFO = ("threads", "smem", "regs", "local_bytes", "ctas_per_sm", "resident", "t1", "t2",
            "b1", "b2", "staging")
+_CL_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+CL_INFO = ("threads", "smem", "regs", "local_bytes", "clusters", "cluster", "R1", "R2", "slots",
+           "kc", "v1", "v2", "out")
 
 
 def plan_words(t: MxuNTTTables) -> list[int]:
@@ -97,6 +110,16 @@ def _call_wg(name: str, x: torch.Tensor, out: torch.Tensor, t1: torch.Tensor, t2
                   t.wg_scalars.data_ptr(), x.numel() // t.n, t.size, t.a, t.b, _stream(x))
 
 
+def _call_cluster(name: str, x: torch.Tensor, out: torch.Tensor, t1: torch.Tensor,
+                  t2: torch.Tensor, twiddle: torch.Tensor, t: MxuNTTTables, log_c: int) -> int:
+    """The cluster kernel's C call troy_<name> on the current stream, a
+    polynomial a cluster of 2^log_c CTAs; returns its CUDA error."""
+    fn = _cuda_build.function(f"troy_{name}", _CL_ARGTYPES)
+    with torch.cuda.device(x.device):
+        return fn(x.data_ptr(), out.data_ptr(), t1.data_ptr(), t2.data_ptr(), twiddle.data_ptr(),
+                  t.wg_scalars.data_ptr(), x.numel() // t.n, t.size, t.a, t.b, log_c, _stream(x))
+
+
 def _call(name: str, x: torch.Tensor, out: torch.Tensor, mid: torch.Tensor,
           w_left: torch.Tensor, w_right: torch.Tensor, t: MxuNTTTables) -> int:
     """The first form's C call troy_<name> on the current stream; returns
@@ -112,8 +135,8 @@ def _call(name: str, x: torch.Tensor, out: torch.Tensor, mid: torch.Tensor,
 def _launch_wg(inverse: bool, x: torch.Tensor, t: MxuNTTTables) -> torch.Tensor:
     """The redesigned kernel, one launch a transform (n <= 2^WG_MAX_LOG_N)."""
     _check(x, t)
-    if t.wg_w is None:
-        raise ValueError(f"[ntt_mxu_cuda] n = {t.n}: the redesigned kernel serves n <= "
+    if t.log_n > WG_MAX_LOG_N:
+        raise ValueError(f"[ntt_mxu_cuda] n = {t.n}: the kernel ntt_mxu_wg serves n <= "
                          f"{1 << WG_MAX_LOG_N}")
     name = "ntt_inverse_mxu" if inverse else "ntt_forward_mxu"
     out = torch.empty_like(x)
@@ -122,6 +145,59 @@ def _launch_wg(inverse: bool, x: torch.Tensor, t: MxuNTTTables) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"[ntt_mxu_cuda] troy_{name}_wg launch failed: CUDA error {err}")
     LAUNCHES[name] += 1
+    return out
+
+
+def cluster_plan(t: MxuNTTTables, inverse: bool, log_c: int | None = None) -> dict:
+    """The cluster kernel's cut of t's degree in clusters of 2^log_c CTAs
+    (ops/ntt_mxu.py:cl_plan); raises where the kernel takes none."""
+    log_n = getattr(t, "log_n", None)
+    if log_n is None or not WG_MAX_LOG_N < log_n <= MAX_LOG_N:
+        raise ValueError(f"[ntt_mxu_cuda] the cluster kernel serves 2^{WG_MAX_LOG_N + 1} <= n "
+                         f"<= 2^{MAX_LOG_N}, not n = 2^{log_n}")
+    plan = MX.cl_plan(log_n, inverse, log_c)
+    if not plan["ok"]:
+        raise ValueError(f"[ntt_mxu_cuda] n = {t.n}: no cut in clusters of {plan['C']} CTAs "
+                         f"(R1 = {plan['R1']}, R2 = {plan['R2']}, {plan['slots']} slots a "
+                         f"warpgroup)")
+    return plan
+
+
+_ACTIVE: dict = {}  # (device, inverse, log_n, log_c) -> clusters the card holds at once
+
+
+def route_log_c(x: torch.Tensor, t: MxuNTTTables, inverse: bool) -> int:
+    """The route's cluster size (log2 C) for x's rows: the largest of
+    CL_SWEEP[log_n] whose clusters the card holds for every row at once
+    (one row a cluster, no second round), else the smallest (more rows a
+    round, each cluster reading the tables once a row)."""
+    sizes = MX.CL_SWEEP[t.log_n]
+    rows = x.numel() // t.n
+    key = (x.device, inverse, t.log_n, sizes[-1])
+    if len(sizes) > 1 and key not in _ACTIVE:
+        with torch.cuda.device(x.device) if x.is_cuda else contextlib.nullcontext():
+            _ACTIVE[key] = cluster_info(inverse, t.log_n, sizes[-1])["clusters"]
+    return sizes[-1] if len(sizes) == 1 or rows <= _ACTIVE[key] else sizes[0]
+
+
+def _launch_cluster(inverse: bool, x: torch.Tensor, t: MxuNTTTables,
+                    log_c: int | None = None) -> torch.Tensor:
+    """The cluster kernel, one launch a transform (n > 2^WG_MAX_LOG_N), in
+    clusters of 2^log_c CTAs (default route_log_c's)."""
+    _check(x, t)
+    if log_c is None:
+        cluster_plan(t, inverse)  # the degree's refusal, before the card is asked
+        log_c = route_log_c(x, t, inverse)
+    plan = cluster_plan(t, inverse, log_c)
+    name = "ntt_inverse_mxu" if inverse else "ntt_forward_mxu"
+    out = torch.empty_like(x)
+    t1, t2 = t.cl_w[2:] if inverse else t.cl_w[:2]
+    err = _call_cluster(f"{name}_cluster", x, out, t1, t2, t.wg_twiddle[int(inverse)], t,
+                        plan["C"].bit_length() - 1)
+    if err != 0:
+        raise RuntimeError(f"[ntt_mxu_cuda] troy_{name}_cluster launch failed (clusters of "
+                           f"{plan['C']} CTAs): CUDA error {err}")
+    LAUNCHES[name + "_cluster"] += 1
     return out
 
 
@@ -144,18 +220,29 @@ def _launch_mma(inverse: bool, x: torch.Tensor, t: MxuNTTTables) -> torch.Tensor
 
 
 def _wg_route(t) -> bool:
-    """The degrees the redesigned kernel serves."""
+    """The degrees the kernel to 16384 serves; the cluster kernel the rest."""
     return getattr(t, "log_n", MAX_LOG_N) <= WG_MAX_LOG_N
 
 
 def ntt_forward(x: torch.Tensor, t: MxuNTTTables) -> torch.Tensor:
     """Kernel forward NTT of (..., L, n) int64 residues in [0, 2q)."""
-    return _launch_wg(False, x, t) if _wg_route(t) else _launch_mma(False, x, t)
+    return _launch_wg(False, x, t) if _wg_route(t) else _launch_cluster(False, x, t)
 
 
 def ntt_inverse(x: torch.Tensor, t: MxuNTTTables) -> torch.Tensor:
     """Kernel inverse NTT of (..., L, n) int64 residues in [0, 2q)."""
-    return _launch_wg(True, x, t) if _wg_route(t) else _launch_mma(True, x, t)
+    return _launch_wg(True, x, t) if _wg_route(t) else _launch_cluster(True, x, t)
+
+
+def cluster_forward(x: torch.Tensor, t: MxuNTTTables, log_c: int) -> torch.Tensor:
+    """The cluster kernel's forward in clusters of 2^log_c CTAs (the sweep
+    of chip_smoke.py; the route takes route_log_c's)."""
+    return _launch_cluster(False, x, t, log_c)
+
+
+def cluster_inverse(x: torch.Tensor, t: MxuNTTTables, log_c: int) -> torch.Tensor:
+    """The cluster kernel's inverse in clusters of 2^log_c CTAs."""
+    return _launch_cluster(True, x, t, log_c)
 
 
 def mma_forward(x: torch.Tensor, t: MxuNTTTables) -> torch.Tensor:
@@ -194,6 +281,25 @@ def wg_info(inverse: bool, log_n: int) -> dict:
     if err != 0:
         raise RuntimeError(f"[ntt_mxu_cuda] wg kernel info failed: CUDA error {err}")
     return dict(zip(WG_INFO, info))
+
+
+def cluster_info(inverse: bool, log_n: int, log_c: int | None = None) -> dict:
+    """The cluster kernel at degree 2^log_n in clusters of 2^log_c CTAs
+    (default the smallest of CL_SWEEP): threads, dynamic shared bytes, registers and local
+    (spill) bytes a thread, the clusters the card holds at once
+    (cudaOccupancyMaxActiveClusters), the cluster size, each stage's data
+    rows a CTA (R1, R2), a warpgroup's slots, a chunk's K bytes and the
+    bytes of the two operand plane sets and of the outgoing tiles
+    (ops/ntt_mxu.py:cl_plan)."""
+    log_c = MX.CL_SWEEP[log_n][0] if log_c is None else log_c
+    fn = _cuda_build.function("troy_ntt_mxu_cluster_info", [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
+    info = (ctypes.c_int * len(CL_INFO))()
+    a = log_n // 2
+    err = fn(int(inverse), a, log_n - a, log_c, info)
+    if err != 0:
+        raise RuntimeError(f"[ntt_mxu_cuda] cluster kernel info failed: CUDA error {err}")
+    return dict(zip(CL_INFO, info))
 
 
 def reset_launches():
