@@ -32,20 +32,28 @@ In phases:
   2. build    nvcc builds every csrc/*.cu into one library under
               troy_tpu_torch/build/; beside it, nvcc -Xptxas -v on ntt.cu,
               fused_mul.cu, fused_mul_large.cu, tensor_product.cu,
-              ntt_mxu.cu and ntt_mxu_wg.cu prints
-              each kernel's registers and spills, and the occupancy
-              calculator its CTAs per SM (and each cluster kernel's
-              clusters on the card);
+              ntt_mxu.cu, ntt_mxu_wg.cu, ntt_mxu_cluster.cu, bconv.cu and
+              bconv_first.cu prints each kernel's registers and spills, and
+              the occupancy calculator its CTAs per SM (and each cluster
+              kernel's clusters on the card; every form of K3 by its input
+              limbs, none spilling);
   3. kernels  each kernel against its plain PyTorch version, bit for bit:
               the NTT pair (and the earlier radix-2 pair that [times] uses
               as its yardstick) at every shape the path gives it and at every
               degree 2 to 131072 (above 32768 the cluster kernel, and its
               yardstick, the column and block kernels, each launch against
               its plain partial transform); the
-              base conversion (K3) at every conversion of
-              both lifts, the floor, Shenoy-Kumaresan and decrypt, at a
-              15 -> 9 contraction, at one input limb, and into ring2k's
-              {t, gamma} with t = 2^30 and 2^31 (output moduli past 2^30); the fused tensor
+              base conversion (K3, csrc/bconv.cu, and the first kernel
+              csrc/bconv_first.cu that [times] uses as its yardstick) at
+              every conversion of both lifts, the floor (also at batch
+              BCONV_DRAM_BATCH, on odd n and on a view off 16-byte
+              alignment), Shenoy-Kumaresan (the
+              joined B -> q u {m_sk} on the strided B rows of a (..., 9, n)
+              tensor, as the step runs it, and its two halves) and decrypt,
+              at 15 -> 9 and 17 -> 5 (the shared-memory form) contractions,
+              at one input limb, and into ring2k's {t, gamma} with t = 2^30
+              and 2^31 (output moduli past 2^30); a strided input makes no
+              copy, an input the kernel cannot address one counted copy; the fused tensor
               product (K4, and its earlier radix-2 kernel, the yardstick of
               [times]) on lazy [0, 2q) input over base q and Bsk and at every
               degree 2 to 131072 (above 32768 the large cluster kernel, and
@@ -63,7 +71,10 @@ In phases:
               decryptions launch K3 too) and keep a positive noise budget.
               K4 is driven at its own entry point, the tensor-product stage
               of the same multiply: it must launch, equal the evaluator's
-              unfused stage, and give the step's product through the floor;
+              unfused stage, and give the step's product through the floor.
+              K3 launches STEP_K3_LAUNCHES times a step (the floor and the
+              joined Shenoy-Kumaresan pair; the BEHZ lift of each operand
+              two more) and its wrapper makes no copy;
   5. rotate   Galois keys for steps 1, 4, -1 and the conjugation element, a
               public key, 16 distinct messages encrypted under it; the
               batched rotate_rows(1) (one keyswitch round), rotate_rows(3)
@@ -270,7 +281,7 @@ In phases:
               launches a step and no K1, each equal to the K1 step and to
               its all-plain run, ciphertexts 0 and 15 decrypting; and
               [large_n]'s n = 65536 HPS step on a context built under the
-              backend: the cluster kernel 5 + 4 launches, K3 3, no K1 and no
+              backend: the cluster kernel 5 + 4 launches, K3 2, no K1 and no
               first form, equal to the K1 step and the all-plain step, both
               products decrypting; each with the profiler's launches, device
               ms, K2 ms and busy share beside its K1 step's;
@@ -284,9 +295,13 @@ In phases:
               kernel against the earlier radix-2 kernel in turns (new, old,
               old, new) at every NTT shape of the HPS step and the Galois round,
               and K4 against its earlier radix-2 kernel the same way over q,
-              over Bsk and at the degrees of K4_DEGREES: device microseconds
-              per launch from CUDA events around a CUDA graph of 50 launches,
-              beside the launch's bound.
+              over Bsk and at the degrees of K4_DEGREES, and K3 against its
+              first kernel the same way at every conversion of [kernels] but
+              the generic ones (the joined Shenoy-Kumaresan launch also
+              against the copy and two launches it replaced), and the HPS
+              step's K3 calls summed: device microseconds per launch from
+              CUDA events around a CUDA graph of 50 launches, beside the
+              launch's bound.
 
 Bounds: the least time the card could take for a launch's work, the larger
 of its bytes (each input read once, each output written once) over
@@ -336,6 +351,10 @@ N_LARGE = 65536
 LARGE_BITS = [30] * 9             # 8 data primes + the special prime
 LARGE_BATCH = 2
 STEP_NTT_LAUNCHES = 9             # the n = 65536 HPS step's transforms, one launch each
+STEP_K3_LAUNCHES = {"hps": 2, "behz": 4}  # K3 a BFV multiply: the floor and the joined SK
+# pair (the BEHZ lift of each operand two more)
+BCONV_DRAM_BATCH = 64             # the floor at (64, 3, 6, n): 189 MB, past the 50 MB L2
+BCONV_FORMS = range(1, 18)        # [build]: K3's forms by L_in (17: shared-memory inputs)
 CLUSTER_SWEEP = {65536: (4, 3, 2, 1), 131072: (4, 3, 2)}  # log2 C of the NTT, timed in turns
 LWE_COUNT, LWE_GROUPS = 64, 4        # [lwe]: LWEs packed, and groups of them batched
 APP_BITS = [30] * 4                   # [app]: the reference's app-bench chain
@@ -383,6 +402,11 @@ MXU_YARDSTICKS = {
 # plain versions in [kernels], launched on no path.
 YARDSTICKS = ("ntt_forward_columns", "ntt_forward_blocks", "ntt_inverse_blocks",
               "ntt_inverse_columns", "tensor_product")
+# K3's first kernel (csrc/bconv_first.cu): timed against K3 in turns in
+# [times], held to the plain version in [kernels], launched on no path;
+# listed in the kernels line beside K3.
+BCONV_YARDSTICKS = {"base_convert_first": ("troy_tpu_torch/csrc/bconv_first.cu",
+                                         "troy_tpu/ops/ntt_pallas.py:413")}
 
 
 MEM_BYTES_PER_S = 3.35e12             # H100 SXM HBM3 (NVIDIA data sheet)
@@ -553,7 +577,11 @@ PTXAS_NAMES = {  # a part of each kernel's mangled name: the name printed
     "ntt_mxu_cluster_kernelILb0ELi16ELi16E": "ntt_forward_mxu_cluster (R = 16)",
     "ntt_mxu_cluster_kernelILb1ELi16ELi32E": "ntt_inverse_mxu_cluster (R1 = 16, R2 = 32)",
     "ntt_mxu_cluster_kernelILb1ELi32ELi32E": "ntt_inverse_mxu_cluster (R = 32)",
-    "ntt_mxu_cluster_kernelILb1ELi16ELi16E": "ntt_inverse_mxu_cluster (R = 16)"}
+    "ntt_mxu_cluster_kernelILb1ELi16ELi16E": "ntt_inverse_mxu_cluster (R = 16)",
+    "bconv_kernelILi0E": "base_convert, L_in > 16 (shared-memory inputs)",
+    "bconv_kernelILi3E": "base_convert, L_in = 3", "bconv_kernelILi6E": "base_convert, L_in = 6",
+    "bconv_kernelILi8E": "base_convert, L_in = 8",
+    "bconv_first_kernel": "base_convert_first (the first kernel)"}
 
 
 def ptxas_start(source: str) -> subprocess.Popen:
@@ -700,24 +728,65 @@ def phase_ntt(dev, tables: dict) -> dict:
     return err
 
 
-def phase_bconv(dev, cases: dict) -> int:
-    """Base-conversion kernel vs plain; returns max |err|."""
+def bconv_input(lead, tabs, layout: str, gen) -> torch.Tensor:
+    """K3's input for a case: (*lead, L_in, n) residues laid out as
+    `layout` says: "contiguous"; "strided", the first L_in rows of a
+    contiguous (*lead, L_in + 1, n) tensor (the step's Shenoy-Kumaresan
+    slice); "odd n", n = N - 1; "unaligned", a contiguous view 8 bytes off
+    16-byte alignment (the last two: rows off 16-byte alignment)."""
+    n = N - 1 if layout == "odd n" else N
+    x = residues((*lead, tabs.L_in, n), tabs.q_in, gen)
+    if layout == "strided":
+        return torch.cat([x, torch.zeros_like(x[..., :1, :])], dim=-2)[..., :-1, :]
+    if layout == "unaligned":
+        buf = torch.empty(x.numel() + 1, dtype=torch.int64, device=x.device)
+        buf[1:].copy_(x.flatten())
+        return buf[1:].view(x.shape)
+    return x
+
+
+def phase_bconv(dev, cases: dict) -> dict:
+    """K3 vs plain at each case (lead, tables, layout), and the first
+    kernel (the yardstick) on the same input made contiguous; a strided case goes in
+    with no copy, a view the kernel cannot address through one counted
+    copy.  Returns max |err| of K3 and of the yardstick."""
     from troy_tpu_torch.ops import bconv as BC, bconv_cuda
 
     gen = torch.Generator(device=dev).manual_seed(3)
-    worst = 0
-    for label, (lead, tabs) in cases.items():
-        x = residues((*lead, tabs.L_in, N), tabs.q_in, gen)
-        y = bconv_cuda.base_convert(x, tabs)
+    worst = {"base_convert": 0, "base_convert_first": 0}
+    for label, (lead, tabs, layout) in cases.items():
+        x = bconv_input(lead, tabs, layout, gen)
+        reset_launch_counts()
+        y = BC.base_convert(x, tabs)
+        torch.cuda.synchronize()
+        counts = launch_counts()
         y_ref = BC.base_convert_plain(x, tabs)
+        first = bconv_cuda.run_first(x.contiguous(), tabs)
         torch.cuda.synchronize()
         e = int((y - y_ref).abs().max())
+        e_first = int((first - y_ref).abs().max())
         in_range = bool((y < tabs.p_out.view(-1, 1)).all() and (y >= 0).all())
-        log(f"[kernels] base_convert {label} {tuple(x.shape)} -> {tuple(y.shape)}: "
-            f"max|err| {e}, output in [0, p): {in_range}")
-        if e or not in_range or y.shape != y_ref.shape:
-            raise AssertionError(f"[kernels] base_convert {label}: kernel disagrees")
-        worst = max(worst, e)
+        log(f"[kernels] base_convert {label} {tuple(x.shape)} (strides {x.stride()}) -> "
+            f"{tuple(y.shape)}: max|err| {e}, output in [0, p): {in_range}; launches "
+            f"{counts['base_convert']}, copies {counts['base_convert_copy']}; the first "
+            f"kernel max|err| {e_first}")
+        if (e or e_first or not in_range or y.shape != y_ref.shape
+                or counts["base_convert"] != 1 or counts["base_convert_copy"]):
+            raise AssertionError(f"[kernels] base_convert {label}: kernel disagrees or copied")
+        worst = {"base_convert": max(worst["base_convert"], e),
+                 "base_convert_first": max(worst["base_convert_first"], e_first)}
+    # a view the kernel cannot address (limbs not n apart): one counted copy
+    lead, tabs, _ = next(iter(cases.values()))
+    x = residues((*lead, tabs.L_in, N), tabs.q_in, gen).transpose(-1, -2).contiguous()
+    x = x.transpose(-1, -2)
+    reset_launch_counts()
+    y = BC.base_convert(x, tabs)
+    counts = launch_counts()
+    if (counts["base_convert_copy"], counts["base_convert"]) != (1, 1) or \
+            not torch.equal(y, BC.base_convert_plain(x, tabs)):
+        raise AssertionError(f"[kernels] base_convert on strides {x.stride()}: {counts}")
+    log(f"[kernels] base_convert on a view with limbs at stride 1 {tuple(x.shape)}: one "
+        f"counted copy, then the kernel, equal to plain")
     return worst
 
 
@@ -824,7 +893,9 @@ def phase_refusals(dev, t, bconv_tabs, big):
     xb = torch.zeros((2, bconv_tabs.L_in, N), dtype=torch.int64, device=dev)
     expect_refusals("base_convert", lambda v: bconv_cuda.base_convert(v, bconv_tabs), {
         "int32": (xb.to(torch.int32), TypeError),
-        "not contiguous": (xb.transpose(0, 1), ValueError),
+        "coefficients not at stride 1": (xb[..., ::2], ValueError),
+        "limbs not n apart": (xb.transpose(-1, -2).contiguous().transpose(-1, -2), ValueError),
+        "rows overlapping": (xb[:1].expand(2, -1, -1), ValueError),
         "wrong limb count": (xb[:, :1].contiguous(), ValueError),
         "CPU tensor": (xb.cpu(), ValueError)})
     a = torch.zeros((2, 2, t.size, t.n), dtype=torch.int64, device=dev)
@@ -1281,6 +1352,110 @@ def phase_fused_ab(gpu: str, dev, cases: dict) -> dict:
             f"{100 * bound / new_us:.1f}% against {100 * bound / old_us:.1f}%; "
             f"{old_us / new_us:.2f}x; new <= old: {new_us <= old_us}")
     return out
+
+
+def phase_bconv_ab(gpu: str, dev, cases: dict, sk_parts: tuple) -> dict:
+    """K3 against the first kernel in turns (new, old, old, new) by CUDA
+    graphs at each case (lead, tables, layout), beside its bound and the
+    plain version; the first kernel reads a contiguous copy made beforehand.
+    At the strided (joined Shenoy-Kumaresan) case, also the route it
+    replaced: the copy of the B rows, then one launch into q and one into
+    m_sk (sk_parts), of the first kernel and of K3, in turns.  Returns
+    {label: dict(us, first_us, plain_us, bound, by)}."""
+    from troy_tpu_torch.ops import bconv as BC, bconv_cuda
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    out = {}
+    for label, (lead, tabs, layout) in cases.items():
+        x = bconv_input(lead, tabs, layout, g)
+        xc = x.contiguous()
+        new = lambda: BC.base_convert(x, tabs)
+        old = lambda: bconv_cuda.run_first(xc, tabs)
+        n1, o1, o2, n2 = graph_us(new), graph_us(old), graph_us(old), graph_us(new)
+        plain_us = graph_us(lambda: BC.base_convert_plain(x, tabs), PLAIN_REPS)
+        bound, by = bconv_bound(tuple(x.shape), tabs.L_out)
+        us, first_us = min(n1, n2), min(o1, o2)
+        out[label] = dict(us=us, first_us=first_us, plain_us=plain_us, bound=bound, by=by)
+        log(f"[times] {gpu}: base_convert {label} {tuple(x.shape)} -> {tabs.L_out} limbs: "
+            f"K3 {n1:.3f} / {n2:.3f} us, the first kernel {o1:.3f} / {o2:.3f} us a launch "
+            f"(graph of {GRAPH_LAUNCHES}); bound {bound:.3f} us ({by}); share of the bound "
+            f"{100 * bound / us:.1f}% against {100 * bound / first_us:.1f}%; "
+            f"{first_us / us:.2f}x; plain {plain_us:.3f} us")
+        if layout != "strided":
+            continue
+        to_q, to_msk = sk_parts
+        routes = {
+            "joined": new,
+            "copy + 2 first-kernel launches": lambda: [
+                bconv_cuda.run_first(y, t) for y in (x.contiguous(),) for t in (to_q, to_msk)],
+            "copy + 2 K3 launches": lambda: [
+                BC.base_convert(y, t) for y in (x.contiguous(),) for t in (to_q, to_msk)],
+            "the copy alone": lambda: x.contiguous()}
+        order = list(routes) + list(routes)[::-1]
+        got = {}
+        for name in order:
+            got.setdefault(name, []).append(graph_us(routes[name]))
+        log(f"[times] {gpu}: Shenoy-Kumaresan conversion {tuple(x.shape)} -> "
+            f"{to_q.L_out} + {to_msk.L_out} limbs, in turns: " + ", ".join(
+                f"{k} {v[0]:.3f} / {v[1]:.3f} us" for k, v in got.items())
+            + f"; the joined launch's bound {bound:.3f} us; the two launches' bounds "
+            f"{bconv_bound(tuple(x.shape), to_q.L_out)[0]:.3f} + "
+            f"{bconv_bound(tuple(x.shape), to_msk.L_out)[0]:.3f} us")
+        out[label]["routes"] = {k: min(v) for k, v in got.items()}
+    return out
+
+
+def step_k3(gpu: str, dev, fn) -> dict:
+    """K3's launches in one call of fn, each input recorded with its shape
+    and strides: the sum of their graph times on fresh inputs laid out the
+    same, beside the sum of their bounds, in turns with the first kernel's route of
+    the same conversions (a strided input copied first and a joined
+    table's last row converted by a launch of its own)."""
+    from troy_tpu_torch.ops import bconv as BC, bconv_cuda
+
+    calls = []
+    real = BC.base_convert
+
+    def rec(x, t):
+        calls.append((tuple(x.shape), x.stride(), t))
+        return real(x, t)
+    with mock.patch.object(BC, "base_convert", rec):
+        fn()
+    torch.cuda.synchronize()
+    g = torch.Generator(device=dev).manual_seed(12)
+    items = []
+    for shape, stride, t in calls:
+        span = 1 + sum((size - 1) * st for size, st in zip(shape, stride))
+        buf = torch.randint(0, int(t.q_in.min()), (span,), generator=g, dtype=torch.int64,
+                            device=dev)
+        x = buf.as_strided(shape, stride)
+        parts = None if x.is_contiguous() else (
+            BC.take_outputs(t, range(t.L_out - 1)), BC.take_outputs(t, [t.L_out - 1]))
+        items.append((x, t, parts))
+
+    def new():
+        for x, t, _ in items:
+            BC.base_convert(x, t)
+
+    def old():
+        for x, t, parts in items:
+            if parts is None:
+                bconv_cuda.run_first(x, t)
+            else:
+                y = x.contiguous()
+                for part in parts:
+                    bconv_cuda.run_first(y, part)
+    n1, o1, o2, n2 = graph_us(new, 20), graph_us(old, 20), graph_us(old, 20), graph_us(new, 20)
+    bound = sum(bconv_bound(tuple(x.shape), t.L_out)[0] for x, t, _ in items)
+    us = min(n1, n2)
+    log(f"[times] {gpu}: the HPS step's K3: {len(items)} launches at "
+        f"{[(tuple(x.shape), x.is_contiguous()) for x, _, _ in items]} (shape, contiguous): "
+        f"{n1:.3f} / {n2:.3f} us a step by CUDA graphs, bound {bound:.3f} us "
+        f"({100 * bound / us:.1f}%); the first kernel's route "
+        f"({sum(2 if p else 1 for _, _, p in items)} launches and "
+        f"{sum(p is not None for _, _, p in items)} copies) "
+        f"{o1:.3f} / {o2:.3f} us")
+    return dict(us=us, first_us=min(o1, o2), bound=bound, launches=len(items))
 
 
 def unfused_stage(a, b, t):
@@ -1741,6 +1916,9 @@ def phase_large_n(dev, gpu: str, degrees: dict) -> dict:
         f"launched: {others or 'none'}")
     if cluster_n != len(ntt_calls) or cluster_n != STEP_NTT_LAUNCHES or others:
         raise AssertionError("[large_n] the step's transforms are not one cluster launch each")
+    if (launches["base_convert"], launches["base_convert_copy"]) != (STEP_K3_LAUNCHES["hps"], 0):
+        raise AssertionError(f"[large_n] the step launched K3 {launches['base_convert']} times "
+                             f"and copied {launches['base_convert_copy']} inputs")
     check_decrypts("large_n", "HPS products m1 * m2 mod t", out, cd.parms_id, expected,
                    encoder, decryptor, n=n)
     budget = decryptor.invariant_noise_budget(Ciphertext(out[0], cd.parms_id))
@@ -2211,6 +2389,11 @@ def phase_mesh(dev, gpu: str, main: dict, app: dict) -> dict:
             raise AssertionError(f"[mesh] {label} != the unsharded step at "
                                  f"{int((got != want).sum())} residues")
         decrypts(label, got, rows)
+        k3 = {i: (c.get("base_convert", 0), c.get("base_convert_copy", 0))
+              for i, c in out.record.launches.items()}
+        if any(v != (STEP_K3_LAUNCHES["hps"], 0) for v in k3.values()):
+            raise AssertionError(f"[mesh] {label}: K3 launches and copies per shard {k3}, "
+                                 f"not ({STEP_K3_LAUNCHES['hps']}, 0) each")
         stats = M.collective_stats(out)
         ms = cuda_ms(fn, MESH_REPS)
         log(f"[mesh] {label}: equals the unsharded step bit for bit, products "
@@ -3171,6 +3354,8 @@ PEROP_REQUIRED = {  # kernels a row must launch at the fast width (all schemes, 
     "bfv": {"multiply": ("ntt_forward", "ntt_inverse", "base_convert"),
             "multiply_relinearize": ("ntt_forward", "ntt_inverse", "base_convert"),
             "decrypt (device)": ("ntt_forward", "ntt_inverse", "base_convert")}}
+PEROP_K3 = {"multiply": STEP_K3_LAUNCHES["hps"],  # K3 a BFV row at the fast width
+            "multiply_relinearize": STEP_K3_LAUNCHES["hps"], "decrypt (device)": 1}
 PEROP_MOD_T = {"encode_simd (device)": ("ntt_inverse",),  # BFV / BGV: the NTT mod t
                "decode_simd (device)": ("ntt_forward",)}
 EAGER_REPS = 5
@@ -3218,6 +3403,12 @@ def phase_perop(dev, gpu: str) -> dict:
             need = required.get(name, ()) if width == "fast" else PEROP_MOD_T.get(name)
             if need is not None:
                 res, launches = run_step("perop", label, run, need)
+                if scheme == "bfv" and width == "fast" and name in PEROP_K3 and (
+                        launches["base_convert"], launches["base_convert_copy"]) != (
+                        PEROP_K3[name], 0):
+                    raise AssertionError(f"[perop] {label} launched K3 "
+                                         f"{launches['base_convert']} times ({PEROP_K3[name]}) "
+                                         f"and copied {launches['base_convert_copy']} inputs")
             else:
                 reset_launch_counts()
                 res = run()
@@ -3685,17 +3876,18 @@ def phase_mxu(dev, gpu: str, main: dict, rot: dict, large: dict) -> dict:
         per_step = tuple(llaunches[k] for k in MXU_CLUSTER_KERNELS)
         others = {k: v for k, v in llaunches.items() if v and k not in (
             *MXU_CLUSTER_KERNELS, "base_convert")}
-        if per_step != (5, 4) or others or llaunches["base_convert"] != 3:
+        if per_step != (5, 4) or others or llaunches["base_convert"] != STEP_K3_LAUNCHES["hps"]:
             raise AssertionError(f"[mxu] the n = {N_LARGE} step launched the cluster kernel "
                                  f"{per_step} (5 forward, 4 inverse expected), K3 "
-                                 f"{llaunches['base_convert']} (3) and others {others}")
+                                 f"{llaunches['base_convert']} ({STEP_K3_LAUNCHES['hps']}) "
+                                 f"and others {others}")
         if not torch.equal(lout, large["out"]):
             raise AssertionError(f"[mxu] the n = {N_LARGE} step under pallas_mxu != the K1 step")
         check_decrypts("mxu", f"n = {N_LARGE} HPS products", lout, large["cd"].parms_id,
                        large["expected"], large["encoder"], large["decryptor"], n=N_LARGE)
         log(f"[mxu] the n = {N_LARGE} HPS step under pallas_mxu equals the K1 step and the "
             "all-plain step bit for bit; the cluster kernel 5 forward and 4 inverse launches a "
-            "step, K1, the kernel to 16384 and the first form none, K3 3")
+            "step, K1, the kernel to 16384 and the first form none, K3 2")
         lcalls = record_launches(lambda: step_l(ld1, ld2, rlk))
         for _ in range(2):
             step_l(ld1, ld2, rlk)
@@ -3774,7 +3966,7 @@ def main() -> int:
     _cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     ptxas = [ptxas_start(src) for src in ("ntt.cu", "fused_mul.cu", "fused_mul_large.cu",
                                           "tensor_product.cu", "ntt_mxu.cu", "ntt_mxu_wg.cu",
-                                          "ntt_mxu_cluster.cu")]
+                                          "ntt_mxu_cluster.cu", "bconv.cu", "bconv_first.cu")]
     lib = _cuda_build.build()
     _cuda_build.load()
     log(f"[build] {lib.name} from {', '.join(p.name for p in _cuda_build.sources())} "
@@ -3844,6 +4036,14 @@ def main() -> int:
                 f"(cudaFuncGetAttributes, cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
             if info["ctas_per_sm"] < 1 or info["local_bytes"]:
                 raise AssertionError(f"[build] K2's launch shape {info} fits no SM or spills")
+    forms = {l_in: bconv_cuda.kernel_info(l_in) for l_in in BCONV_FORMS}
+    log(f"[build] base_convert's forms by L_in, (registers, CTAs an SM), "
+        f"{forms[1]['threads']} threads a CTA, a column a thread, one CTA a tile of a row: "
+        f"{ {k: (v['regs'], v['ctas_per_sm']) for k, v in forms.items()} }; the "
+        f"shared-memory form (L_in > 16) {forms[17]['smem']} bytes of shared memory at most "
+        f"(cudaFuncGetAttributes, cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
+    if any(v["ctas_per_sm"] < 1 or v["local_bytes"] for v in forms.values()):
+        raise AssertionError(f"[build] a form of K3 fits no SM or spills: {forms}")
     for lg, k in fused_mul_cuda.LARGE_SHAPES:
         info = fused_mul_cuda.large_info(lg, k)
         log(f"[build] fused_mul_large at n = {1 << lg}, clusters of {1 << k}: {info}")
@@ -3885,18 +4085,26 @@ def main() -> int:
             RNSBase([Modulus(p) for p in numth.get_primes(n, 30, l_in)], dev),
             RNSBase([Modulus(p) for p in numth.get_primes(n, 29, l_out)], dev)).tables
 
-    bconv_cases = {
-        "lift q -> Bsk u {m~}": ((BATCH, 2), tool.conv_q_to_Bsk_m_tilde.tables),
-        "floor q -> Bsk (folded)": ((BATCH, 3), tool.ff_tables),
-        "SK B -> q": ((BATCH, 3), tool.conv_B_to_q.tables),
-        "SK B -> m_sk": ((BATCH, 3), tool.conv_B_to_m_sk.tables),
-        "decrypt q -> {t, gamma}": ((), tool.conv_q_to_t_gamma.tables),
-        "15 -> 9": ((4,), converter(15, 9)),
-        "1 -> 3": ((4,), converter(1, 3)),
-        **{f"ring2k q -> {{2^{k}, gamma}}": ((RING2K_MESSAGES,), t_gamma_tables(dev, k))
-           for k in (30, 31)},
+    sk_tabs = tool._rows("q", None)["sk"]
+    bconv_cases = {  # label: (lead, tables, layout)
+        "lift q -> Bsk u {m~}": ((BATCH, 2), tool.conv_q_to_Bsk_m_tilde.tables, "contiguous"),
+        "floor q -> Bsk (folded)": ((BATCH, 3), tool.ff_tables, "contiguous"),
+        f"floor at batch {BCONV_DRAM_BATCH}": ((BCONV_DRAM_BATCH, 3), tool.ff_tables,
+                                                "contiguous"),
+        "floor, odd n": ((4, 3), tool.ff_tables, "odd n"),
+        "floor, unaligned view": ((4, 3), tool.ff_tables, "unaligned"),
+        "SK B -> q u {m_sk}, joined, strided": ((BATCH, 3), sk_tabs, "strided"),
+        "SK B -> q": ((BATCH, 3), tool.conv_B_to_q.tables, "contiguous"),
+        "SK B -> m_sk": ((BATCH, 3), tool.conv_B_to_m_sk.tables, "contiguous"),
+        "decrypt q -> {t, gamma}": ((), tool.conv_q_to_t_gamma.tables, "contiguous"),
+        "decrypt step q -> {t, gamma}": ((BATCH,), tool.conv_q_to_t_gamma.tables, "contiguous"),
+        "15 -> 9": ((4,), converter(15, 9), "contiguous"),
+        "17 -> 5": ((4,), converter(17, 5), "contiguous"),
+        "1 -> 3": ((4,), converter(1, 3), "contiguous"),
+        **{f"ring2k q -> {{2^{k}, gamma}}": ((RING2K_MESSAGES,), t_gamma_tables(dev, k),
+                                              "contiguous") for k in (30, 31)},
     }
-    err["base_convert"] = phase_bconv(dev, bconv_cases)
+    err.update(phase_bconv(dev, bconv_cases))
     err.update(phase_fused(dev, {
         "base q": ((BATCH,), qtab),
         "base Bsk": ((BATCH,), bsk),
@@ -3927,6 +4135,13 @@ def main() -> int:
             "main", f"{lift.upper()} step {tuple(d1.shape)} x {tuple(d2.shape)}",
             lambda: step(d1, d2, keys), ("ntt_forward", "ntt_inverse", "base_convert"))
         outs[lift] = out
+        k3 = (launches[lift]["base_convert"], launches[lift]["base_convert_copy"])
+        if k3 != (STEP_K3_LAUNCHES[lift], 0):
+            raise AssertionError(f"[main] the {lift} step launched K3 {k3[0]} times "
+                                 f"({STEP_K3_LAUNCHES[lift]}) and copied {k3[1]} inputs (0)")
+        log(f"[main] {lift.upper()} step: K3 {k3[0]} launches (the floor, the joined "
+            f"Shenoy-Kumaresan pair{', the lift of each operand' if lift == 'behz' else ''}), "
+            "no input copied")
         check_decrypts("main", f"{lift.upper()} products m1 * m2 mod t", out, cd.parms_id,
                        expected, encoder, decryptor)
         budget = decryptor.invariant_noise_budget(Ciphertext(out[0], cd.parms_id))
@@ -4082,17 +4297,12 @@ def main() -> int:
         log(f"[times] {gpu}: {name} at {tuple(xq.shape)}: kernel "
             f"{times[name][0]:.5f} ms, plain {times[name][1]:.5f} ms (device time per "
             f"call, CUDA graph)")
-    for label, (lead, tabs) in bconv_cases.items():
-        if label in ("15 -> 9", "1 -> 3"):
-            continue
-        x = residues((*lead, tabs.L_in, N), tabs.q_in, g)
-        ms = pair(lambda: bconv_cuda.base_convert(x, tabs),
-                  lambda: BC.base_convert_plain(x, tabs))
-        if label.startswith("floor"):
-            times["base_convert"] = ms
-        log(f"[times] {gpu}: base_convert {label} {tuple(x.shape)} -> "
-            f"{tabs.L_out} limbs: kernel {ms[0]:.5f} ms, plain {ms[1]:.5f} ms (device "
-            f"time per call, CUDA graph)")
+    bconv_ab = phase_bconv_ab(gpu, dev, {
+        k: v for k, v in bconv_cases.items() if k not in ("15 -> 9", "17 -> 5", "1 -> 3")},
+        (tool.conv_B_to_q.tables, tool.conv_B_to_m_sk.tables))
+    floor_ab = bconv_ab["floor q -> Bsk (folded)"]
+    times["base_convert"] = (floor_ab["us"] / 1e3, floor_ab["plain_us"] / 1e3)
+    hps_k3 = step_k3(gpu, dev, lambda: steps["hps"](d1, d2, keys))
     fused_ab = phase_fused_ab(gpu, dev, {
         "base q": ((BATCH,), qtab), "base Bsk": ((BATCH,), bsk),
         **{f"n={n}": ((3,), degrees[n]) for n in K4_DEGREES}})
@@ -4191,6 +4401,9 @@ def main() -> int:
             results[-1]["int_mm_ms"] = None if row["int_mm_us"] is None else row["int_mm_us"] / 1e3
         if results[-1]["launches"] == 0:
             raise AssertionError(f"[results] {name} was not launched on its path ({path})")
+        if name == "base_convert":  # the HPS step's K3 launches by CUDA graphs (step_k3)
+            results[-1]["step_graph_us"] = hps_k3["us"]
+            results[-1]["step_first_route_us"] = hps_k3["first_us"]
     for name, (src, replaces) in MXU_YARDSTICKS.items():  # on no path: timed, not launched
         # the one-CTA kernel at base q (16, 6, 8192), the stage kernel's two
         # launches at (3, 2, 65536)
@@ -4206,6 +4419,16 @@ def main() -> int:
             "bound_ms": row["bound"] / 1e3, "bound_by": row["by"], "library_ms": None,
             "path": None, "yardstick_of": of,
             "method_terms_ms": {k: v / 1e3 for k, v in row["yard_terms"].items()}})
+    for name, (src, replaces) in BCONV_YARDSTICKS.items():  # on no path: timed, not launched
+        results.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": sum(launches[k][name] for k in ("hps", "behz")),
+            "max_abs_err": err[name], "ms": floor_ab["first_us"] / 1e3,
+            "plain_ms": floor_ab["plain_us"] / 1e3, "bound_ms": floor_ab["bound"] / 1e3,
+            "bound_by": floor_ab["by"], "library_ms": None, "path": None,
+            "yardstick_of": "base_convert"})
+        if results[-1]["launches"]:
+            raise AssertionError(f"[results] the yardstick {name} was launched on a path")
     if PROFILER["failed"]:
         log(f"[results] the profiler recorded no device kernel for {PROFILER['failed']} "
             "profiled calls: their device times are not measured (device_us null)")

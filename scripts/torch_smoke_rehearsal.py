@@ -11,7 +11,8 @@ CPU), nvidia-smi's line, the profiler (the CPU profiler sees no device
 kernels), ptxas and the build; HeContext.create's default device (the
 card) becomes the CPU.  Each kernel's C call is routed to its plain
 version (the wrappers' own routing and launch counting stay real, and every
-kernel input must be a contiguous int64 tensor, as the kernels need); the
+kernel input must be a contiguous int64 tensor, as the kernels need, but
+K3's, which may be strided as its wrapper allows); the
 dispatch functions to the wrappers; the refusal phase is skipped.  Sizes: n
 = 1024 (the BFV, CKKS and BGV phases), batch 2, the large-n phase at n = 4096 in clusters of 4
 (the tables' route switches at 2048 here; the yardstick's blocks are of
@@ -116,10 +117,15 @@ def install_fakes(profiler: bool = True):
         chk(y); fused_mul_cuda.LAUNCHES["tensor_product"] += 1
         return D.dyadic_convolute(y[..., :2, :, :], y[..., 2:, :, :], t)
     fused_mul_cuda.tensor_product = fake_tp
-    def fake_bconv(x, tabs):
-        chk(x); bconv_cuda.LAUNCHES["base_convert"] += 1
-        return BC.base_convert_plain(x, tabs)
-    bconv_cuda.base_convert = fake_bconv
+    bconv_cuda._check_device = lambda x, tabs: None
+    def fake_bcall(name, x, out, tabs, *args):  # K3 reads strided rows; the first kernel not
+        assert x.dtype == torch.int64 and bconv_cuda.row_stride(x, tabs.L_in) is not None
+        assert name == "troy_bconv" or x.is_contiguous()
+        out.copy_(BC.base_convert_plain(x, tabs))
+        return 0
+    bconv_cuda._call = fake_bcall
+    bconv_cuda.kernel_info = lambda l: {"threads": 128, "regs": 0, "local_bytes": 0, "smem": 0,
+                                        "ctas_per_sm": 1, "sms": 132}
     def fake_mxu_check(x, t):
         chk(x); assert x.shape[-1] == t.n and x.shape[-2] == t.size and 8 <= t.log_n <= 17
     ntt_mxu_cuda._check = fake_mxu_check
@@ -165,7 +171,7 @@ def install_fakes(profiler: bool = True):
                              is not None else kernel(x.contiguous(), t))
     NTT.ntt_forward = route(ntt_cuda.ntt_forward, ntt_mxu_cuda.ntt_forward)
     NTT.ntt_inverse = route(ntt_cuda.ntt_inverse, ntt_mxu_cuda.ntt_inverse)
-    BC.base_convert = lambda x, t: bconv_cuda.base_convert(x.contiguous(), t)
+    BC.base_convert = lambda x, t: bconv_cuda.base_convert(bconv_cuda.addressable(x, t.L_in), t)
     FM.fused_negacyclic_multiply = lambda a, b, t: fused_mul_cuda.fused_negacyclic_multiply(
         a.contiguous(), b.contiguous(), t)
     CM.CoeffModulus.max_bit_count = staticmethod(lambda n, s: 10**6)

@@ -93,18 +93,30 @@ def test_m_tilde_row_is_reduced(tools):
 
 
 def test_kernel_tables_layout(tools):
-    """kernel_tables holds [q_in, ip, ip Shoup, p_out, M row-major] as u32."""
+    """kernel_tables holds, as u32 in 16-byte vectors, [q_i, ip_i, ip_i
+    Shoup, 0] a limb, [p_o, ratio_o low, ratio_o high, cadence_o] an output
+    and M row-major with each row zero-padded to mat_vecs(L_in) vectors."""
     _, tt = tools
     tabs = tt.conv_q_to_Bsk_m_tilde.tables
     words = tabs.kernel_tables.numpy().view(np.uint32).astype(np.int64)
     L_in, L_out = tabs.L_in, tabs.L_out
-    q, ip = tabs.q_in.numpy(), tabs.ip.numpy()
-    np.testing.assert_array_equal(words[:L_in], q)
-    np.testing.assert_array_equal(words[L_in:2 * L_in], ip)
-    np.testing.assert_array_equal(words[2 * L_in:3 * L_in], (ip << 32) // q)
-    np.testing.assert_array_equal(words[3 * L_in:3 * L_in + L_out], tabs.p_out.numpy())
-    np.testing.assert_array_equal(words[3 * L_in + L_out:], tabs.mat.numpy().ravel())
-    assert words.size == 3 * L_in + L_out + L_out * L_in
+    q, ip, p = tabs.q_in.numpy(), tabs.ip.numpy(), tabs.p_out.numpy()
+    ins = words[:4 * L_in].reshape(L_in, 4)
+    np.testing.assert_array_equal(ins[:, 0], q)
+    np.testing.assert_array_equal(ins[:, 1], ip)
+    np.testing.assert_array_equal(ins[:, 2], (ip << 32) // q)
+    np.testing.assert_array_equal(ins[:, 3], 0)
+    outs = words[4 * L_in:4 * (L_in + L_out)].reshape(L_out, 4)
+    np.testing.assert_array_equal(outs[:, 0], p)
+    ratio = [((1 << 64) - 1) // int(v) for v in p]
+    assert [int(lo) | int(hi) << 32 for lo, hi in outs[:, 1:3]] == ratio == tabs.ratio
+    np.testing.assert_array_equal(outs[:, 3], tabs.cadence)
+    assert tabs.cadence == [L_in] * L_out   # 30-bit inputs, outputs below 2^30
+    lv = 4 * BC.mat_vecs(L_in)
+    mat = words[4 * (L_in + L_out):].reshape(L_out, lv)
+    np.testing.assert_array_equal(mat[:, :L_in], tabs.mat.numpy())
+    np.testing.assert_array_equal(mat[:, L_in:], 0)
+    assert words.size == 4 * (L_in + L_out) + L_out * lv
 
 
 def test_kernel_wrapper_refuses_cpu_tensors(tools):
@@ -113,4 +125,4 @@ def test_kernel_wrapper_refuses_cpu_tensors(tools):
     x = torch.zeros(1, tt.base_q.size, 16, dtype=torch.int64)
     with pytest.raises(ValueError):
         bconv_cuda.base_convert(x, tt.conv_q_to_Bsk.tables)
-    assert bconv_cuda.LAUNCHES == {"base_convert": 0}
+    assert not any(bconv_cuda.LAUNCHES.values())

@@ -30,13 +30,40 @@ import torch
 from . import u32 as U
 
 
+_W64 = 1 << 64
+
+
+def mat_vecs(l_in: int) -> int:
+    """16-byte vectors a matrix row takes in the kernel's tables."""
+    return (l_in + 3) // 4
+
+
+def check_cadence(every: int, term: int, p: int) -> int:
+    """`every` itself where `every` products below term + 1 plus a value
+    reduced mod p stay below 2^64, the bound under which the kernel's
+    Barrett step (csrc/ntt_common.cuh barrett_reduce64) needs its one
+    correction; raises where they do not."""
+    if every < 1 or every * term + p - 1 >= _W64:
+        raise ValueError(f"[BConvTables] a cadence of {every} products below {term + 1} "
+                         f"overflows 64 bits at p = {p}")
+    return every
+
+
 class BConvTables:
     """The tables of one conversion {q_i} -> {p_o} on one device.
 
     Plain-version tensors (int64): q_in and ip (L_in,), p_out (L_out,),
     mat (L_out, L_in).
-    Kernel tensor (u32 bit patterns stored as int32): kernel_tables =
-    [q_in, ip, Shoup companion floor(ip * 2^32 / q_in), p_out, mat row-major].
+    Kernel constants, built and checked here so that the kernel divides
+    nothing: ratio[o] = floor((2^64 - 1) / p_o), Barrett's constant, and
+    cadence[o], the products summed between two reductions of output o: the
+    most for which they (each below max(q_in) max(mat[o])) plus a reduced
+    value stay below 2^64, at most L_in (one reduction at the end only),
+    checked by check_cadence.
+    Kernel tensor (u32 bit patterns stored as int32), in 16-byte vectors:
+    L_in of [q_i, ip_i, Shoup companion floor(ip_i 2^32 / q_i), 0], L_out of
+    [p_o, ratio_o low, ratio_o high, cadence_o], then mat, each row padded
+    with zeros to mat_vecs(L_in) vectors (csrc/bconv.cu).
     """
 
     def __init__(self, q_in: list[int], ip: list[int], p_out: list[int],
@@ -48,16 +75,29 @@ class BConvTables:
         self.max_out_modulus = max(p_out)
         self.device = torch.device(device)
         shoup = [(w << 32) // q for w, q in zip(ip, q_in)]
-        words = np.array(q_in + ip + shoup + p_out + [m for row in mat for m in row],
-                         dtype=np.uint64)
-        if words.max() >= (1 << 32):
+        if max(q_in + ip + shoup + p_out + [m for row in mat for m in row]) >= 1 << 32:
             raise ValueError("[BConvTables] table values must fit 32 bits")
+        if min(p_out) < 2:
+            raise ValueError("[BConvTables] output moduli must be at least 2")
+        self.ratio = [(_W64 - 1) // p for p in p_out]
+        self.cadence = [self._cadence(p, max(row)) for p, row in zip(p_out, mat)]
         self.q_in = torch.tensor(q_in, dtype=torch.int64, device=self.device)
         self.ip = torch.tensor(ip, dtype=torch.int64, device=self.device)
         self.p_out = torch.tensor(p_out, dtype=torch.int64, device=self.device)
         self.mat = torch.tensor(mat, dtype=torch.int64, device=self.device)
+        lv = 4 * mat_vecs(self.L_in)
+        words = [w for q, w, ws in zip(q_in, ip, shoup) for w in (q, w, ws, 0)]
+        words += [w for p, r, c in zip(p_out, self.ratio, self.cadence)
+                  for w in (p, r & 0xFFFFFFFF, r >> 32, c)]
+        words += [w for row in mat for w in list(row) + [0] * (lv - self.L_in)]
         self.kernel_tables = torch.from_numpy(
-            words.astype(np.uint32).view(np.int32)).to(self.device)
+            np.array(words, dtype=np.uint64).astype(np.uint32).view(np.int32)).to(self.device)
+
+    def _cadence(self, p: int, m_max: int) -> int:
+        """Output p's reduction cadence (see the class)."""
+        term = (self.max_in_modulus - 1) * m_max
+        return check_cadence(self.L_in if term == 0 else min(self.L_in, (_W64 - p) // term),
+                             term, p)
 
 
 def take_outputs(tabs: BConvTables, idx) -> BConvTables:
@@ -67,6 +107,15 @@ def take_outputs(tabs: BConvTables, idx) -> BConvTables:
     p_out, mat = tabs.p_out.tolist(), tabs.mat.tolist()
     return BConvTables(tabs.q_in.tolist(), tabs.ip.tolist(), [p_out[j] for j in idx],
                        [mat[j] for j in idx], tabs.device)
+
+
+def join_outputs(a: BConvTables, b: BConvTables) -> BConvTables:
+    """One conversion into a's output rows followed by b's, from the input
+    base they share (the Shenoy-Kumaresan pair, rns/rns_tool.py)."""
+    if not (torch.equal(a.q_in, b.q_in) and torch.equal(a.ip, b.ip)):
+        raise ValueError("[bconv] joined conversions must share their input base")
+    return BConvTables(a.q_in.tolist(), a.ip.tolist(), a.p_out.tolist() + b.p_out.tolist(),
+                       a.mat.tolist() + b.mat.tolist(), a.device)
 
 
 def base_convert_plain(x: torch.Tensor, tabs: BConvTables) -> torch.Tensor:
@@ -81,9 +130,10 @@ def base_convert_plain(x: torch.Tensor, tabs: BConvTables) -> torch.Tensor:
 
 def base_convert(x: torch.Tensor, tabs: BConvTables) -> torch.Tensor:
     """Fast base conversion of (..., L_in, n) residues: the kernel for a CUDA
-    tensor (made contiguous), the plain version for a CPU tensor."""
+    tensor, read where it lies when the kernel can address it (copied,
+    and the copy counted, when not), the plain version for a CPU tensor."""
     if x.is_cuda:
         from . import bconv_cuda
 
-        return bconv_cuda.base_convert(x.contiguous(), tabs)
+        return bconv_cuda.base_convert(bconv_cuda.addressable(x, tabs.L_in), tabs)
     return base_convert_plain(x, tabs)

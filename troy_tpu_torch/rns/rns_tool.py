@@ -262,7 +262,8 @@ class RNSTool(LastPrimeTool):
     def _rows(self, kind: str, rows: tuple | None) -> dict:
         """The per-row constants of the Bsk output rows (kind "bsk": the
         lifts and the floor) or the q output rows (kind "q": the SK
-        conversion) `rows`, every row when None; cached.  A limb shard
+        conversion, whose tables "sk" convert B into those rows and m_sk)
+        `rows`, every row when None; cached.  A limb shard
         (parallel/partition.py) computes only its own rows."""
         cache = self.__dict__.setdefault("_row_cache", {})
         if (kind, rows) in cache:
@@ -281,12 +282,15 @@ class RNSTool(LastPrimeTool):
                             BC.take_outputs(v, list(rows) + [m_tilde]) if k == "behz" else
                             BC.take_outputs(v, rows)) for k, v in full.items()}
         else:
-            full = dict(q=self.base_q.q.view(-1, 1), conv=self.conv_B_to_q.tables,
-                        prod_B=self.prod_B_mod_q, prod_B_m_sk=self.prod_B_m_sk_mod_q)
+            full = dict(q=self.base_q.q.view(-1, 1), prod_B=self.prod_B_mod_q,
+                        prod_B_m_sk=self.prod_B_m_sk_mod_q)
+            conv = self.conv_B_to_q.tables
             if rows is not None:
                 ix = torch.tensor(rows, dtype=torch.int64, device=self.device)
-                full = {k: (v[ix] if isinstance(v, torch.Tensor) else
-                            BC.take_outputs(v, rows)) for k, v in full.items()}
+                full = {k: v[ix] for k, v in full.items()}
+                conv = BC.take_outputs(conv, rows)
+            # B -> the q rows, then m_sk as the last row: one conversion
+            full["sk"] = BC.join_outputs(conv, self.conv_B_to_m_sk.tables)
         cache[kind, rows] = full
         return full
 
@@ -343,12 +347,13 @@ class RNSTool(LastPrimeTool):
         return U.sub_mod(w, x_div, c["q"])
 
     def _b_conv_sk(self, y: torch.Tensor, rows: tuple | None = None) -> torch.Tensor:
-        """Shenoy-Kumaresan exact conversion Bsk -> q (or the q rows `rows`)."""
+        """Shenoy-Kumaresan exact conversion Bsk -> q (or the q rows `rows`):
+        B -> q and B -> m_sk as one conversion of y's B rows, read where they
+        lie (the kernel takes the strided slice)."""
         c = self._rows("q", rows)
-        y_B = y[..., :-1, :].contiguous()
+        conv = BC.base_convert(y[..., :-1, :], c["sk"])
+        u, c_msk = conv[..., :-1, :], conv[..., -1:, :]
         y_msk = y[..., -1:, :]
-        u = BC.base_convert(y_B, c["conv"])
-        c_msk = self.conv_B_to_m_sk.convert(y_B)
         msk = self.m_sk.value
         alpha = U.mul_mod(U.sub_mod(c_msk, y_msk, msk), self.inv_prod_B_mod_m_sk, msk)
         q = c["q"]
