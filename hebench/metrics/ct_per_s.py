@@ -1,0 +1,5 @@
+"""Ciphertexts completed in the window over the window's seconds."""
+
+
+def read(rec):
+    return rec.completed_cts / rec.window_s if rec.window_s > 0 else None

@@ -1,0 +1,7 @@
+"""Device ms a batch of the operations launched inside the 'keyswitch' span."""
+
+from harness.stats import per_batch_ms
+
+
+def read(rec):
+    return per_batch_ms(rec, "keyswitch")
