@@ -330,6 +330,8 @@ from unittest import mock
 import numpy as np
 import torch
 
+from troy_tpu_torch.utils.timer import launch_counts, reset_launch_counts
+
 N = 8192
 Q_BITS = [30] * 7
 L_DATA = len(Q_BITS) - 1   # the special prime is dropped at the data levels
@@ -630,20 +632,6 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def launch_counts() -> dict:
-    from troy_tpu_torch.ops import ntt_cuda, ntt_mxu_cuda, bconv_cuda, fused_mul_cuda
-
-    return {**ntt_cuda.LAUNCHES, **ntt_mxu_cuda.LAUNCHES, **bconv_cuda.LAUNCHES,
-            **fused_mul_cuda.LAUNCHES}
-
-
-def reset_launch_counts():
-    from troy_tpu_torch.ops import ntt_cuda, ntt_mxu_cuda, bconv_cuda, fused_mul_cuda
-
-    for mod in (ntt_cuda, ntt_mxu_cuda, bconv_cuda, fused_mul_cuda):
-        mod.reset_launches()
 
 
 def all_plain():

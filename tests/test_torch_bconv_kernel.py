@@ -20,6 +20,7 @@ from troy_tpu_torch.core.modulus import Modulus
 from troy_tpu_torch.ops import bconv as BC, bconv_cuda
 from troy_tpu_torch.rns.rns_base import RNSBase, BaseConverter
 from troy_tpu_torch.rns.rns_tool import RNSTool, _aux_primes
+from troy_tpu_torch.utils.timer import reset_launch_counts
 
 RNG = np.random.default_rng(1717)
 LOG_N, L = 6, 6                       # the flagship's base q at a small degree
@@ -225,12 +226,12 @@ def test_strided_input_is_read_where_it_lies(pair):
            "coefficients not contiguous": view[..., ::2],
            "a broadcast row": view[:1, :1].expand(2, 3, lb, N),
            "limbs not at stride n": view.transpose(-1, -2).contiguous().transpose(-1, -2)}
-    bconv_cuda.reset_launches()
+    reset_launch_counts()
     for what, v in bad.items():
         assert bconv_cuda.row_stride(v, v.shape[-2]) is None, what
         assert bconv_cuda.addressable(v, v.shape[-2]).is_contiguous(), what
     assert bconv_cuda.addressable(view, lb) is view
     assert bconv_cuda.LAUNCHES == {"base_convert": 0, "base_convert_first": 0,
                                    "base_convert_copy": len(bad)}
-    bconv_cuda.reset_launches()
+    reset_launch_counts()
     assert torch.equal(BC.base_convert(view, tabs), BC.base_convert_plain(view.contiguous(), tabs))

@@ -29,6 +29,7 @@ from troy_tpu_torch.core.modulus import Modulus
 from troy_tpu_torch.ops import fused_mul as FM, fused_mul_cuda, ntt as NTT, ntt_cuda
 from troy_tpu_torch.ops.ntt64 import NTT64Tables
 from troy_tpu_torch.core.coeff_modulus import CoeffModulus
+from troy_tpu_torch.utils.timer import reset_launch_counts
 
 from .test_torch_ntt import U32, emulate_phases, jax_packs, residues, run_levels, shoup_lazy
 
@@ -313,8 +314,7 @@ def test_cluster_wrappers_refuse():
     {2, 4, 8, 16} (a split of 5), blocks of under two columns a CTA,
     a K4 shape the large kernel is not built for, a CPU tensor, a wide
     table and n above 131072 each raise, and nothing is counted."""
-    ntt_cuda.reset_launches()
-    fused_mul_cuda.reset_launches()
+    reset_launch_counts()
     cases = {
         "cluster of 32": (tables(17, 1, split=5)[1], "cluster of 32"),
         "under two columns a CTA": (tables(4, 1, split=2)[1], "fewer than two columns"),

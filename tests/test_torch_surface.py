@@ -76,6 +76,10 @@ PORT_ONLY = {
         **{n: "the samplers for a RandomGenerator or a torch.Generator"
            for n in ("new_seed", "sample_cbd", "sample_ternary", "sample_uniform", "stream")}},
     ("utils.random", "RandomGenerator"): {"aes_words": "the AES-CTR words (private in JAX)"},
+    ("utils.timer", None): {
+        "span": "the port's ranges on the torch.profiler trace (a flag check when off)",
+        **{n: "the hand-written kernels' launch counters, read and reset together"
+           for n in ("launch_counts", "reset_launch_counts")}},
     ("ops.galois", "GaloisTool"): {"coeff_table": "the cached permutation tables",
                                    "ntt_table": "the cached permutation tables"},
     ("ops.ntt", None): {n: KERNEL_LAYOUT for n in (

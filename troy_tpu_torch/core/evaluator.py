@@ -52,6 +52,7 @@ from ..ops import poly as P, rp as R, u32 as U, u64 as W
 from ..ops.galois import GaloisTool
 from ..rns.rns_base import RNSBase
 from ..utils import numth
+from ..utils.timer import span
 
 
 LIFTS = ("hps", "behz")
@@ -352,6 +353,7 @@ class Evaluator(LweOpsMixin):
         cache[rows, special] = part
         return part
 
+    @span("keyswitch")
     def _switch_key_impl(self, cd: ContextData, target_coeff: torch.Tensor,
                          keys: torch.Tensor, out_ntt: bool = False) -> torch.Tensor:
         """Keyswitch: target (..., L, n) coefficient-domain poly, keys
@@ -377,6 +379,7 @@ class Evaluator(LweOpsMixin):
         return self._ks_finish(cd, sw, body, tmp)
 
     @staticmethod
+    @span("ks_digits")
     def _ks_digits(cd: ContextData, sw: dict, target_coeff: torch.Tensor) -> torch.Tensor:
         """Digits D[..., i, j, :] = [target_i] as a residue mod output prime
         j, (..., L, rows, n), before the forward NTT.  At the fast width
@@ -392,6 +395,7 @@ class Evaluator(LweOpsMixin):
         return D_.contiguous()
 
     @staticmethod
+    @span("ks_inner")
     def _ks_inner(cd: ContextData, sw: dict, D_: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
         """The key inner product over the L digits (NTT form): (..., 2, rows,
         n).  The wide width sums (hi, lo) products, one Barrett per chunk

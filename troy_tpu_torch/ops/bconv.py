@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from . import u32 as U
+from ..utils.timer import span
 
 
 _W64 = 1 << 64
@@ -128,6 +129,7 @@ def base_convert_plain(x: torch.Tensor, tabs: BConvTables) -> torch.Tensor:
                      U.dot_terms(tabs.max_in_modulus, tabs.max_out_modulus))
 
 
+@span("bconv")
 def base_convert(x: torch.Tensor, tabs: BConvTables) -> torch.Tensor:
     """Fast base conversion of (..., L_in, n) residues: the kernel for a CUDA
     tensor, read where it lies when the kernel can address it (copied,

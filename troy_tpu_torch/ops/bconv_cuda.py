@@ -162,8 +162,3 @@ def kernel_info(l_in: int) -> dict:
         raise RuntimeError(f"[bconv_cuda] troy_bconv_info failed: CUDA error {err}")
     keys = ("threads", "regs", "local_bytes", "smem", "ctas_per_sm", "sms")
     return dict(zip(keys, out))
-
-
-def reset_launches():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0

@@ -234,8 +234,3 @@ def large_info(log_n: int, split: int) -> dict:
         raise RuntimeError(f"[fused_mul_cuda] large kernel info failed: CUDA error {err}")
     return dict(zip(("threads", "smem", "regs", "local_bytes", "ctas_per_sm",
                      "clusters"), info))
-
-
-def reset_launches():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0

@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from ..utils import numth
+from ..utils.timer import span
 from ..core.modulus import Modulus
 from . import ntt_mxu as MX
 
@@ -433,6 +434,7 @@ def ntt_inverse_plain(x: torch.Tensor, t: NTTTables) -> torch.Tensor:
 # takes any).
 # ---------------------------------------------------------------------------
 
+@span("ntt")
 def ntt_forward(x: torch.Tensor, t: NTTTables) -> torch.Tensor:
     """Forward NTT of (..., L, n) residues in [0, 2q) -> [0, q) NTT order."""
     if getattr(t, "mxu", None) is not None:
@@ -448,6 +450,7 @@ def ntt_forward(x: torch.Tensor, t: NTTTables) -> torch.Tensor:
     return ntt_forward_plain(x, t)
 
 
+@span("ntt")
 def ntt_inverse(x: torch.Tensor, t: NTTTables) -> torch.Tensor:
     """Inverse NTT of (..., L, n) residues in [0, q) -> [0, q) natural order."""
     if getattr(t, "mxu", None) is not None:

@@ -22,6 +22,7 @@ import torch
 
 from ..core.modulus import Modulus
 from ..utils import numth
+from ..utils.timer import span
 from . import u64 as W
 
 
@@ -124,6 +125,7 @@ def wide_scalar_pack(values, device="cpu") -> WideScalarTables:
     return WideScalarTables(values, device)
 
 
+@span("ntt")
 def ntt_forward64(x: torch.Tensor, t: NTT64Tables) -> torch.Tensor:
     """Forward negacyclic NTT along the last axis of (..., L, n) wide
     residues.  In: [0, 2q) natural order; out: [0, q) NTT order."""
@@ -143,6 +145,7 @@ def ntt_forward64(x: torch.Tensor, t: NTT64Tables) -> torch.Tensor:
     return x
 
 
+@span("ntt")
 def ntt_inverse64(x: torch.Tensor, t: NTT64Tables) -> torch.Tensor:
     """Inverse negacyclic NTT along the last axis, scaled by n^-1.  In:
     [0, q) NTT order; out: [0, q) natural order."""

@@ -243,8 +243,3 @@ def cluster_info(inverse: bool, log_n: int, split: int, threads: int = 256) -> d
         raise RuntimeError(f"[ntt_cuda] cluster kernel info failed: CUDA error {err}")
     return dict(zip(("threads", "smem", "regs", "local_bytes", "ctas_per_sm", "clusters"),
                     info))
-
-
-def reset_launches():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0

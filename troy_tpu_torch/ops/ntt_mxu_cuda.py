@@ -300,8 +300,3 @@ def cluster_info(inverse: bool, log_n: int, log_c: int | None = None) -> dict:
     if err != 0:
         raise RuntimeError(f"[ntt_mxu_cuda] cluster kernel info failed: CUDA error {err}")
     return dict(zip(CL_INFO, info))
-
-
-def reset_launches():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0

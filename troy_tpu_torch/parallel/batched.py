@@ -37,6 +37,7 @@ from ..ops.galois import GaloisTool
 from ..utils.numth import naf
 from ..utils.random import (cbd_from_keys, fold_in_keys, ternary_from_keys,
                             uniform_from_keys)
+from ..utils.timer import span
 from . import partition
 from .mesh import ShardedTensor
 
@@ -79,6 +80,7 @@ class BatchedEvaluator:
     def add(self, d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
         return P.add(d1, d2, self.cd.qtab())
 
+    @span("multiply")
     def multiply(self, d1: torch.Tensor, d2: torch.Tensor | None = None) -> torch.Tensor:
         if self.ntt_form:
             qtab = self.cd.qtab()
@@ -169,8 +171,8 @@ class BatchedEvaluator:
             raise ValueError("[BatchedEvaluator.build_rescale_step] CKKS only")
         if self.cd.is_last():
             raise ValueError("[BatchedEvaluator.build_rescale_step] last level")
-        return self._batch_split(lambda be: lambda d: be.cd.rns_tool.divide_and_round_q_last_ntt(
-            d, be.cd.qtab()))
+        return self._batch_split(lambda be: span("rescale")(
+            lambda d: be.cd.rns_tool.divide_and_round_q_last_ntt(d, be.cd.qtab())))
 
     def build_mod_switch_step(self):
         """Returns fn d -> d at the next level (ref: evaluator_modswitch.cu:14):

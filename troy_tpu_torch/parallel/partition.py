@@ -52,6 +52,7 @@ from ..core.lwe_ops import LweOpsMixin
 from ..core.params import SchemeType
 from ..ops import poly as P, rp as R
 from ..ops.galois import GaloisTool
+from ..utils.timer import launch_counts
 
 
 # ---------------------------------------------------------------------------
@@ -112,12 +113,6 @@ def _limb_part(ev, cd, K: int, k: int, dev) -> dict:
     return dict(cache[K, k], ev=ev_d, cd=cd_d)
 
 
-def _launch_counts() -> dict:
-    from ..ops import bconv_cuda, ntt_cuda, ntt_mxu_cuda
-
-    return {**ntt_cuda.LAUNCHES, **ntt_mxu_cuda.LAUNCHES, **bconv_cuda.LAUNCHES}
-
-
 # ---------------------------------------------------------------------------
 # a group of shards
 # ---------------------------------------------------------------------------
@@ -143,9 +138,9 @@ class Group:
 
     def run(self, k: int, fn, *args):
         """fn(*args) as shard k's stage: its work, with the launches it made."""
-        before = _launch_counts()
+        before = launch_counts()
         out = fn(*args)
-        after = _launch_counts()
+        after = launch_counts()
         i = self.flat[k]
         for r in self.recs:
             r.work[i] = r.work.get(i, 0) + 1

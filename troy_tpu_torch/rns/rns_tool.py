@@ -42,6 +42,7 @@ import torch
 
 from ..core.modulus import Modulus
 from ..utils import numth
+from ..utils.timer import span
 from ..ops import bconv as BC, ntt as NTT, u32 as U
 from ..ops.ntt import NTTTables
 from .rns_base import RNSBase, BaseConverter
@@ -294,6 +295,7 @@ class RNSTool(LastPrimeTool):
         cache[kind, rows] = full
         return full
 
+    @span("lift")
     def fast_b_conv_hps(self, x: torch.Tensor, rows: tuple | None = None) -> torch.Tensor:
         """x: (..., L, n) in base q -> (..., |Bsk|, n) (or the Bsk rows
         `rows`): a fast conversion with alpha = round(sum_i y_i / q_i)
@@ -311,6 +313,7 @@ class RNSTool(LastPrimeTool):
     # ------------------------------------------------------------------
     # BFV multiply, reference-exact BEHZ lift (steps 1-2)
     # ------------------------------------------------------------------
+    @span("lift")
     def fast_b_conv_m_tilde_sm_mrq(self, x: torch.Tensor,
                                    rows: tuple | None = None) -> torch.Tensor:
         """x: (..., L, n) in base q -> (..., |Bsk|, n) (or the Bsk rows
@@ -337,6 +340,7 @@ class RNSTool(LastPrimeTool):
         domain) in base q and Bsk; returns floor(t*d/Q) in base q."""
         return self._b_conv_sk(self._floor(d_q, d_bsk))
 
+    @span("floor")
     def _floor(self, d_q: torch.Tensor, d_bsk: torch.Tensor,
                rows: tuple | None = None) -> torch.Tensor:
         """floor(t d / Q) in Bsk (or its rows `rows`; d_bsk holds those
@@ -346,6 +350,7 @@ class RNSTool(LastPrimeTool):
         w = U.mul_mod(d_bsk, c["ff_t_qinv"], c["q"])
         return U.sub_mod(w, x_div, c["q"])
 
+    @span("sk")
     def _b_conv_sk(self, y: torch.Tensor, rows: tuple | None = None) -> torch.Tensor:
         """Shenoy-Kumaresan exact conversion Bsk -> q (or the q rows `rows`):
         B -> q and B -> m_sk as one conversion of y's B rows, read where they
